@@ -7,7 +7,7 @@ The same layers as the JAX package, run on one NVIDIA Hopper card:
                       tensors; hand-written CUDA kernels under csrc/
   relations           R1CS (host authoring + device CSR mat-vec)
   reductions          r1cs -> qap
-  proof_systems       Groth16 over alt_bn128
+  proof_systems       Groth16 over alt_bn128 and BLS12-377
 
 Every entry point runs on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``; on CPU tensors each kernel wrapper runs its plain

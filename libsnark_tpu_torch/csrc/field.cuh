@@ -5,18 +5,25 @@
 // Interface layout (what the wrappers pass): 16-bit limbs in int32 words,
 // limbs leading, so limb k of element t of a length-L batch is at k*L + t
 // and neighbouring threads read neighbouring words. In registers an element
-// is NW = 8 words of 32 bits; products are 64-bit. R stays 2^256, so the
-// Montgomery form is the JAX package's (R = 2^(16*16)); only the REDC
-// constant differs: n0inv = -p^-1 mod 2^32 here (mod 2^16 in the JAX code).
+// is NW words of 32 bits (a template parameter: 8 for a 256-bit modulus,
+// 12 for a 384-bit one; the interface has NL = 2*NW limbs); products are
+// 64-bit. R = 2^(32*NW) is the JAX package's 2^(16*N), so the Montgomery
+// form is the same; only the REDC constant differs: n0inv = -p^-1 mod 2^32
+// here (mod 2^16 in the JAX code). Nothing below assumes that p fills its
+// top word: CIOS keeps an (NW+2)-word accumulator, its result is < 2p for
+// any p < R, and fp_reduce_once takes the carry word beside the NW words.
 //
 // Every value a function returns is canonical (< p), so any correct
 // formula gives the JAX package's bits exactly.
+//
+// Every function is a template over NW. Each source instantiates its
+// kernels for NW = 8 and NW = 12 and its C entries take the width as their
+// first argument (nw); one more width is one more case in each source's
+// launch switch.
 #pragma once
 #include <stdint.h>
 
-#define NW 8    // 32-bit words per base-field element
-#define NL 16   // 16-bit limbs per base-field element at the interface
-
+template <int NW>
 struct Mod {
   uint32_t p[NW];     // modulus
   uint32_t one[NW];   // R mod p (Montgomery one)
@@ -25,14 +32,16 @@ struct Mod {
   int32_t beta_neg;   // non-residue is -beta_small
 };
 
+template <int NW>
 struct Fp {
   uint32_t w[NW];
 };
 
 // ---------------------------------------------------------------- load/store
-__device__ __forceinline__ Fp fp_load(const int32_t* __restrict__ base,
-                                      int64_t stride, int64_t idx) {
-  Fp r;
+template <int NW>
+__device__ __forceinline__ Fp<NW> fp_load(const int32_t* __restrict__ base,
+                                          int64_t stride, int64_t idx) {
+  Fp<NW> r;
 #pragma unroll
   for (int k = 0; k < NW; ++k) {
     uint32_t lo = (uint32_t)base[(2 * k) * stride + idx];
@@ -42,9 +51,10 @@ __device__ __forceinline__ Fp fp_load(const int32_t* __restrict__ base,
   return r;
 }
 
+template <int NW>
 __device__ __forceinline__ void fp_store(int32_t* __restrict__ base,
                                          int64_t stride, int64_t idx,
-                                         const Fp& a) {
+                                         const Fp<NW>& a) {
 #pragma unroll
   for (int k = 0; k < NW; ++k) {
     base[(2 * k) * stride + idx] = (int32_t)(a.w[k] & 0xFFFFu);
@@ -52,9 +62,10 @@ __device__ __forceinline__ void fp_store(int32_t* __restrict__ base,
   }
 }
 
-// row-major load: the NL limbs of one element are contiguous
-__device__ __forceinline__ Fp fp_load_row(const int32_t* __restrict__ row) {
-  Fp r;
+// row-major load: the 2*NW limbs of one element are contiguous
+template <int NW>
+__device__ __forceinline__ Fp<NW> fp_load_row(const int32_t* __restrict__ row) {
+  Fp<NW> r;
 #pragma unroll
   for (int k = 0; k < NW; ++k)
     r.w[k] = ((uint32_t)row[2 * k] & 0xFFFFu) | ((uint32_t)row[2 * k + 1] << 16);
@@ -62,38 +73,44 @@ __device__ __forceinline__ Fp fp_load_row(const int32_t* __restrict__ row) {
 }
 
 // ------------------------------------------------------------------ helpers
-__device__ __forceinline__ Fp fp_zero() {
-  Fp r;
+template <int NW>
+__device__ __forceinline__ Fp<NW> fp_zero() {
+  Fp<NW> r;
 #pragma unroll
   for (int k = 0; k < NW; ++k) r.w[k] = 0;
   return r;
 }
 
-__device__ __forceinline__ Fp fp_from(const uint32_t* w) {
-  Fp r;
+template <int NW>
+__device__ __forceinline__ Fp<NW> fp_from(const uint32_t* w) {
+  Fp<NW> r;
 #pragma unroll
   for (int k = 0; k < NW; ++k) r.w[k] = w[k];
   return r;
 }
 
-__device__ __forceinline__ bool fp_is_zero(const Fp& a) {
+template <int NW>
+__device__ __forceinline__ bool fp_is_zero(const Fp<NW>& a) {
   uint32_t acc = 0;
 #pragma unroll
   for (int k = 0; k < NW; ++k) acc |= a.w[k];
   return acc == 0;
 }
 
-__device__ __forceinline__ Fp fp_select(bool c, const Fp& a, const Fp& b) {
-  Fp r;
+template <int NW>
+__device__ __forceinline__ Fp<NW> fp_select(bool c, const Fp<NW>& a,
+                                            const Fp<NW>& b) {
+  Fp<NW> r;
 #pragma unroll
   for (int k = 0; k < NW; ++k) r.w[k] = c ? a.w[k] : b.w[k];
   return r;
 }
 
 // r = a - p if a >= p (a < 2p, with an extra top word `top`)
-__device__ __forceinline__ Fp fp_reduce_once(const Fp& a, uint32_t top,
-                                             const Mod& M) {
-  Fp d;
+template <int NW>
+__device__ __forceinline__ Fp<NW> fp_reduce_once(const Fp<NW>& a, uint32_t top,
+                                                 const Mod<NW>& M) {
+  Fp<NW> d;
   uint64_t borrow = 0;
 #pragma unroll
   for (int k = 0; k < NW; ++k) {
@@ -103,12 +120,14 @@ __device__ __forceinline__ Fp fp_reduce_once(const Fp& a, uint32_t top,
   }
   // a >= p  <=>  no borrow out of the NW words, or a carry word on top
   bool ge = (top != 0) || (borrow == 0);
-  return fp_select(ge, d, a);
+  return fp_select<NW>(ge, d, a);
 }
 
 // --------------------------------------------------------------- arithmetic
-__device__ __forceinline__ Fp fp_add(const Fp& a, const Fp& b, const Mod& M) {
-  Fp s;
+template <int NW>
+__device__ __forceinline__ Fp<NW> fp_add(const Fp<NW>& a, const Fp<NW>& b,
+                                         const Mod<NW>& M) {
+  Fp<NW> s;
   uint64_t carry = 0;
 #pragma unroll
   for (int k = 0; k < NW; ++k) {
@@ -116,11 +135,13 @@ __device__ __forceinline__ Fp fp_add(const Fp& a, const Fp& b, const Mod& M) {
     s.w[k] = (uint32_t)t;
     carry = t >> 32;
   }
-  return fp_reduce_once(s, (uint32_t)carry, M);
+  return fp_reduce_once<NW>(s, (uint32_t)carry, M);
 }
 
-__device__ __forceinline__ Fp fp_sub(const Fp& a, const Fp& b, const Mod& M) {
-  Fp d;
+template <int NW>
+__device__ __forceinline__ Fp<NW> fp_sub(const Fp<NW>& a, const Fp<NW>& b,
+                                         const Mod<NW>& M) {
+  Fp<NW> d;
   uint64_t borrow = 0;
 #pragma unroll
   for (int k = 0; k < NW; ++k) {
@@ -140,16 +161,20 @@ __device__ __forceinline__ Fp fp_sub(const Fp& a, const Fp& b, const Mod& M) {
   return d;
 }
 
-__device__ __forceinline__ Fp fp_neg(const Fp& a, const Mod& M) {
-  return fp_sub(fp_zero(), a, M);
+template <int NW>
+__device__ __forceinline__ Fp<NW> fp_neg(const Fp<NW>& a, const Mod<NW>& M) {
+  return fp_sub<NW>(fp_zero<NW>(), a, M);
 }
 
-__device__ __forceinline__ Fp fp_dbl(const Fp& a, const Mod& M) {
-  return fp_add(a, a, M);
+template <int NW>
+__device__ __forceinline__ Fp<NW> fp_dbl(const Fp<NW>& a, const Mod<NW>& M) {
+  return fp_add<NW>(a, a, M);
 }
 
-// CIOS Montgomery product a*b*2^-256 mod p (inputs canonical).
-__device__ __forceinline__ Fp fp_mul(const Fp& a, const Fp& b, const Mod& M) {
+// CIOS Montgomery product a*b*2^(-32 NW) mod p (inputs canonical).
+template <int NW>
+__device__ __forceinline__ Fp<NW> fp_mul(const Fp<NW>& a, const Fp<NW>& b,
+                                         const Mod<NW>& M) {
   uint32_t t[NW + 2];
 #pragma unroll
   for (int k = 0; k < NW + 2; ++k) t[k] = 0;
@@ -178,10 +203,10 @@ __device__ __forceinline__ Fp fp_mul(const Fp& a, const Fp& b, const Mod& M) {
     t[NW - 1] = (uint32_t)s;
     t[NW] = t[NW + 1] + (uint32_t)(s >> 32);
   }
-  Fp r;
+  Fp<NW> r;
 #pragma unroll
   for (int k = 0; k < NW; ++k) r.w[k] = t[k];
-  return fp_reduce_once(r, t[NW], M);
+  return fp_reduce_once<NW>(r, t[NW], M);
 }
 
 // The same product as a called function: one copy per kernel instead of
@@ -190,129 +215,150 @@ __device__ __forceinline__ Fp fp_mul(const Fp& a, const Fp& b, const Mod& M) {
 // they ran about 1.5-2x faster on an H100 and the build took half the
 // time. G1 and mont_mul keep the inlined body, which is faster there
 // (called, mont_mul needs a stack frame and ran about 3x slower).
-__device__ __noinline__ Fp fp_mul_call(const Fp& a, const Fp& b, const Mod& M) {
-  return fp_mul(a, b, M);
+template <int NW>
+__device__ __noinline__ Fp<NW> fp_mul_call(const Fp<NW>& a, const Fp<NW>& b,
+                                           const Mod<NW>& M) {
+  return fp_mul<NW>(a, b, M);
 }
 
 // ------------------------------------------------ extension-generic element
 // E = 1: Fp; E = 2: Fp2 = Fp[s]/(s^2 - beta), beta = (-1)^beta_neg *
-// beta_small. Coefficient c sits in field rows [c*NL, (c+1)*NL) of a
-// (E*NL, L) array, the JAX package's (2, N, L) -> (2N, L) flattening.
-template <int E>
+// beta_small. Coefficient c sits in field rows [c*NL, (c+1)*NL), NL = 2 NW,
+// of a (E*NL, L) array, the JAX package's (2, N, L) -> (2N, L) flattening.
+template <int NW, int E>
 struct Fe {
-  Fp c[E];
+  Fp<NW> c[E];
 };
 
-template <int E>
-__device__ __forceinline__ Fe<E> fe_load(const int32_t* base, int64_t stride,
-                                         int64_t idx) {
-  Fe<E> r;
+template <int NW, int E>
+__device__ __forceinline__ Fe<NW, E> fe_load(const int32_t* base,
+                                             int64_t stride, int64_t idx) {
+  Fe<NW, E> r;
 #pragma unroll
-  for (int c = 0; c < E; ++c) r.c[c] = fp_load(base + (int64_t)c * NL * stride, stride, idx);
+  for (int c = 0; c < E; ++c)
+    r.c[c] = fp_load<NW>(base + (int64_t)c * 2 * NW * stride, stride, idx);
   return r;
 }
 
-template <int E>
+template <int NW, int E>
 __device__ __forceinline__ void fe_store(int32_t* base, int64_t stride,
-                                         int64_t idx, const Fe<E>& a) {
+                                         int64_t idx, const Fe<NW, E>& a) {
 #pragma unroll
-  for (int c = 0; c < E; ++c) fp_store(base + (int64_t)c * NL * stride, stride, idx, a.c[c]);
+  for (int c = 0; c < E; ++c)
+    fp_store<NW>(base + (int64_t)c * 2 * NW * stride, stride, idx, a.c[c]);
 }
 
-template <int E>
-__device__ __forceinline__ Fe<E> fe_load_row(const int32_t* row) {
-  Fe<E> r;
+template <int NW, int E>
+__device__ __forceinline__ Fe<NW, E> fe_load_row(const int32_t* row) {
+  Fe<NW, E> r;
 #pragma unroll
-  for (int c = 0; c < E; ++c) r.c[c] = fp_load_row(row + c * NL);
+  for (int c = 0; c < E; ++c) r.c[c] = fp_load_row<NW>(row + c * 2 * NW);
   return r;
 }
 
-template <int E>
-__device__ __forceinline__ Fe<E> fe_zero() {
-  Fe<E> r;
+template <int NW, int E>
+__device__ __forceinline__ Fe<NW, E> fe_zero() {
+  Fe<NW, E> r;
 #pragma unroll
-  for (int c = 0; c < E; ++c) r.c[c] = fp_zero();
+  for (int c = 0; c < E; ++c) r.c[c] = fp_zero<NW>();
   return r;
 }
 
-template <int E>
-__device__ __forceinline__ Fe<E> fe_one(const Mod& M) {
-  Fe<E> r = fe_zero<E>();
-  r.c[0] = fp_from(M.one);
+template <int NW, int E>
+__device__ __forceinline__ Fe<NW, E> fe_one(const Mod<NW>& M) {
+  Fe<NW, E> r = fe_zero<NW, E>();
+  r.c[0] = fp_from<NW>(M.one);
   return r;
 }
 
-template <int E>
-__device__ __forceinline__ bool fe_is_zero(const Fe<E>& a) {
+template <int NW, int E>
+__device__ __forceinline__ bool fe_is_zero(const Fe<NW, E>& a) {
   bool z = true;
 #pragma unroll
-  for (int c = 0; c < E; ++c) z = z && fp_is_zero(a.c[c]);
+  for (int c = 0; c < E; ++c) z = z && fp_is_zero<NW>(a.c[c]);
   return z;
 }
 
-template <int E>
-__device__ __forceinline__ Fe<E> fe_select(bool s, const Fe<E>& a, const Fe<E>& b) {
-  Fe<E> r;
+template <int NW, int E>
+__device__ __forceinline__ Fe<NW, E> fe_select(bool s, const Fe<NW, E>& a,
+                                               const Fe<NW, E>& b) {
+  Fe<NW, E> r;
 #pragma unroll
-  for (int c = 0; c < E; ++c) r.c[c] = fp_select(s, a.c[c], b.c[c]);
+  for (int c = 0; c < E; ++c) r.c[c] = fp_select<NW>(s, a.c[c], b.c[c]);
   return r;
 }
 
-template <int E>
-__device__ __forceinline__ Fe<E> fe_add(const Fe<E>& a, const Fe<E>& b, const Mod& M) {
-  Fe<E> r;
+template <int NW, int E>
+__device__ __forceinline__ Fe<NW, E> fe_add(const Fe<NW, E>& a,
+                                            const Fe<NW, E>& b,
+                                            const Mod<NW>& M) {
+  Fe<NW, E> r;
 #pragma unroll
-  for (int c = 0; c < E; ++c) r.c[c] = fp_add(a.c[c], b.c[c], M);
+  for (int c = 0; c < E; ++c) r.c[c] = fp_add<NW>(a.c[c], b.c[c], M);
   return r;
 }
 
-template <int E>
-__device__ __forceinline__ Fe<E> fe_sub(const Fe<E>& a, const Fe<E>& b, const Mod& M) {
-  Fe<E> r;
+template <int NW, int E>
+__device__ __forceinline__ Fe<NW, E> fe_sub(const Fe<NW, E>& a,
+                                            const Fe<NW, E>& b,
+                                            const Mod<NW>& M) {
+  Fe<NW, E> r;
 #pragma unroll
-  for (int c = 0; c < E; ++c) r.c[c] = fp_sub(a.c[c], b.c[c], M);
+  for (int c = 0; c < E; ++c) r.c[c] = fp_sub<NW>(a.c[c], b.c[c], M);
   return r;
 }
 
-template <int E>
-__device__ __forceinline__ Fe<E> fe_neg(const Fe<E>& a, const Mod& M) {
-  Fe<E> r;
+template <int NW, int E>
+__device__ __forceinline__ Fe<NW, E> fe_neg(const Fe<NW, E>& a,
+                                            const Mod<NW>& M) {
+  Fe<NW, E> r;
 #pragma unroll
-  for (int c = 0; c < E; ++c) r.c[c] = fp_neg(a.c[c], M);
+  for (int c = 0; c < E; ++c) r.c[c] = fp_neg<NW>(a.c[c], M);
   return r;
 }
 
-template <int E>
-__device__ __forceinline__ Fe<E> fe_dbl(const Fe<E>& a, const Mod& M) {
-  return fe_add<E>(a, a, M);
+template <int NW, int E>
+__device__ __forceinline__ Fe<NW, E> fe_dbl(const Fe<NW, E>& a,
+                                            const Mod<NW>& M) {
+  return fe_add<NW, E>(a, a, M);
 }
 
 // a * beta in the base field: addition chain on |beta|, then the sign
-__device__ __forceinline__ Fp fp_mul_by_nonresidue(const Fp& a, const Mod& M) {
-  Fp out = a;
-  for (int k = 1; k < M.beta_small; ++k) out = fp_add(out, a, M);
-  return M.beta_neg ? fp_neg(out, M) : out;
+template <int NW>
+__device__ __forceinline__ Fp<NW> fp_mul_by_nonresidue(const Fp<NW>& a,
+                                                       const Mod<NW>& M) {
+  Fp<NW> out = a;
+  for (int k = 1; k < M.beta_small; ++k) out = fp_add<NW>(out, a, M);
+  return M.beta_neg ? fp_neg<NW>(out, M) : out;
 }
 
-__device__ __forceinline__ Fe<1> fe_mul(const Fe<1>& a, const Fe<1>& b, const Mod& M) {
-  Fe<1> r;
-  r.c[0] = fp_mul(a.c[0], b.c[0], M);
+template <int NW>
+__device__ __forceinline__ Fe<NW, 1> fe_mul(const Fe<NW, 1>& a,
+                                            const Fe<NW, 1>& b,
+                                            const Mod<NW>& M) {
+  Fe<NW, 1> r;
+  r.c[0] = fp_mul<NW>(a.c[0], b.c[0], M);
   return r;
 }
 
 // Karatsuba: v0 = a0 b0, v1 = a1 b1, t = (a0 + a1)(b0 + b1);
 // c0 = v0 + beta v1, c1 = t - v0 - v1
-__device__ __forceinline__ Fe<2> fe_mul(const Fe<2>& a, const Fe<2>& b, const Mod& M) {
-  Fp v0 = fp_mul_call(a.c[0], b.c[0], M);
-  Fp v1 = fp_mul_call(a.c[1], b.c[1], M);
-  Fp t = fp_mul_call(fp_add(a.c[0], a.c[1], M), fp_add(b.c[0], b.c[1], M), M);
-  Fe<2> r;
-  r.c[0] = fp_add(v0, fp_mul_by_nonresidue(v1, M), M);
-  r.c[1] = fp_sub(t, fp_add(v0, v1, M), M);
+template <int NW>
+__device__ __forceinline__ Fe<NW, 2> fe_mul(const Fe<NW, 2>& a,
+                                            const Fe<NW, 2>& b,
+                                            const Mod<NW>& M) {
+  Fp<NW> v0 = fp_mul_call<NW>(a.c[0], b.c[0], M);
+  Fp<NW> v1 = fp_mul_call<NW>(a.c[1], b.c[1], M);
+  Fp<NW> t = fp_mul_call<NW>(fp_add<NW>(a.c[0], a.c[1], M),
+                             fp_add<NW>(b.c[0], b.c[1], M), M);
+  Fe<NW, 2> r;
+  r.c[0] = fp_add<NW>(v0, fp_mul_by_nonresidue<NW>(v1, M), M);
+  r.c[1] = fp_sub<NW>(t, fp_add<NW>(v0, v1, M), M);
   return r;
 }
 
-template <int E>
-__device__ __forceinline__ Fe<E> fe_sqr(const Fe<E>& a, const Mod& M) {
+template <int NW, int E>
+__device__ __forceinline__ Fe<NW, E> fe_sqr(const Fe<NW, E>& a,
+                                            const Mod<NW>& M) {
   return fe_mul(a, a, M);
 }

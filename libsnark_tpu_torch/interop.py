@@ -3,7 +3,8 @@
 ``proving_key_from_numpy`` builds the port's ``Groth16ProvingKey`` from:
 
 * queries: name -> (x, y, inf) numpy triples -- uint32 limbs, limbs leading
-  ((N, n) for G1, (2, N, n) for G2), in Montgomery form, padded to the
+  ((N, n) for G1, (2, N, n) for G2; N = 16 for alt_bn128, 24 for
+  BLS12-377), in Montgomery form, padded to the
   power-of-two bucket, and a bool infinity mask (the layout of the JAX
   package's device arrays);
 * points: name -> integer affine coordinates of the host points

@@ -12,7 +12,7 @@ per-window sorted signed index list, gathers each point's row from the
 a negative digit, skips rows with y == 0 (the point at infinity) and
 accumulates with madd, repairing P == Q in-thread. Bound on the card:
 madd field products (~11 per point for G1, ~33 base products for G2),
-i.e. integer multiply throughput; rows are 128 (G1) or 256 (G2) bytes
+i.e. integer multiply throughput; rows are 8 N (G1) or 16 N (G2) bytes
 read once per window. Nothing carries across blocks: deterministic sums.
 
 horner_combine: one thread, sum_w 2^(c w) S_w MSB first (c doublings and
@@ -29,10 +29,10 @@ import ctypes
 import torch
 
 from . import cuda_lib
-from .cuda_ec import add_plain, counter_key, dbl_plain, ext_of, madd_plain
+from .cuda_ec import (add_plain, counter_key, counter_keys, dbl_plain,
+                      ext_of, madd_plain)
 
-LAUNCHES = {f"{k}_{f}": 0 for k in ("bucket_reduce", "horner_combine")
-            for f in ("fp", "fp2")}
+LAUNCHES = dict.fromkeys(counter_keys(("bucket_reduce", "horner_combine")), 0)
 
 
 def _field_view(fk, a):
@@ -92,7 +92,7 @@ def bucket_reduce(fk, rows, gidx, starts, counts):
     outs = [torch.empty((FW, nb), dtype=torch.int32, device=rows.device)
             for _ in range(3)]
     code = cuda_lib.lib("bucket").lsn_bucket_reduce(
-        ext_of(fk), rows.data_ptr(), m, gidx.data_ptr(), starts.data_ptr(),
+        fk.nw, ext_of(fk), rows.data_ptr(), m, gidx.data_ptr(), starts.data_ptr(),
         counts.data_ptr(), nb, *[o.data_ptr() for o in outs],
         ctypes.addressof(fk.mod), cuda_lib.stream_ptr(rows))
     cuda_lib.check(code, "bucket_reduce")
@@ -124,7 +124,7 @@ def horner_combine(fk, S, c: int):
     outs = [torch.empty((FW, 1), dtype=torch.int32, device=S[0].device)
             for _ in range(3)]
     code = cuda_lib.lib("bucket").lsn_horner(
-        ext_of(fk), *[a.data_ptr() for a in S], W, c,
+        fk.nw, ext_of(fk), *[a.data_ptr() for a in S], W, c,
         *[o.data_ptr() for o in outs], ctypes.addressof(fk.mod),
         cuda_lib.stream_ptr(S[0]))
     cuda_lib.check(code, "horner_combine")

@@ -1,12 +1,13 @@
 """Elementwise Jacobian group ops: the CUDA kernels and their plain versions.
 
 Replace the Pallas TPU kernels ``libsnark_tpu/ops/pallas_ec.py:_build_dbl``
-(``dbl``), ``_build_add`` (``add``) and ``_build_madd`` (``madd``), for G1
-(coordinates over Fp, ext = 1) and G2 (over Fp2, ext = 2), a = 0 curves.
+(``dbl``), ``_build_add`` (``add``), ``_build_madd`` (``madd``) and
+``_build_aadd`` (``aadd``), for G1 (coordinates over Fp, ext = 1) and G2
+(over Fp2, ext = 2), a = 0 curves, at every built field width.
 
 The kernels (csrc/ec.cu over csrc/ec.cuh) run one thread per lane. What
-bounds them on the card: the field products (dbl 7, madd 11, add 16 per
-lane for G1; three base products per Fp2 product for G2), i.e. 32-bit
+bounds them on the card: the field products (aadd 6, dbl 7, madd 11, add
+16 per lane for G1; three base products per Fp2 product for G2), i.e. 32-bit
 integer multiply throughput; each lane's limbs are read and written once
 and every coordinate stays in registers. The P == Q repair, which the TPU
 wrapper runs as a second dbl launch under a lax.cond (``_dbl_repair``,
@@ -25,9 +26,14 @@ import torch
 
 from . import cuda_lib
 
-# launches per kernel and coordinate field (fp: G1, fp2: G2)
-LAUNCHES = {f"{k}_{f}": 0 for k in ("dbl", "add", "madd")
-            for f in ("fp", "fp2")}
+def counter_keys(kernels):
+    """Launch-counter keys: one per kernel, coordinate field (fp: G1, fp2:
+    G2) and field width (N 16-bit limbs)."""
+    return [f"{k}_{f}_n{2 * nw}" for k in kernels for f in ("fp", "fp2")
+            for nw in cuda_lib.WIDTHS]
+
+
+LAUNCHES = dict.fromkeys(counter_keys(("dbl", "add", "madd", "aadd")), 0)
 
 
 def ext_of(fk) -> int:
@@ -36,7 +42,7 @@ def ext_of(fk) -> int:
 
 
 def counter_key(kernel: str, fk) -> str:
-    return f"{kernel}_fp2" if ext_of(fk) == 2 else f"{kernel}_fp"
+    return f"{kernel}_{'fp2' if ext_of(fk) == 2 else 'fp'}_n{fk.N}"
 
 
 # --------------------------------------------------------------- formulas
@@ -123,6 +129,30 @@ def madd_formula(F, P, Q_aff, valid=None, dbl_fn=None):
     return _select(F, skip, P, out)
 
 
+def aadd_formula(F, P_aff, Q_aff, dbl_fn=None):
+    """mmadd-2007-bl: both operands affine (x, y, inf), six products.
+    Infinity in the order of the JAX package's aadd: i2 lifts P, then i1
+    lifts Q, both give Z = 0; P == Q lanes take dbl((x1, y1, one))."""
+    dbl_fn = dbl_fn or (lambda A: dbl_formula(F, A))
+    x1, y1, i1 = P_aff
+    x2, y2, i2 = Q_aff
+    H = F.sub(x2, x1)
+    rr = F.double(F.sub(y2, y1))
+    I = F.double(F.double(F.sqr(H)))
+    J = F.mul(H, I)
+    V = F.mul(x1, I)
+    X3 = F.sub(F.sub(F.sqr(rr), J), F.double(V))
+    Y3 = F.sub(F.mul(rr, F.sub(V, X3)), F.double(F.mul(y1, J)))
+    Z3 = F.double(H)
+    one = F.one(tuple(i1.shape), i1.device)
+    need = (F.is_zero(H) & F.is_zero(rr)) & ~(i1 | i2)
+    out = _repair(F, need, (x1, y1, one), (X3, Y3, Z3), dbl_fn)
+    out = _select(F, i2, (x1, y1, one), out)
+    out = _select(F, i1, (x2, y2, one), out)
+    return (out[0], out[1],
+            F.select(i1 & i2, torch.zeros_like(out[2]), out[2]))
+
+
 # ---------------------------------------------------------------- plain
 
 def dbl_plain(fk, P, reps: int = 1):
@@ -138,6 +168,10 @@ def add_plain(fk, P, Q):
 
 def madd_plain(fk, P, Q_aff, valid=None):
     return madd_formula(fk.as_plain(), P, Q_aff, valid)
+
+
+def aadd_plain(fk, P_aff, Q_aff):
+    return aadd_formula(fk.as_plain(), P_aff, Q_aff)
 
 
 # ------------------------------------------------------------- launchers
@@ -173,7 +207,7 @@ def _call(fn_name, fk, ins, L, extra=(), kernel=""):
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
     f = getattr(cuda_lib.lib("ec"), fn_name)
     ptrs = [t.data_ptr() if t is not None else None for t in ins]
-    args = ([ext_of(fk)] + ptrs + [o.data_ptr() for o in outs] + [L]
+    args = ([fk.nw, ext_of(fk)] + ptrs + [o.data_ptr() for o in outs] + [L]
             + list(extra) + [ctypes.addressof(fk.mod),
                              cuda_lib.stream_ptr(outs[0])])
     cuda_lib.check(f(*args), kernel)
@@ -206,4 +240,17 @@ def madd(fk, P, Q_aff, valid=None):
     qi = _mask(q_inf, batch, L)
     va = _mask(valid, batch, L) if valid is not None else None
     outs = _call("lsn_ec_madd", fk, flat + [qi, va], L, (), "madd")
+    return _unflatten(fk, outs, batch)
+
+
+def aadd(fk, P_aff, Q_aff):
+    """Affine (x, y, inf) + affine (x, y, inf) -> Jacobian, one launch."""
+    x1, y1, i1 = P_aff
+    x2, y2, i2 = Q_aff
+    if not x1.is_cuda:
+        return aadd_plain(fk, P_aff, Q_aff)
+    flat, batch, L = _flatten(fk, (x1, y1, x2, y2))
+    ins = [flat[0], flat[1], _mask(i1, batch, L), flat[2], flat[3],
+           _mask(i2, batch, L)]
+    outs = _call("lsn_ec_aadd", fk, ins, L, (), "aadd")
     return _unflatten(fk, outs, batch)

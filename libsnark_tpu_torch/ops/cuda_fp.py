@@ -1,13 +1,13 @@
 """Batched Montgomery multiplication: the CUDA kernel and its plain version.
 
 Replaces the Pallas TPU kernel ``libsnark_tpu/ops/pallas_fp.py:_build_mul``
-(public ``mont_mul``). The kernel (csrc/fp.cu) runs one thread per lane:
-it loads both operands' 16 limbs (coalesced: limb k of lane t at k*L + t),
-repacks them into 8 words of 32 bits, runs CIOS with 64-bit products and
-stores 16 limbs. What bounds it on the card: at 2^20 lanes the 192 bytes
-each lane moves against ~64 32-bit multiply-adds put it near the memory
-bound; the design keeps every intermediate in registers and touches each
-word of input and output once.
+(public ``mont_mul``). The kernel (csrc/fp.cu, built per field width) runs
+one thread per lane: it loads both operands' N limbs (coalesced: limb k of
+lane t at k*L + t), repacks them into N/2 words of 32 bits, runs CIOS with
+64-bit products and stores N limbs. What bounds it on the card: at 2^20
+lanes the 12 N bytes each lane moves against N^2/2 + N/2 wide multiply-adds
+put it near the memory bound; the design keeps every intermediate in
+registers and touches each word of input and output once.
 
 The plain version computes the same canonical product in int64 torch ops
 over 16-bit limbs (a schoolbook product into lazy columns, then REDC).
@@ -23,7 +23,8 @@ import torch
 from . import cuda_lib
 from .limbs import LIMB_BITS, LIMB_MASK
 
-LAUNCHES = {"mont_mul": 0}
+# launches per field width (N 16-bit limbs)
+LAUNCHES = {f"mont_mul_n{2 * nw}": 0 for nw in cuda_lib.WIDTHS}
 
 
 def normalize(cols: torch.Tensor):
@@ -119,8 +120,8 @@ def mont_mul(fk, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
     L = a2.numel() // fk.N
     code = cuda_lib.lib("fp").lsn_mont_mul(
-        a2.data_ptr(), b2.data_ptr(), out.data_ptr(), L,
+        fk.nw, a2.data_ptr(), b2.data_ptr(), out.data_ptr(), L,
         ctypes.addressof(fk.mod), cuda_lib.stream_ptr(a2))
     cuda_lib.check(code, "mont_mul")
-    LAUNCHES["mont_mul"] += 1
+    LAUNCHES[f"mont_mul_n{fk.N}"] += 1
     return out

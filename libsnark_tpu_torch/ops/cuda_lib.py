@@ -1,11 +1,15 @@
 """Build and load the port's CUDA kernels; device resolution.
 
-Each ``csrc/*.cu`` source compiles with nvcc into its own shared library
-with a plain C interface (``sm_90a``), loaded with ctypes. The libraries are
-built at first use from the sources in the checkout, into
+Each ``csrc/*.cu`` source compiles with nvcc into one shared library with
+a plain C interface (``sm_90a``), loaded with ctypes. The kernels are
+templates over the field width and every source instantiates them for the
+widths in ``WIDTHS`` (32-bit words: 8 for a 16-limb modulus, 12 for a
+24-limb one); the C entries take the width as their first argument. The
+libraries are built at first use from the sources in the checkout, into
 ``libsnark_tpu_torch/build/`` (listed in .gitignore), one nvcc process per
-source, all started together. File names carry a hash of the sources, so
-an edited kernel is never served from a stale build.
+source, all started together.
+File names carry a hash of the sources, so an edited kernel is never served
+from a stale build.
 
 Every C entry returns ``cudaGetLastError()``; :func:`check` raises on a
 non-zero code. Pointers and the stream go through ``ctypes.c_void_p``
@@ -14,6 +18,7 @@ non-zero code. Pointers and the stream go through ``ctypes.c_void_p``
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -27,31 +32,40 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("fp", "ec", "bucket")
+WIDTHS = (8, 12)          # 32-bit words per element that csrc instantiates
+SOURCES = ("fp", "ec", "bucket", "probe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile", "0"]   # a source's kernels optimise in parallel
 
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _ARGTYPES = {
-    "fp": {"lsn_mont_mul": [_VP, _VP, _VP, _LL, _VP, _VP]},
+    "fp": {"lsn_mont_mul": [_I, _VP, _VP, _VP, _LL, _VP, _VP]},
     "ec": {
-        "lsn_ec_dbl": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _VP, _VP],
-        "lsn_ec_add": [_I] + [_VP] * 9 + [_LL, _VP, _VP],
-        "lsn_ec_madd": [_I] + [_VP] * 10 + [_LL, _VP, _VP],
+        "lsn_ec_dbl": [_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _VP,
+                       _VP],
+        "lsn_ec_add": [_I, _I] + [_VP] * 9 + [_LL, _VP, _VP],
+        "lsn_ec_madd": [_I, _I] + [_VP] * 10 + [_LL, _VP, _VP],
+        "lsn_ec_aadd": [_I, _I] + [_VP] * 9 + [_LL, _VP, _VP],
     },
     "bucket": {
-        "lsn_bucket_reduce": [_I, _VP, _LL, _VP, _VP, _VP, _LL, _VP, _VP,
+        "lsn_bucket_reduce": [_I, _I, _VP, _LL, _VP, _VP, _VP, _LL, _VP, _VP,
                               _VP, _VP, _VP],
-        "lsn_horner": [_I, _VP, _VP, _VP, _LL, _I, _VP, _VP, _VP, _VP, _VP],
+        "lsn_horner": [_I, _I, _VP, _VP, _VP, _LL, _I, _VP, _VP, _VP, _VP,
+                       _VP],
+    },
+    "probe": {
+        "lsn_probe_rate": [_I, _VP, _VP, _VP, _LL, _I, _VP],
+        "lsn_probe_cios": [_I, _I, _VP, _VP, _VP, _LL, _I, _VP, _VP],
     },
 }
 
 _lock = threading.Lock()
 _libs: dict = {}
 build_seconds = None      # wall time of the last build (None: not built)
-build_logs: dict = {}     # source -> nvcc/ptxas output of the last build
+build_logs: dict = {}     # library name -> nvcc/ptxas output of the last build
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -65,7 +79,7 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -85,47 +99,53 @@ def _digest() -> str:
     return h.hexdigest()[:12]
 
 
+def library_path(src: str) -> Path:
+    """Where the library of ``csrc/<src>.cu`` is (or will be) built."""
+    return BUILD_DIR / f"lib{src}-{_digest()}.so"
+
+
 def build_all() -> dict:
-    """Compile every source (in parallel) and load the libraries."""
+    """Compile every library (in parallel) and load them."""
     global build_seconds
     with _lock:
         if len(_libs) == len(SOURCES):
             return _libs
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tag = _digest()
         t0 = time.perf_counter()
         procs = {}
-        for name in SOURCES:
-            so = BUILD_DIR / f"lib{name}-{tag}.so"
+        for src in SOURCES:
+            so = library_path(src)
             if so.exists():
                 continue
-            tmp = BUILD_DIR / f"lib{name}-{tag}.{os.getpid()}.tmp.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True), tmp, so)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{src}.cu")]
+            procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), tmp, so)
         failed = []
-        for name, (proc, tmp, so) in procs.items():
+        for src, (proc, tmp, so) in procs.items():
             out, _ = proc.communicate()
-            build_logs[name] = out
+            build_logs[src] = out
             if proc.returncode != 0:
-                failed.append(f"{name}.cu:\n{out}")
+                failed.append(f"{src}:\n{out}")
             else:
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         build_seconds = time.perf_counter() - t0
-        for name in SOURCES:
-            lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}-{tag}.so"))
-            for fn, argtypes in _ARGTYPES[name].items():
+        for src in SOURCES:
+            lib = ctypes.CDLL(str(library_path(src)))
+            for fn, argtypes in _ARGTYPES[src].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-            _libs[name] = lib
+            _libs[src] = lib
         return _libs
 
 
-def lib(name: str):
-    return build_all()[name]
+def lib(src: str):
+    """The loaded library of one source (built at first use)."""
+    return build_all()[src]
 
 
 def check(code: int, what: str):
@@ -137,17 +157,38 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-class Mod(ctypes.Structure):
-    """Mirror of ``struct Mod`` in csrc/field.cuh."""
-    _fields_ = [("p", ctypes.c_uint32 * 8), ("one", ctypes.c_uint32 * 8),
-                ("n0inv", ctypes.c_uint32), ("beta_small", ctypes.c_int32),
-                ("beta_neg", ctypes.c_int32)]
+def words_of(num_limbs: int) -> int:
+    """32-bit words of a field with ``num_limbs`` 16-bit limbs. The kernels
+    pair limbs into words, so an odd limb count (R = 2^(16 N) is then no
+    power of 2^32) or a width that csrc does not instantiate is refused."""
+    if num_limbs % 2:
+        raise ValueError(f"the CUDA field layout pairs 16-bit limbs into "
+                         f"32-bit words: {num_limbs} limbs is odd")
+    if num_limbs // 2 not in WIDTHS:
+        raise ValueError(f"no kernels built for {num_limbs} limbs "
+                         f"(32-bit words: {WIDTHS})")
+    return num_limbs // 2
 
 
-def make_mod(p: int, one_mont: int, beta_small: int = 0,
-             beta_neg: bool = False) -> Mod:
-    words = lambda x: (ctypes.c_uint32 * 8)(
-        *[(x >> (32 * k)) & 0xFFFFFFFF for k in range(8)])
-    assert p < 1 << 256
+@functools.lru_cache(maxsize=None)
+def mod_type(nw: int):
+    """ctypes mirror of ``struct Mod<NW>`` in csrc/field.cuh."""
+    return type(f"Mod{nw}", (ctypes.Structure,), {"_fields_": [
+        ("p", ctypes.c_uint32 * nw), ("one", ctypes.c_uint32 * nw),
+        ("n0inv", ctypes.c_uint32), ("beta_small", ctypes.c_int32),
+        ("beta_neg", ctypes.c_int32)]})
+
+
+def make_mod(p: int, num_limbs: int, beta_small: int = 0,
+             beta_neg: bool = False):
+    """The kernels' constants for modulus p over ``num_limbs`` 16-bit
+    limbs: R = 2^(16 num_limbs) = 2^(32 NW), as in the JAX package."""
+    nw = words_of(num_limbs)
+    if not p < 1 << (32 * nw):
+        raise ValueError("modulus does not fit its limbs")
+    words = lambda x: (ctypes.c_uint32 * nw)(
+        *[(x >> (32 * k)) & 0xFFFFFFFF for k in range(nw)])
     n0inv = (-pow(p, -1, 1 << 32)) % (1 << 32)
-    return Mod(words(p), words(one_mont), n0inv, beta_small, int(beta_neg))
+    one_mont = (1 << (32 * nw)) % p
+    return mod_type(nw)(words(p), words(one_mont), n0inv, beta_small,
+                        int(beta_neg))

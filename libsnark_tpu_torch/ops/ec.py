@@ -3,8 +3,8 @@ libsnark_tpu/ops/ec.py).
 
 Points are Jacobian triples ``(X, Y, Z)`` of field tensors (infinity is
 Z = 0), batched on trailing axes, generic over the coordinate field
-(FpKernel for G1, Fp2Kernel for G2). On a = 0 curves dbl / add / madd go
-through the kernels of ops/cuda_ec.py (their plain versions on CPU
+(FpKernel for G1, Fp2Kernel for G2). On a = 0 curves dbl / add / madd /
+aadd go through the kernels of ops/cuda_ec.py (their plain versions on CPU
 tensors); curves with an a-coefficient (``mul_by_a`` set) stay on torch
 formulas (dbl-2007-bl), as in the JAX package.
 """
@@ -91,6 +91,14 @@ class CurveKernel:
             return cuda_ec.madd(self.fk, P, Q_aff, valid)
         return cuda_ec.madd_formula(self.fk, P, Q_aff, valid,
                                     self._dbl_generic)
+
+    def aadd(self, P_aff, Q_aff):
+        """Affine + affine -> Jacobian (mmadd-2007-bl, six products): both
+        operands are (x, y, inf) triples, the shape of level 0 of the
+        dense MSM's bucket tree."""
+        if self.mul_by_a is None:
+            return cuda_ec.aadd(self.fk, P_aff, Q_aff)
+        return cuda_ec.aadd_formula(self.fk, P_aff, Q_aff, self._dbl_generic)
 
     # -- conversions -------------------------------------------------------------
     def to_affine(self, P):

@@ -3,7 +3,8 @@ libsnark_tpu/ops/fp.py).
 
 Values are ``(N, *batch)`` int32 tensors of 16-bit limbs, limbs leading,
 in Montgomery form x*R mod p with R = 2^(16 N), exactly the JAX package's
-layout and form. Every operation returns canonical limbs (< p), so the
+layout and form. N is 16 (a 256-bit modulus) or 24 (384 bits); the kernels
+pair limbs into 32-bit words, so an odd N is refused at construction. Every operation returns canonical limbs (< p), so the
 results are bit-identical to the JAX ``FpKernel``'s.
 
 ``mul`` goes through ``ops/cuda_fp.mont_mul``: the CUDA kernel for tensors
@@ -39,7 +40,8 @@ class FpKernel:
         self.device = cuda_lib.resolve_device(device)
         self.plain = plain
         self.one_mont = params.R % params.p
-        self.mod = cuda_lib.make_mod(self.p, self.one_mont)
+        self.nw = cuda_lib.words_of(self.N)     # raises on an odd or unbuilt N
+        self.mod = cuda_lib.make_mod(self.p, self.N)
         self._consts = {}
         self._plain_twin = None
 

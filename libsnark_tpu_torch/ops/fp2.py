@@ -1,7 +1,8 @@
 """Batched quadratic-extension field (the port of libsnark_tpu/ops/fp2.py).
 
 Elements have shape (2, N, *batch): coefficient axis leading, then limbs,
-then batch. Used for G2 on alt_bn128 (beta = -1). Karatsuba
+then batch. Used for G2 on alt_bn128 (beta = -1) and BLS12-377
+(beta = -5). Karatsuba
 multiplication with its 3 base products stacked into one call.
 """
 from __future__ import annotations
@@ -24,7 +25,8 @@ class Fp2Kernel:
         self.N = fp.N
         self.device = fp.device
         self._plain_twin = None
-        self.mod = cuda_lib.make_mod(fp.p, fp.one_mont, self.beta_small,
+        self.nw = fp.nw
+        self.mod = cuda_lib.make_mod(fp.p, fp.N, self.beta_small,
                                      self.beta_is_neg)
 
     def __hash__(self):

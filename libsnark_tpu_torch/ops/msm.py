@@ -6,18 +6,27 @@ Variable-base MSM, signed-digit Pippenger:
   2. one packed sort key per (window, point): |digit|, sign, point index --
      the sorted key yields each position's signed row index idx + sign*m
      and ``searchsorted`` gives every bucket's run;
-  3. ``bucket_reduce`` (ops/cuda_bucket.py): one kernel launch reduces all
-     bucket runs, cut into segments of bounded length (one thread each,
-     gathering its own rows); a pairwise add tree joins the segments of a
-     bucket;
+  3. bucket accumulation, by the kernel's ``strategy``:
+     ``"segments"`` (the default): ``bucket_reduce`` (ops/cuda_bucket.py),
+     one kernel launch reduces all bucket runs, cut into segments of
+     bounded length (one thread each, gathering its own rows); a pairwise
+     add tree joins the segments of a bucket;
+     ``"dense"``: the runs are gathered into a dense (depth, window,
+     bucket) layout, level 0 is one ``aadd`` launch on pairs of affine
+     rows, the levels above are ``add`` launches (a log-depth tree), and
+     buckets deeper than the chunk depth take further chunks;
   4. sum_j j*S_j per window = sum_{j>=1} T_j, with T the suffix sums (one
      Hillis-Steele point scan + a log-depth lane reduction, add kernel);
   5. ``horner_combine`` joins the windows in one launch.
 
-This ports the RESULT of the JAX ``window_sums_fused``, not its TPU shape:
-the R_SUB roll tree, 128-bucket tiles, VMEM caps, two-class depth, virtual
-sub-bucket splits and the 2^16 SEGMENT scan are artifacts of Mosaic and
-the compile service, and the GPU kernel needs none of them.
+``"segments"`` ports the RESULT of the JAX ``window_sums_fused``, not its
+TPU shape: the R_SUB roll tree, 128-bucket tiles, VMEM caps, two-class
+depth, virtual sub-bucket splits and the 2^16 SEGMENT scan are artifacts of
+Mosaic and the compile service, and the GPU kernel needs none of them.
+``"dense"`` ports ``window_sums_dense``, the configuration the JAX package
+runs with its fused kernel switched off and the only one of its curves
+with an a-coefficient. Both give the same affine sums; the Jacobian
+window sums differ.
 
 Fixed-base batch exp (libff batch_exp / get_window_table): device-built
 window tables via a point prefix scan, then one gather + madd per window.
@@ -44,6 +53,17 @@ def default_window_bits(m: int) -> int:
     return max(4, min(16, int(math.log2(max(m, 2))) - 5))
 
 
+STRATEGIES = ("segments", "dense")
+
+# Dense strategy: bytes one chunk may hold on the card. A chunk of K lanes
+# holds the gathered rows, their limb-major copy, the operand copies of the
+# level-0 launch and its output: about 32 bytes per lane and coordinate
+# limb. The JAX package caps a chunk at 2^22 lanes for the TPU's memory;
+# 8 GiB of an 80 GB card allow 16M lanes for a 16-limb G1 and 2.8M for a
+# 24-limb G2. The cap changes the chunk count, never a result.
+DENSE_CHUNK_BYTES = 8 << 30
+
+
 def _tree_map(f, *pts):
     return tuple(f(*xs) for xs in zip(*pts))
 
@@ -51,20 +71,26 @@ def _tree_map(f, *pts):
 class MSMKernel:
     """MSM over one curve group.
 
-    ck: CurveKernel (G1 or G2); scalar_bits: bit length of r.
+    ck: CurveKernel (G1 or G2); scalar_bits: bit length of r; strategy:
+    the bucket accumulation of ``window_sums`` (see the module doc).
     """
 
-    def __init__(self, ck, scalar_bits: int):
+    def __init__(self, ck, scalar_bits: int, strategy: str = "segments"):
+        if strategy not in STRATEGIES:
+            raise ValueError(f"unknown MSM strategy {strategy!r}; "
+                             f"available: {STRATEGIES}")
         self.ck = ck
         self.fk = ck.fk
         self.scalar_bits = scalar_bits
+        self.strategy = strategy
 
     def __hash__(self):
-        return hash((self.ck, self.scalar_bits))
+        return hash((self.ck, self.scalar_bits, self.strategy))
 
     def __eq__(self, o):
         return (isinstance(o, MSMKernel) and o.ck == self.ck
-                and o.scalar_bits == self.scalar_bits)
+                and o.scalar_bits == self.scalar_bits
+                and o.strategy == self.strategy)
 
     # ------------------------------------------------------------------ digits
     def num_windows(self, c: int) -> int:
@@ -124,15 +150,19 @@ class MSMKernel:
         counts[:, 0] = 0
         return gidx, starts, counts
 
-    def row_table(self, points_aff):
+    def row_table(self, points_aff, signed: bool = False):
         """Affine (x, y, inf) -> (m, 2FW) int32 rows [x | y], infinity
-        rows all zero (y == 0 is never a valid affine point here)."""
+        rows all zero (y == 0 is never a valid affine point here).
+        signed: m further rows [x | -y], so that a signed row index
+        idx + sign*m gathers the point a negative digit adds."""
         x, y, inf = points_aff
         FW = ext_of(self.fk) * self.fk.N
         m = x.shape[-1]
-        rows = torch.cat([x.reshape(FW, m), y.reshape(FW, m)], dim=0).T
-        return torch.where(inf.reshape(m, 1), torch.zeros_like(rows),
-                           rows).contiguous()
+        ys = [y, self.fk.neg(y)] if signed else [y]
+        rows = torch.cat([torch.cat([x.reshape(FW, m), v.reshape(FW, m)],
+                                    dim=0).T for v in ys], dim=0)
+        dead = inf.reshape(m, 1).repeat(len(ys), 1)
+        return torch.where(dead, torch.zeros_like(rows), rows).contiguous()
 
     # ------------------------------------------------------- point scan helpers
     def _shifted(self, pts, width: int, shift: int):
@@ -153,19 +183,20 @@ class MSMKernel:
             pts = self.ck.add(pts, self._shifted(pts, width, 1 << k))
         return pts
 
-    def _tree_reduce_points(self, P):
-        """Reduce a Jacobian point array over its LAST batch axis with a
-        halving add tree (odd widths padded with infinity)."""
+    def _tree_reduce_points(self, P, axis: int = -1):
+        """Reduce a Jacobian point array over one batch axis (the last by
+        default) with a halving add tree (odd widths padded with
+        infinity)."""
         ck = self.ck
-        width = P[0].shape[-1]
+        width = P[0].shape[axis]
         while width > 1:
             if width % 2:
                 P = _tree_map(lambda a: torch.cat(
-                    [a, torch.zeros_like(a[..., :1])], dim=-1), P)
+                    [a, torch.zeros_like(a.narrow(axis, 0, 1))], dim=axis), P)
                 width += 1
             h = width // 2
-            P = ck.add(_tree_map(lambda a: a[..., :h], P),
-                       _tree_map(lambda a: a[..., h:], P))
+            P = ck.add(_tree_map(lambda a: a.narrow(axis, 0, h), P),
+                       _tree_map(lambda a: a.narrow(axis, h, h), P))
             width = h
         return P
 
@@ -180,6 +211,13 @@ class MSMKernel:
         c = c or default_window_bits(scalars.shape[-1])
         S = self.window_sums(points_aff, scalars, c)
         return self.combine_windows(S, c)
+
+    def window_sums(self, points_aff, scalars, c: int):
+        """Per-window bucket-aggregated sums S_w (leading axis W), by the
+        kernel's strategy."""
+        if self.strategy == "dense":
+            return self.window_sums_dense(points_aff, scalars, c)
+        return self.window_sums_segments(points_aff, scalars, c)
 
     def bucket_segments(self, scalars, c: int):
         """Sort front end + bucket runs cut into bounded segments.
@@ -235,9 +273,9 @@ class MSMKernel:
         out = ck.zero((num_buckets,), dev)
         return tuple(o.index_copy(-1, bucket, a) for o, a in zip(out, P))
 
-    def window_sums(self, points_aff, scalars, c: int):
-        """Per-window bucket-aggregated sums S_w (leading axis W), the
-        result of the JAX ``window_sums_fused``."""
+    def window_sums_segments(self, points_aff, scalars, c: int):
+        """Window sums through ``bucket_reduce`` (the result of the JAX
+        ``window_sums_fused``)."""
         fk = self.fk
         lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
         B = 1 << (c - 1)
@@ -250,9 +288,113 @@ class MSMKernel:
             tuple(a.reshape(lead + (a.shape[-1],)) for a in flat),
             seg["seg_bucket"], seg["num_buckets"])
         buckets = tuple(a.reshape(lead + (W, B + 1)) for a in sums)
+        return self._aggregate_buckets(buckets, B)
+
+    def _aggregate_buckets(self, buckets, B: int):
+        """(.., W, B+1) bucket sums -> sum_j j*S_j per window, (W, .., 1):
+        sum_{j>=1} T_j with T the suffix sums."""
         T = self._suffix_scan_add(buckets, B + 1)
         S_w = self._tree_reduce_points(_tree_map(lambda a: a[..., 1:], T))
         return _tree_map(lambda a: a.movedim(-2, 0), S_w)   # (W, lead, 1)
+
+    # --------------------------------------------------------- dense strategy
+    def dense_depth(self, m: int, nb: int, groups: int,
+                    lanes_per_depth: int) -> int:
+        """Chunk depth R of the dense layout for ``groups`` buckets of mean
+        occupancy m / nb: the mean plus the extreme-value bound on a
+        near-binomial maximum, sqrt(2 var ln n), times 1.35, plus slack (the
+        JAX package's choice: a tight R with a rare second chunk), capped so
+        that one chunk of ``lanes_per_depth`` * R lanes stays within
+        ``DENSE_CHUNK_BYTES`` on the card; even, for a clean tree."""
+        mean = m / max(1, nb)
+        R = int(mean + 1.35 * math.sqrt(
+            2.0 * max(mean, 1.0) * math.log(max(groups, 2))) + 8)
+        R = min(max(R, 8), max(m, 2))
+        FW = ext_of(self.fk) * self.fk.N
+        cap = DENSE_CHUNK_BYTES // (32 * FW)
+        R = min(R, max(16, cap // max(1, lanes_per_depth)))
+        return R + R % 2
+
+    def _dense_reduce(self, rows, gidx, starts, counts, m: int, w_lo: int,
+                      w_hi: int, nb: int, R: int):
+        """Bucket sums of windows [w_lo, w_hi) over buckets [0, nb): runs
+        gathered R rows at a time into a (R, windows, buckets) layout --
+        depth leading, so that the halves of every tree level are
+        contiguous slabs -- level 0 by ``aadd`` on affine rows, the rest
+        by the ``add`` tree; a bucket deeper than R takes further chunks.
+        Returns Jacobian sums with batch shape (w_hi - w_lo, nb)."""
+        ck, fk = self.ck, self.fk
+        FW = ext_of(fk) * fk.N
+        lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
+        Wn = w_hi - w_lo
+        dev = rows.device
+        st = starts[w_lo:w_hi, :nb]
+        ct = counts[w_lo:w_hi, :nb]
+        max_count = int(ct.max()) if ct.numel() else 0
+        woff = (torch.arange(w_lo, w_hi, dtype=torch.int64, device=dev)
+                * m)[None, :, None]
+        r_idx = torch.arange(R, dtype=torch.int64, device=dev)[:, None, None]
+        half = R // 2
+        out = ck.zero((Wn, nb), dev)
+        for base in range(0, max_count, R):
+            depth = base + r_idx                              # (R, 1, 1)
+            pos = torch.clamp(st[None] + depth, 0, m - 1)     # (R, Wn, nb)
+            live = (depth < ct[None]).reshape(R, Wn * nb)
+            rg = gidx[(woff + pos).reshape(-1)]
+            gt = rows[rg].T.contiguous()                      # (2FW, K)
+            qx = gt[:FW].reshape(lead + (R, Wn * nb))
+            qy = gt[FW:].reshape(lead + (R, Wn * nb))
+            qinf = (gt[FW:] == 0).all(dim=0).reshape(R, Wn * nb) | ~live
+            lo = (qx.narrow(-2, 0, half), qy.narrow(-2, 0, half), qinf[:half])
+            hi = (qx.narrow(-2, half, half), qy.narrow(-2, half, half),
+                  qinf[half:])
+            P = self._tree_reduce_points(ck.aadd(lo, hi), axis=-2)
+            out = ck.add(out, _tree_map(
+                lambda a: a.reshape(lead + (Wn, nb)), P))
+        return out
+
+    def window_sums_dense(self, points_aff, scalars, c: int):
+        """Window sums through the dense bucket layout (the port of the JAX
+        ``window_sums_dense``); ``dense_depth`` gives the chunk depths.
+
+        Full windows share one (depth, windows, buckets) shape. A partial
+        top window covers eff < c scalar bits, so its digits land in about
+        2^eff buckets of occupancy m / 2^eff: it gets its own bucket count
+        and depth. A zero-width window behind a partial one holds only zero
+        digits (signed-digit carries escape full windows only)."""
+        ck = self.ck
+        m = scalars.shape[-1]
+        B = 1 << (c - 1)
+        digits, signs = self.signed_digits(scalars, c)         # (W, m)
+        W = digits.shape[0]
+        gidx, starts, counts = self._sort_signed_bounds(digits, signs, m, B)
+        gidx = gidx.reshape(-1)
+        rows = self.row_table(points_aff, signed=True)          # (2m, 2FW)
+        dev = rows.device
+
+        W_full = min(W, self.scalar_bits // c)
+        groups = []
+        if W_full > 0:
+            R = self.dense_depth(m, B, W * B, W_full * (B + 1))
+            groups.append(self._dense_reduce(rows, gidx, starts, counts, m,
+                                             0, W_full, B + 1, R))
+        for w in range(W_full, W):
+            eff = max(0, min(c, self.scalar_bits - c * w))
+            prev_eff = max(0, min(c, self.scalar_bits - c * (w - 1)))
+            if eff == 0 and prev_eff < c:
+                groups.append(ck.zero((1, B + 1), dev))
+                continue
+            nb = min(B + 1, (1 << eff) + 2)         # digits <= 2^eff + carry
+            Rw = self.dense_depth(m, max(1, nb - 2), nb, nb)
+            row = self._dense_reduce(rows, gidx, starts, counts, m, w, w + 1,
+                                     nb, Rw)
+            if nb < B + 1:
+                zpt = ck.zero((1, B + 1 - nb), dev)
+                row = tuple(torch.cat([a, z], dim=-1)
+                            for a, z in zip(row, zpt))
+            groups.append(row)
+        buckets = _tree_map(lambda *gs: torch.cat(gs, dim=-2), *groups)
+        return self._aggregate_buckets(buckets, B)
 
     def combine_windows(self, S, c: int):
         """Horner combine of per-window sums: sum_w 2^(cw) S_w, ONE

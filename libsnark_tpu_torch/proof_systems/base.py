@@ -1,5 +1,6 @@
 """Shared kernel bundle for pairing-based proof systems (the port of
-libsnark_tpu/proof_systems/base.py), alt_bn128: G1 over Fq, G2 over Fq2.
+libsnark_tpu/proof_systems/base.py) over a curve with G1 over Fq and G2
+over Fq2 (alt_bn128, BLS12-377).
 
 Fixed-base window-table exponentiation at setup (libff get_window_table /
 batch_exp, r1cs_gg_ppzksnark.tcc:316-398) and variable-base Pippenger MSM
@@ -25,15 +26,17 @@ class PairingSystem:
     """Device kernel bundle over a named curve (G2 over an Fq2 tower).
 
     device: ``"cuda"`` (the default) or ``"cpu"``, where every kernel
-    wrapper runs its plain PyTorch version."""
+    wrapper runs its plain PyTorch version. msm_strategy: the bucket
+    accumulation of both MSM kernels (``ops/msm.py``: ``"segments"``, the
+    default, or ``"dense"``); it changes no affine result."""
 
-    def __init__(self, curve, device="cuda"):
+    def __init__(self, curve, device="cuda", msm_strategy="segments"):
         self.curve = curve
         self.device = cuda_lib.resolve_device(device)
         self.fr = FpKernel(curve.fr_params, self.device)
         self.fq = FpKernel(curve.fq_params, self.device)
-        # a = 0 on alt_bn128: the group law runs on the kernels; a curve
-        # with an a-coefficient would take the torch formulas
+        # a = 0: the group law runs on the kernels; a curve with an
+        # a-coefficient would take the torch formulas
         a_int = int(getattr(curve, "a", 0))
         g1_mul_a = ((lambda x, fk=self.fq, k=a_int: fk.mul_small(x, k))
                     if a_int else None)
@@ -44,8 +47,8 @@ class PairingSystem:
         self.fq2 = Fp2Kernel(self.fq, int(curve.Fq2.NON_RESIDUE))
         self.g2 = CurveKernel(self.fq2, f"{curve.name}.G2")
         sbits = curve.r.bit_length()
-        self.msm_g1 = MSMKernel(self.g1, sbits)
-        self.msm_g2 = MSMKernel(self.g2, sbits)
+        self.msm_g1 = MSMKernel(self.g1, sbits, strategy=msm_strategy)
+        self.msm_g2 = MSMKernel(self.g2, sbits, strategy=msm_strategy)
         self.scalar_limbs = -(-sbits // 16)
         self._fixed_tables = {}
 

@@ -6,8 +6,9 @@ generator :226/:430, prover :464, verifiers :605-745).
   query exponentiations as device fixed-base batch exp over window tables
   built on the device;
 * prover: QAP witness map on the device (mont_mul kernel under the NTT and
-  the mat-vecs), the A / B1 / H / L G1 MSMs and the B G2 MSM through the
-  bucket-reduce and Horner kernels, then a few host point operations;
+  the mat-vecs), the A / B1 / H / L G1 MSMs and the B G2 MSM (bucket
+  accumulation by ``msm_strategy``, then the Horner kernel), then a few
+  host point operations;
 * verifier: host pairings.
 
 Seeds drive ``random.Random`` exactly as in the JAX package, so a seeded
@@ -98,8 +99,8 @@ class Groth16(PairingSystem):
     # mirrors the reference's force_pow_2_domain option
     force_pow_2 = False
 
-    def __init__(self, curve, device="cuda"):
-        super().__init__(curve, device)
+    def __init__(self, curve, device="cuda", msm_strategy="segments"):
+        super().__init__(curve, device, msm_strategy)
         self._domains = {}
 
     def _domain(self, num_constraints: int, num_inputs: int):
