@@ -1,4 +1,5 @@
-"""Carry a Groth16 proving key across into the port from plain numpy data.
+"""Carry a Groth16 proving key or a KZG10 SRS across into the port from
+plain numpy data.
 
 ``proving_key_from_numpy`` builds the port's ``Groth16ProvingKey`` from:
 
@@ -14,14 +15,21 @@
   (N, nnz) uint32 Montgomery limbs;
 * the constraint-system sizes.
 
-It takes numpy and ints only and imports nothing of the JAX package.
+``srs_from_numpy`` builds the port's ``KZG10SRS`` from the three affine
+arrays of [alpha^i]_1 in the same layout ((N, n) uint32 Montgomery limbs
+for x and y, a bool infinity mask) and the integer affine coordinates of
+[alpha]_2.
+
+Both take numpy and ints only and import nothing of the JAX package.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .ops.cuda_lib import resolve_device
 from .ops.limbs import to_torch
+from .polynomial_commitments.kzg10 import KZG10SRS
 from .proof_systems.groth16 import Groth16ProvingKey
 from .relations.r1cs import R1CSDevice, SparseMatrix
 
@@ -61,3 +69,23 @@ def proving_key_from_numpy(system, queries: dict, points: dict,
         alpha_g1=g1(points["alpha_g1"]), beta_g1=g1(points["beta_g1"]),
         beta_g2=g2(points["beta_g2"]), delta_g1=g1(points["delta_g1"]),
         delta_g2=g2(points["delta_g2"]), r1cs_dev=r1cs_dev, **q)
+
+
+def srs_from_numpy(curve, alpha_powers_g1, alpha_g2, degree: int,
+                   device="cuda"):
+    """The port's KZG10 SRS on ``device`` (see module doc).
+
+    alpha_powers_g1: (x, y, inf) numpy triple with at least degree + 1
+    lanes; alpha_g2: ((x0, x1), (y0, y1)) integer coordinates."""
+    x, y, inf = (np.asarray(a) for a in alpha_powers_g1)
+    if x.shape != y.shape or x.shape[-1] != inf.shape[-1] \
+            or x.shape[-1] < degree + 1:
+        raise ValueError("srs_from_numpy: x, y and inf must share their "
+                         "lanes and hold at least degree + 1 points")
+    (x0, x1), (y0, y1) = alpha_g2
+    F2 = curve.Fq2
+    dev = resolve_device(device)
+    return KZG10SRS(
+        alpha_powers_g1=tuple(to_torch(a, dev) for a in (x, y, inf)),
+        alpha_g2=curve.G2.point(F2(int(x0), int(x1)), F2(int(y0), int(y1))),
+        degree=degree)

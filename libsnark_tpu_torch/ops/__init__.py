@@ -5,7 +5,8 @@ field and field width):
   cuda_fp.mont_mul                       csrc/fp.cu
   cuda_ec.dbl / add / madd / aadd        csrc/ec.cu
   cuda_bucket.bucket_reduce / horner     csrc/bucket.cu
-The probe kernels (csrc/probe.cu) count in ``libsnark_tpu_torch.probes``.
+The probe kernels (csrc/probe.cu, csrc/probe_layout.cu) count in
+``libsnark_tpu_torch.probes``.
 """
 from . import cuda_bucket, cuda_ec, cuda_fp
 

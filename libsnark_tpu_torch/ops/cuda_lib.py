@@ -2,9 +2,10 @@
 
 Each ``csrc/*.cu`` source compiles with nvcc into one shared library with
 a plain C interface (``sm_90a``), loaded with ctypes. The kernels are
-templates over the field width and every source instantiates them for the
-widths in ``WIDTHS`` (32-bit words: 8 for a 16-limb modulus, 12 for a
-24-limb one); the C entries take the width as their first argument. The
+templates over the field width and every field source instantiates them for
+the widths in ``WIDTHS`` (32-bit words: 8 for a 16-limb modulus, 12 for a
+24-limb one); the C entries take the width as their first argument
+(``probe_layout`` moves plain 32-bit words and knows no field). The
 libraries are built at first use from the sources in the checkout, into
 ``libsnark_tpu_torch/build/`` (listed in .gitignore), one nvcc process per
 source, all started together.
@@ -21,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -33,7 +35,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 WIDTHS = (8, 12)          # 32-bit words per element that csrc instantiates
-SOURCES = ("fp", "ec", "bucket", "probe")
+SOURCES = ("fp", "ec", "bucket", "probe", "probe_layout")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile", "0"]   # a source's kernels optimise in parallel
@@ -59,6 +61,19 @@ _ARGTYPES = {
     "probe": {
         "lsn_probe_rate": [_I, _VP, _VP, _VP, _LL, _I, _VP],
         "lsn_probe_cios": [_I, _I, _VP, _VP, _VP, _LL, _I, _VP, _VP],
+    },
+    "probe_layout": {
+        "lsn_layout_row_copy": [_VP, _VP, _VP, _I, _I, _LL, _LL, _I, _VP],
+        "lsn_layout_transpose": [_VP, _VP, _I, _I, _I, _VP],
+        "lsn_layout_reshape_merge_minor": [_VP, _VP, _I, _I, _I, _VP],
+        "lsn_layout_reshape_merge_major": [_VP, _VP, _I, _I, _I, _VP],
+        "lsn_layout_squeeze": [_VP, _VP, _I, _I, _I, _VP],
+        "lsn_layout_roll_minor": [_VP, _VP, _LL, _I, _I, _VP],
+        "lsn_layout_roll_middle": [_VP, _VP, _I, _I, _I, _VP],
+        "lsn_layout_cond": [_VP, _VP, _I, _VP],
+        "lsn_layout_window_copy": [_VP, _VP, _LL, _I, _I, _I, _VP],
+        "lsn_layout_loop_dyn": [_VP, _VP, _LL, _VP],
+        "lsn_layout_dynslice_sum": [_VP, _VP, _I, _I, _I, _VP],
     },
 }
 
@@ -141,6 +156,35 @@ def build_all() -> dict:
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[src] = lib
         return _libs
+
+
+def ptxas_summary(logs: dict = None) -> list:
+    """One line per kernel of the last build (``build_logs``): registers,
+    stack frame, spill stores / loads, from ``-Xptxas -v``."""
+    lines = []
+    for unit, text in (build_logs if logs is None else logs).items():
+        entry, frame = None, ("?", "?", "?")
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                # name<template integers>: <NW, ext>, <NW>, <NW, variant>
+                # or <op> as the kernel declares them
+                entry = re.sub(r".*'_Z\d+([a-z_]+).*", r"\1", line.strip())
+                targs = re.search(r"'_Z\d+[a-z_]+I((?:Li\d+E)+)E", line)
+                if targs:
+                    entry += "<" + ", ".join(
+                        re.findall(r"Li(\d+)E", targs.group(1))) + ">"
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                frame = m.groups()
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                lines.append(
+                    f"ptxas[{unit}] {entry}: {m.group(1)} registers, "
+                    f"stack {frame[0]} B, spill stores/loads "
+                    f"{frame[1]}/{frame[2]} B")
+                entry = None
+    return lines
 
 
 def lib(src: str):

@@ -186,6 +186,14 @@ class Radix2Domain:
         zt_minv = zt * self.m_inv % p
         return [zt_minv * xs[i] % p * invs[i] % p for i in range(m)]
 
+    def domain_elements_mont(self):
+        """[w^0 .. w^(m-1)] as an (N, m) Montgomery tensor on the kernel's
+        device, from the root table: w^(i + m/2) = -w^i."""
+        roots = self.device_tables()["roots"]
+        if self.m == 1:
+            return roots
+        return torch.cat([roots, self.fk.neg(roots)], dim=-1)
+
 
 @functools.lru_cache(maxsize=None)
 def get_domain_size(n: int) -> int:

@@ -1,5 +1,6 @@
 """Measurement kernels for the card: 32-bit operation rates and Montgomery
-product bodies (csrc/probe.cu). No part of the proving path.
+product bodies (csrc/probe.cu), and the layout and row-copy probes
+(csrc/probe_layout.cu). No part of the proving path.
 
 ``rate_chain`` replaces the TPU probe ``scripts/probe_vpu_ops.py:49``: every
 thread runs 8 independent chains of K dependent steps of one operation
@@ -12,11 +13,26 @@ Beside each stands its plain PyTorch version (int64 arithmetic masked to
 check the kernels' final values on the card. ``scripts/probe_h100.py``
 prints the tables.
 
+The layout probes replace the eleven TPU kernels of
+``scripts/probe_mosaic_dma.py`` (``row_copy``) and
+``scripts/probe_mosaic_ops.py`` (``transpose3d``, the three reshapes, the
+two rolls, ``cond_add_one``, ``window_copy``, ``loop_dyn``,
+``dynslice_sum``): each computes its TPU counterpart's function on 32-bit
+words carried as int32 bit patterns, beside a plain PyTorch version
+(``permute``, ``reshape``, ``torch.roll``, slicing, ``torch.where``).
+``layout_cases`` lists every case a kernel is held to (the TPU scripts'
+shapes first, then odd offsets, shifts outside [0, axis), tiles with no
+word above 7, trip counts 1..6), ``measure_layout`` times the eleven and
+``measure_row_copy`` times ``row_copy`` at the row widths ``bucket_reduce``
+gathers.
+
 ``sass_loops`` reads the machine code of the built probe kernels
 (``cuobjdump -sass``) and counts the instructions of each kernel's main
 loop, so that a rate can be read as the rate of an instruction: a step that
 compiles to one instruction runs at that instruction's rate, one that
-compiles to three does not.
+compiles to three does not. ``sass_memory_ops`` counts, per layout kernel,
+the instructions that say where its data went (global, shared, local
+memory, shuffles, votes, barriers).
 """
 from __future__ import annotations
 
@@ -39,6 +55,16 @@ CIOS_VARIANTS = ("cios", "sos")  # field.cuh's body; separated operand scanning
 LAUNCHES = {f"probe_rate_{op}": 0 for op in RATE_OPS}
 LAUNCHES.update({f"probe_cios_{v}_n{2 * nw}": 0 for v in CIOS_VARIANTS
                  for nw in cuda_lib.WIDTHS})
+
+# layout probes, in the order of the TPU kernels they replace; the three
+# reshapes, each with a C entry of its own, in the order of enum ReshapeMode
+# (probe_layout.cu), which numbers their instantiations in the machine code
+RESHAPES = ("reshape_merge_minor", "reshape_merge_major", "squeeze")
+LAYOUT_PROBES = ("row_copy", "transpose") + RESHAPES + (
+    "roll_minor", "roll_middle", "cond", "window_copy", "loop_dyn",
+    "dynslice_sum")
+LAUNCHES.update({f"probe_layout_{name}": 0 for name in LAYOUT_PROBES})
+ROLL_R = 8                       # middle-axis length of roll_middle / dynslice_sum
 
 _M32 = 0xFFFFFFFF
 
@@ -136,6 +162,380 @@ def cios_chain(fk, variant: str, a: torch.Tensor, b: torch.Tensor, K: int):
     return out
 
 
+# ------------------------------------------------------------ layout probes
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> their unsigned values as int64."""
+    return x.to(torch.int64) & _M32
+
+
+def _i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values (any size) -> the int32 bit pattern of v mod 2^32."""
+    v = v & _M32
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def _words(x: torch.Tensor, ndim: int, what: str) -> torch.Tensor:
+    if x.dtype != torch.int32 or x.dim() != ndim:
+        raise ValueError(f"{what} takes a {ndim}-D int32 tensor of 32-bit "
+                         f"words, got {x.dtype} {tuple(x.shape)}")
+    return x.contiguous()
+
+
+def _launch(name: str, entry: str, x: torch.Tensor, *args):
+    """Call one C entry of the layout library on x's stream and count it."""
+    code = getattr(cuda_lib.lib("probe_layout"), entry)(
+        *args, cuda_lib.stream_ptr(x))
+    cuda_lib.check(code, f"probe_layout[{name}]")
+    LAUNCHES[f"probe_layout_{name}"] += 1
+
+
+def row_copy_plain(x, s: int, R: int, seg=None):
+    seg = torch.zeros(1, dtype=torch.int64, device=x.device) \
+        if seg is None else seg
+    idx = (s + seg)[:, None] + torch.arange(R, device=x.device)
+    return x[idx]
+
+
+def row_copy(x, s: int, R: int, seg=None, into3d: bool = False,
+             validate: bool = True):
+    """out[b] = x[s + seg[b] : s + seg[b] + R, :] as (nseg, R, width).
+
+    x: (rows, width) words; s: row offset, a kernel argument read at run
+    time; seg: (nseg,) int64 further row offsets, one segment per block
+    (default one segment at 0); into3d: stage through slot 0 of a
+    (2, R, width) buffer instead of an (R, width) one. Each block copies
+    global -> shared -> global. validate=False skips the bounds check of
+    seg (a reduction that waits for the device): only for offsets already
+    checked, as in a timing loop."""
+    x = _words(x, 2, "row_copy")
+    rows, width = x.shape
+    slots = 2 if into3d else 1
+    if R < 1 or slots * R * width * 4 > 48 * 1024:
+        raise ValueError("row_copy: the staging buffer must hold 1 row or "
+                         "more and fit 48 KB of shared memory")
+    if seg is None:
+        lo = hi = 0
+        seg = torch.zeros(1, dtype=torch.int64, device=x.device)
+    elif seg.dtype != torch.int64 or seg.dim() != 1 or seg.device != x.device:
+        raise ValueError("row_copy: seg must be a 1-D int64 tensor on x's "
+                         "device")
+    elif validate and seg.numel():
+        lo, hi = int(seg.min()), int(seg.max())
+    else:
+        lo, hi = -s, rows - R - s
+    if s + lo < 0 or s + hi + R > rows:
+        raise ValueError("row_copy: a segment leaves the array")
+    if not x.is_cuda:
+        return row_copy_plain(x, s, R, seg)
+    seg = seg.contiguous()
+    out = torch.empty((seg.numel(), R, width), dtype=torch.int32,
+                      device=x.device)
+    _launch("row_copy", "lsn_layout_row_copy", x, x.data_ptr(),
+            seg.data_ptr(), out.data_ptr(), width, R, seg.numel(), s, slots)
+    return out
+
+
+def transpose_plain(x):
+    return x.permute(2, 1, 0).contiguous()
+
+
+def transpose3d(x):
+    """out[l, r, b] = x[b, r, l]: (B, R, L) -> (L, R, B) through padded
+    32 x 32 shared-memory tiles."""
+    x = _words(x, 3, "transpose3d")
+    if not x.is_cuda:
+        return transpose_plain(x)
+    B, R, L = x.shape
+    if x.numel() == 0 or R > 65535:
+        raise ValueError("transpose3d: empty array or middle axis > 65535")
+    out = torch.empty((L, R, B), dtype=torch.int32, device=x.device)
+    _launch("transpose", "lsn_layout_transpose", x, x.data_ptr(),
+            out.data_ptr(), B, R, L)
+    return out
+
+
+def _reshape_shape(name: str, shape):
+    A, B, C = shape
+    if name == "reshape_merge_minor":
+        return (A, B * C)
+    if name == "reshape_merge_major":
+        return (A * B, C)
+    if name == "squeeze":
+        if B != 1:
+            raise ValueError("squeeze drops a middle axis of length 1")
+        return (A, C)
+    raise ValueError(f"unknown reshape {name!r}; available: {RESHAPES}")
+
+
+def reshape_plain(name: str, x):
+    return x.reshape(_reshape_shape(name, x.shape)).clone()
+
+
+def reshape3d(name: str, x):
+    """One of ``RESHAPES`` on a contiguous (A, B, C) array: merge the two
+    minor dimensions, merge the two major ones, or drop a unit middle
+    one. The kernel reads by the source's indices and writes by the
+    destination's."""
+    x = _words(x, 3, name)
+    shape = _reshape_shape(name, x.shape)
+    if not x.is_cuda:
+        return reshape_plain(name, x)
+    if x.numel() == 0:
+        raise ValueError(f"{name}: empty array")
+    out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    _launch(name, f"lsn_layout_{name}", x, x.data_ptr(), out.data_ptr(),
+            *x.shape)
+    return out
+
+
+def roll_plain(x, s: int, axis: int):
+    return torch.roll(x, int(s), axis)
+
+
+def _shift(s) -> int:
+    """The shift as a C int; any Python int rolls by its residue, which the
+    kernels take themselves, so only the width is checked."""
+    s = int(s)
+    if not -(1 << 31) <= s < 1 << 31:
+        raise ValueError("the roll's shift must fit 32 bits")
+    return s
+
+
+def roll_minor(x, s: int):
+    """out[i, j] = x[i, (j - s) mod n] on (rows, n), as jnp.roll: s is a
+    run-time kernel argument of any sign or size."""
+    x = _words(x, 2, "roll_minor")
+    s = _shift(s)
+    if not x.is_cuda:
+        return roll_plain(x, s, 1)
+    rows, n = x.shape
+    if n == 0 or n * 4 > 48 * 1024:
+        raise ValueError("roll_minor: a row must hold 1 word or more and "
+                         "fit 48 KB of shared memory")
+    out = torch.empty_like(x)
+    _launch("roll_minor", "lsn_layout_roll_minor", x, x.data_ptr(),
+            out.data_ptr(), rows, n, s)
+    return out
+
+
+def roll_middle(x, s: int):
+    """out[a, r, l] = x[a, (r - s) mod 8, l] on (A, 8, L): the eight
+    values of a thread live in a per-thread array read back at a run-time
+    index."""
+    x = _words(x, 3, "roll_middle")
+    s = _shift(s)
+    if x.shape[1] != ROLL_R:
+        raise ValueError(f"roll_middle takes a middle axis of {ROLL_R}")
+    if not x.is_cuda:
+        return roll_plain(x, s, 1)
+    if x.numel() == 0:
+        raise ValueError("roll_middle: empty array")
+    out = torch.empty_like(x)
+    _launch("roll_middle", "lsn_layout_roll_middle", x, x.data_ptr(),
+            out.data_ptr(), x.shape[0], x.shape[2], s)
+    return out
+
+
+def cond_plain(x):
+    v = _u32(x)
+    return _i32(torch.where((v > 7).any(), v + 1, v))
+
+
+def cond_add_one(x):
+    """x + 1 (mod 2^32) if any word of the tile is > 7 (unsigned), else x:
+    one block, one block-wide vote, one uniform branch."""
+    x = _words(x, 2, "cond_add_one")
+    if not x.is_cuda:
+        return cond_plain(x)
+    if not 0 < x.numel() < 1 << 31:
+        raise ValueError("cond_add_one: the tile must hold 1 to 2^31 - 1 "
+                         "words")
+    out = torch.empty_like(x)
+    _launch("cond", "lsn_layout_cond", x, x.data_ptr(), out.data_ptr(),
+            x.numel())
+    return out
+
+
+def window_copy_plain(x, s: int, W: int = 128):
+    return x[:, s:s + W].contiguous()
+
+
+def window_copy(x, s: int, W: int = 128):
+    """out = x[:, s : s + W] on (rows, total): s counts words, is read at
+    run time and need not be aligned to anything wider than a word."""
+    x = _words(x, 2, "window_copy")
+    rows, total = x.shape
+    if not (0 <= s and 0 < W and s + W <= total) or W * 4 > 48 * 1024:
+        raise ValueError("window_copy: the window must lie inside a row and "
+                         "fit 48 KB of shared memory")
+    if not x.is_cuda:
+        return window_copy_plain(x, s, W)
+    out = torch.empty((rows, W), dtype=torch.int32, device=x.device)
+    _launch("window_copy", "lsn_layout_window_copy", x, x.data_ptr(),
+            out.data_ptr(), rows, total, W, s)
+    return out
+
+
+def loop_dyn_plain(x):
+    v = _u32(x)
+    n = v.reshape(-1)[:8].max() % 7
+    return _i32(n * v)
+
+
+def loop_dyn(x):
+    """A loop whose trip count is read from the data: n = max(x[0, :8])
+    mod 7 (unsigned), out = x added up n times (mod 2^32)."""
+    x = _words(x, 2, "loop_dyn")
+    if x.shape[1] < 8:
+        raise ValueError("loop_dyn reads the first 8 words of row 0")
+    if not x.is_cuda:
+        return loop_dyn_plain(x)
+    out = torch.empty_like(x)
+    _launch("loop_dyn", "lsn_layout_loop_dyn", x, x.data_ptr(),
+            out.data_ptr(), x.numel())
+    return out
+
+
+def dynslice_sum_plain(x, n: int = 4):
+    return _i32(_u32(x)[:, 0:2 * n:2, :].sum(dim=1))
+
+
+def dynslice_sum(x, n: int = 4):
+    """out[a, l] = sum over i < n of x[a, 2 i, l] (mod 2^32) on (A, 8, L),
+    n <= 4 a run-time trip count: a per-thread array indexed by the loop
+    variable."""
+    x = _words(x, 3, "dynslice_sum")
+    if x.shape[1] != ROLL_R or not 0 <= 2 * n <= ROLL_R:
+        raise ValueError(f"dynslice_sum takes a middle axis of {ROLL_R} and "
+                         f"at most {ROLL_R // 2} terms")
+    if not x.is_cuda:
+        return dynslice_sum_plain(x, n)
+    if x.numel() == 0:
+        raise ValueError("dynslice_sum: empty array")
+    out = torch.empty((x.shape[0], x.shape[2]), dtype=torch.int32,
+                      device=x.device)
+    _launch("dynslice_sum", "lsn_layout_dynslice_sum", x, x.data_ptr(),
+            out.data_ptr(), x.shape[0], x.shape[2], n)
+    return out
+
+
+def layout_cases(device, seed: int = 11) -> list:
+    """Every case the layout kernels are held to, as (name, case, kernel
+    call, plain call, library call or None, bytes moved). The first case of
+    each name is its TPU script's (``arange`` input, the script's shapes and
+    offsets); the rest are the cases those inputs never reach. The library
+    call is the one PyTorch call that computes the same function into a new
+    tensor, where there is one."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def ar(*shape):
+        n = 1
+        for d in shape:
+            n *= d
+        return torch.arange(n, dtype=torch.int32, device=device).reshape(shape)
+
+    def rnd(*shape):          # all 32 bits in use
+        return torch.randint(-(1 << 31), 1 << 31, shape, generator=gen,
+                             device=device, dtype=torch.int64).to(torch.int32)
+
+    cases = []
+
+    def case(name, label, kern, plain, lib, words):
+        cases.append((name, label, kern, plain, lib, 4 * words))
+
+    for width, into3d in ((32, False), (128, False), (32, True), (128, True),
+                          (64, False)):
+        x = ar(1024, width)
+        case("row_copy", f"(1024,{width})[40:56] {'3D' if into3d else '2D'}",
+             lambda x=x, f=into3d: row_copy(x, 40, 16, into3d=f),
+             lambda x=x: row_copy_plain(x, 40, 16),
+             lambda x=x: x[None, 40:56].clone(), 2 * 16 * width)
+    x = rnd(4096, 24)
+    seg = torch.randint(0, 4096 - 16 - 7, (64,), generator=gen, device=device)
+    case("row_copy", "(4096,24) 64 random segments of 16 rows from s=7",
+         lambda x=x, seg=seg: row_copy(x, 7, 16, seg),
+         lambda x=x, seg=seg: row_copy_plain(x, 7, 16, seg), None,
+         2 * 64 * 16 * 24)
+
+    for x, label in ((ar(128, 8, 32), "(128,8,32)->(32,8,128)"),
+                     (rnd(70, 3, 45), "(70,3,45) ragged tiles")):
+        case("transpose", label, lambda x=x: transpose3d(x),
+             lambda x=x: transpose_plain(x),
+             lambda x=x: x.permute(2, 1, 0).contiguous(), 2 * x.numel())
+
+    for name, shape, extra in (
+            ("reshape_merge_minor", (16, 16, 8), (5, 7, 3)),
+            ("reshape_merge_major", (16, 2, 128), (5, 7, 3)),
+            ("squeeze", (16, 1, 128), (37, 1, 11))):
+        for x in (ar(*shape), rnd(*extra)):
+            case(name, f"{tuple(x.shape)}->{_reshape_shape(name, x.shape)}",
+                 lambda x=x, name=name: reshape3d(name, x),
+                 lambda x=x, name=name: reshape_plain(name, x),
+                 lambda x=x, name=name: x.reshape(
+                     _reshape_shape(name, x.shape)).clone(), 2 * x.numel())
+
+    x = ar(16, 128)
+    for s in (40, 0, 1, 127, 128, 300, -1, -40, -129):
+        case("roll_minor", f"(16,128) s={s}", lambda x=x, s=s: roll_minor(x, s),
+             lambda x=x, s=s: roll_plain(x, s, 1),
+             lambda x=x, s=s: torch.roll(x, s, 1), 2 * x.numel())
+    x = rnd(5, 100)
+    case("roll_minor", "(5,100) s=33", lambda x=x: roll_minor(x, 33),
+         lambda x=x: roll_plain(x, 33, 1), lambda x=x: torch.roll(x, 33, 1),
+         2 * x.numel())
+
+    x = ar(16, 8, 128)
+    for s in (3, 0, 7, 8, 11, -1, -3, -9):
+        case("roll_middle", f"(16,8,128) s={s}",
+             lambda x=x, s=s: roll_middle(x, s),
+             lambda x=x, s=s: roll_plain(x, s, 1),
+             lambda x=x, s=s: torch.roll(x, s, 1), 2 * x.numel())
+
+    x = ar(16, 128)
+    low = x % 8
+    one = low.clone()
+    one[15, 127] = 8
+    high = low.clone()
+    high[7, 5] = -1                     # 0xFFFFFFFF: above 7 as unsigned
+    for v, label in ((x, "arange: some word > 7"),
+                     (low, "no word above 7"),
+                     (one, "only the last word above 7"),
+                     (high, "one word with the top bit set")):
+        case("cond", f"(16,128) {label}", lambda v=v: cond_add_one(v),
+             lambda v=v: cond_plain(v), None, 2 * v.numel())
+
+    x = ar(32, 1024)
+    for s in (40, 0, 41, 3, 896, 895):
+        case("window_copy", f"(32,1024)[:, {s}:{s}+128]",
+             lambda x=x, s=s: window_copy(x, s),
+             lambda x=x, s=s: window_copy_plain(x, s),
+             lambda x=x, s=s: x[:, s:s + 128].contiguous(), 2 * 32 * 128)
+
+    x = ar(16, 128)
+    case("loop_dyn", "(16,128) arange: n = 7 mod 7 = 0",
+         lambda x=x: loop_dyn(x), lambda x=x: loop_dyn_plain(x), None,
+         2 * x.numel())
+    for n in range(1, 7):
+        v = rnd(16, 128)
+        v[0, :8] = torch.tensor([3, 0, 7 * 11 + n, 5, 1, 2, 4, 6],
+                                dtype=torch.int32, device=device)
+        case("loop_dyn", f"(16,128) random words, n = {n}",
+             lambda v=v: loop_dyn(v), lambda v=v: loop_dyn_plain(v), None,
+             2 * v.numel())
+
+    for x, label in ((ar(16, 8, 128), "(16,8,128) arange"),
+                     (rnd(9, 8, 50), "(9,8,50) random words")):
+        for n in (4, 0, 1, 3):
+            case("dynslice_sum", f"{label}, {n} terms",
+                 lambda x=x, n=n: dynslice_sum(x, n),
+                 lambda x=x, n=n: dynslice_sum_plain(x, n),
+                 lambda x=x, n=n: x[:, 0:2 * n:2, :].sum(
+                     dim=1, dtype=torch.int32),
+                 (n + 1) * x.shape[0] * x.shape[2])
+    return cases
+
+
 # ----------------------------------------------------------- measurements
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -222,6 +622,98 @@ def measure_cios(fks, L: int = 1 << 20, K: int = 64, seed: int = 8) -> list:
     return rows
 
 
+def _graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of ``reps`` calls replayed as one
+    CUDA graph: a call that moves a few KB takes less time on the card than
+    its launch takes on the host, so a loop of eager calls would time the
+    host. ``fn`` must not wait for the device. A wrapper called during
+    the capture records its kernel without running it, so what the capture
+    added to ``LAUNCHES`` is taken back and added once per replay, when the
+    kernels run."""
+    fn()
+    torch.cuda.synchronize()
+    before = dict(LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    captured = {k: n - before[k] for k, n in LAUNCHES.items()
+                if n != before[k]}
+    LAUNCHES.update(before)
+
+    def replay():
+        graph.replay()
+        for k, n in captured.items():
+            LAUNCHES[k] += n
+    replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def measure_layout(seed: int = 11, reps: int = 200) -> list:
+    """One row per layout probe, at its TPU script's case (the first of its
+    ``layout_cases``): ``exact`` says whether the kernel equals its plain
+    version in EVERY case of that name. ``ms``, ``plain_ms`` and
+    ``library_ms`` (None where no PyTorch call computes the function) are
+    device times per call inside a replayed CUDA graph; ``call_ms`` is the
+    wrapper called in a loop, which at these sizes is the host's time to
+    launch. Then the bytes moved and GB/s. Needs the card."""
+    rows = {}
+    for name, label, kern, plain, lib, nbytes in layout_cases("cuda", seed):
+        want = plain()
+        same = bool(torch.equal(kern(), want))
+        if lib is not None and not torch.equal(lib(), want):
+            raise AssertionError(f"{name}, {label}: the PyTorch call timed "
+                                 "beside the kernel computes another function")
+        if name in rows:
+            rows[name]["exact"] &= same
+            rows[name]["cases"] += 1
+            continue
+        ms = _graph_ms(kern, reps)
+        rows[name] = {
+            "name": name, "case": label, "exact": same, "cases": 1, "ms": ms,
+            "call_ms": _cuda_ms(kern, reps),
+            "plain_ms": _graph_ms(plain, reps),
+            "library_ms": _graph_ms(lib, reps) if lib else None,
+            "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6}
+    return [rows[name] for name in LAYOUT_PROBES]
+
+
+def measure_row_copy(widths=(16, 24, 32, 48), total_rows: int = 1 << 20,
+                     seed: int = 12, reps: int = 20) -> list:
+    """``row_copy`` over 2^20 rows of a 2^21-row table at the row widths
+    ``bucket_reduce`` gathers (2 NW words: 16 and 24 for G1 at 16 and 24
+    limbs, 32 and 48 for G2), as segments of R = 1 and R = 16 rows at random
+    offsets, one block each; beside it the time of the same gather as one
+    PyTorch indexing call. One row per (width, R). Needs the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for width in widths:
+        x = torch.randint(-(1 << 31), 1 << 31, (2 * total_rows, width),
+                          generator=gen, device="cuda",
+                          dtype=torch.int64).to(torch.int32)
+        for R in (1, 16):
+            nseg = total_rows // R
+            seg = torch.randint(0, 2 * total_rows - R, (nseg,), generator=gen,
+                                device="cuda")
+            got = row_copy(x, 0, R, seg)
+            exact = bool(torch.equal(got, row_copy_plain(x, 0, R, seg)))
+            ms = _cuda_ms(lambda: row_copy(x, 0, R, seg, validate=False),
+                          reps)
+            lib_ms = _cuda_ms(lambda: row_copy_plain(x, 0, R, seg), reps)
+            nbytes = 2 * 4 * total_rows * width + 8 * nseg
+            out.append({"width": width, "R": R, "segments": nseg,
+                        "exact": exact, "ms": ms, "library_ms": lib_ms,
+                        "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6})
+    return out
+
+
 # ------------------------------------------------------------ machine code
 
 def _cuobjdump() -> str:
@@ -234,7 +726,18 @@ def _cuobjdump() -> str:
     raise RuntimeError("cuobjdump not found beside nvcc")
 
 
+# opcodes (before the first dot) that say where a kernel's data went:
+# global, shared and local memory, shuffles, votes, barriers
+MEMORY_OPS = ("LDG", "STG", "LDS", "STS", "LDL", "STL", "SHFL", "VOTE", "BAR")
+
+
 def _kernel_label(mangled: str):
+    m = re.search(r"reshape_kernelILi(\d+)E", mangled)
+    if m:
+        return f"probe_layout_{RESHAPES[int(m.group(1))]}"
+    m = re.search(r"_Z\d+([a-z_]+)_kernel", mangled)
+    if m and m.group(1) in LAYOUT_PROBES:
+        return f"probe_layout_{m.group(1)}"
     m = re.search(r"rate_kernelILi(\d+)E", mangled)
     if m:
         return f"probe_rate_{RATE_OPS[int(m.group(1))]}"
@@ -263,20 +766,44 @@ def main_loop(sass: str) -> dict:
     return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
 
 
-def sass_loops(dump_to=None) -> dict:
-    """Kernel name (the launch-counter key) -> opcode counts of its main
-    loop, from the built probe library. ``dump_to``: a file that gets the
-    whole ``cuobjdump -sass`` text. Needs the CUDA toolkit."""
+def _sass_functions(dump_to=None):
+    """(launch-counter key, ``cuobjdump -sass`` text) of every kernel of the
+    two probe libraries. ``dump_to``: a file that gets the whole text."""
     cuda_lib.build_all()
-    so = cuda_lib.library_path("probe")
-    text = subprocess.run([_cuobjdump(), "-sass", str(so)], check=True,
-                          capture_output=True, text=True).stdout
+    text = "".join(
+        subprocess.run([_cuobjdump(), "-sass", str(cuda_lib.library_path(src))],
+                       check=True, capture_output=True, text=True).stdout
+        for src in ("probe", "probe_layout"))
     if dump_to is not None:
         Path(dump_to).parent.mkdir(parents=True, exist_ok=True)
         Path(dump_to).write_text(text)
-    loops = {}
     for part in re.split(r"\n\s*Function : ", text)[1:]:
         label = _kernel_label(part.split("\n", 1)[0])
         if label:
-            loops[label] = main_loop(part)
-    return loops
+            yield label, part
+
+
+def sass_loops(dump_to=None) -> dict:
+    """Kernel name (the launch-counter key) -> opcode counts of its main
+    loop, from the built probe libraries ({} for a kernel without a loop).
+    Needs the CUDA toolkit."""
+    return {label: main_loop(part)
+            for label, part in _sass_functions(dump_to)}
+
+
+def memory_ops(sass: str) -> dict:
+    """Counts of the ``MEMORY_OPS`` opcodes in one function's listing."""
+    counts: dict = {}
+    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)[^;]*;", sass):
+        if m.group(1) in MEMORY_OPS:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+def sass_memory_ops() -> dict:
+    """Layout kernel name -> counts of the instructions that say where its
+    data went (``MEMORY_OPS``; LDL / STL mean a per-thread array landed in
+    local memory). Needs the CUDA toolkit."""
+    return {label: memory_ops(part) for label, part in _sass_functions()
+            if label.startswith("probe_layout_")}

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Print the card's 32-bit operation rates and Montgomery-product rates.
+"""Print the card's 32-bit operation rates, Montgomery-product rates and
+what its toolchain makes of the layout and row-copy probes.
 
-Runs the two probe kernels of the PyTorch/CUDA port
-(libsnark_tpu_torch/probes.py, csrc/probe.cu) on one NVIDIA card:
+Runs the probe kernels of the PyTorch/CUDA port (libsnark_tpu_torch/
+probes.py, csrc/probe.cu, csrc/probe_layout.cu) on one NVIDIA card:
 
 * the integer-rate probe: 8 independent dependent-chains per thread of
   mul.lo, mad.lo, mad.hi, mad.wide (the 32x32->64 multiply-add of CIOS),
@@ -13,7 +14,16 @@ Runs the two probe kernels of the PyTorch/CUDA port
 * the CIOS-variant probe: K chained Montgomery products per lane at 8 and
   12 words (alt_bn128 Fq, BLS12-377 Fq) in the CIOS body of csrc/field.cuh
   and a separated operand-scanning body; each checked against the plain
-  Montgomery product, then G products/s.
+  Montgomery product, then G products/s;
+* the eleven layout probes (row copy from a run-time offset through shared
+  memory, 3-D transpose, three reshapes, two rolls by a run-time shift, a
+  branch on a block-wide vote, a window copy from an unaligned offset, a
+  loop with a data-dependent trip count, a per-thread array indexed by the
+  loop variable): OK or FAIL for each against its plain version over every
+  case of probes.layout_cases, with the device time of a call, ptxas's
+  registers and stack frame, and the memory instructions of the listing;
+  then the row-copy rates over 2^20 rows at the row widths bucket_reduce
+  gathers (16, 24, 32, 48 words) in segments of 1 and 16 rows.
 
 chip_smoke.py's kernel bounds take half the 32-bit lane rate as the peak
 of the wide multiply-add (INT32_OPS_PER_S there); the mad.wide row and its
@@ -23,7 +33,8 @@ loop's instruction counts show how near the toolchain's chain comes.
     python3 scripts/probe_h100.py --sass out/probe.sass    # keep the listing
 
 Prints one table per probe, the main-loop instruction counts, then one JSON
-line with every row and the card's name and power limit.
+line with every row and the card's name and power limit. Exits with 1 if
+any kernel differs from its plain version, with 2 without a card.
 """
 from __future__ import annotations
 
@@ -47,6 +58,7 @@ def main(argv=None) -> int:
         print("probe_h100: no CUDA device available", file=sys.stderr)
         return 2
     from libsnark_tpu_torch import get_curve, probes
+    from libsnark_tpu_torch.ops import cuda_lib
     from libsnark_tpu_torch.ops.fp import FpKernel
 
     card = subprocess.run(
@@ -72,10 +84,35 @@ def main(argv=None) -> int:
     print("main loop of each kernel (cuobjdump -sass):")
     for key, loop in loops.items():
         print(f"  {key}: {sum(loop.values())} instructions: "
-              + ", ".join(f"{n} {opc}" for opc, n in loop.items()), flush=True)
+              + (", ".join(f"{n} {opc}" for opc, n in loop.items())
+                 or "no loop"), flush=True)
+    layout = probes.measure_layout()
+    print("layout probes (us: device time of a call in a replayed CUDA "
+          "graph; call: the wrapper in a loop; torch: the one PyTorch call)")
+    for r in layout:
+        lib = (f", torch {r['library_ms'] * 1e3:.2f} us"
+               if r["library_ms"] else "")
+        print(f"{'OK  ' if r['exact'] else 'FAIL'} {r['name']}  {r['case']} "
+              f"+ {r['cases'] - 1} more cases  ({r['ms'] * 1e3:.2f} us, call "
+              f"{r['call_ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} "
+              f"us{lib}; {r['bytes']} bytes)", flush=True)
+    for line in cuda_lib.ptxas_summary():
+        if "probe_layout" in line:
+            print(f"  {line}")
+    mem_ops = probes.sass_memory_ops()
+    for key, ops in mem_ops.items():
+        print(f"  {key}: " + ", ".join(f"{n} {opc}" for opc, n in ops.items()))
+    row_copy = probes.measure_row_copy()
+    print(f"{'words':<6} {'R':>3} {'exact':<6} {'ms':>9} {'GB/s':>9} "
+          f"{'torch indexing ms':>18}")
+    for r in row_copy:
+        print(f"{r['width']:<6} {r['R']:>3} {str(r['exact']):<6} "
+              f"{r['ms']:9.4f} {r['gb_per_s']:9.1f} {r['library_ms']:18.4f}",
+              flush=True)
     print(json.dumps({"card": card, "rates": rates, "cios": cios,
-                      "main_loops": loops}))
-    bad = [r for r in rates + cios if not r["exact"]]
+                      "main_loops": loops, "layout": layout,
+                      "layout_memory_ops": mem_ops, "row_copy": row_copy}))
+    bad = [r for r in rates + cios + layout + row_copy if not r["exact"]]
     if bad:
         print(f"probe_h100: {len(bad)} kernels differ from their plain "
               f"versions", file=sys.stderr)

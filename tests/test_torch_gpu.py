@@ -14,6 +14,7 @@ import torch
 from libsnark_tpu_torch import get_curve, probes
 from libsnark_tpu_torch.ops import cuda_bucket, cuda_ec, cuda_fp
 from libsnark_tpu_torch.ops.msm import MSMKernel
+from libsnark_tpu_torch.polynomial_commitments.kzg10 import KZG10
 from libsnark_tpu_torch.proof_systems.base import PairingSystem
 
 pytestmark = pytest.mark.gpu
@@ -157,3 +158,60 @@ def test_probe_kernels_match_plain_on_card(system):
         for variant in probes.CIOS_VARIANTS:
             assert torch.equal(probes.cios_chain(fk, variant, a, b, 5),
                                want), (fk.N, variant)
+
+
+def test_layout_kernels_match_plain_on_card(system):
+    """Every case of probes.layout_cases: the TPU scripts' shapes, odd
+    offsets, shifts outside [0, axis), tiles with no word above 7, trip
+    counts 1..6. Each case launches its kernel once; the PyTorch call
+    timed beside a kernel computes the same function."""
+    seen = set()
+    for name, label, kern, plain, lib, _ in probes.layout_cases("cuda"):
+        before = probes.LAUNCHES[f"probe_layout_{name}"]
+        got = kern()
+        assert probes.LAUNCHES[f"probe_layout_{name}"] == before + 1
+        want = plain()
+        assert torch.equal(got, want), (name, label)
+        if lib is not None:
+            assert torch.equal(lib(), want), (name, label)
+        seen.add(name)
+    assert seen == set(probes.LAYOUT_PROBES)
+
+
+def test_graph_timing_counts_the_kernels_that_ran(system):
+    """A wrapper called while a CUDA graph is captured runs no kernel: the
+    count rises by the warm-up call and by ``reps`` per replay."""
+    x = torch.arange(16 * 128, dtype=torch.int32, device="cuda").reshape(16, 128)
+    before = dict(probes.LAUNCHES)
+    assert probes._graph_ms(lambda: probes.roll_minor(x, 40), 10) > 0
+    grown = {k: n - before[k] for k, n in probes.LAUNCHES.items()
+             if n != before[k]}
+    assert grown == {"probe_layout_roll_minor": 1 + 2 * 10}
+
+
+def test_kzg_round_trip_on_card(system):
+    """KZG10 at degree 2^14 - 1 through the kernels: the opening verifies, a
+    wrong value, a wrong point and a changed coefficient are rejected, and
+    the dense strategy commits to the same point."""
+    curve = system.curve
+    r = curve.r
+    n = 1 << 14
+    rng = random.Random(31)
+    kzg = KZG10(curve, device="cuda")
+    srs = kzg.setup(n - 1, seed=3)
+    coeffs = [rng.randrange(r) for _ in range(n)]
+    before = cuda_bucket.LAUNCHES[cuda_ec.counter_key("bucket_reduce", kzg.fq)]
+    C = kzg.commit(srs, coeffs)
+    assert cuda_bucket.LAUNCHES[
+        cuda_ec.counter_key("bucket_reduce", kzg.fq)] == before + 1
+    z = rng.randrange(r)
+    v, W = kzg.create_evaluation_witness(srs, coeffs, z)
+    assert v == kzg.evaluate_polynomial(coeffs, z, r)
+    assert kzg.verify_evaluation(srs, C, z, v, W)
+    assert not kzg.verify_evaluation(srs, C, z, (v + 1) % r, W)
+    assert not kzg.verify_evaluation(srs, C, (z + 1) % r, v, W)
+    assert kzg.verify_poly(srs, C, coeffs)
+    assert not kzg.verify_poly(srs, C, [(coeffs[0] + 1) % r] + coeffs[1:])
+    dense = KZG10(curve, device="cuda", msm_strategy="dense")
+    assert dense.commit(srs, coeffs).point == C.point
+    assert kzg.commit(srs, [0] * n).point == curve.G1.zero()
