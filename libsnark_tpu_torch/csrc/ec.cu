@@ -8,7 +8,9 @@
 // lax.cond is a branch inside the thread. Bound on the card: the field
 // products (6-16 per lane for G1, three times that for G2), i.e. integer
 // multiply throughput; the kernels keep every coordinate in registers and
-// read and write each lane's limbs once.
+// read and write each lane's limbs once. add, the suffix scan's and the
+// segment tree's kernel, is ordered for its register budget: the Z's
+// first, P loaded again only for the rare P == Q repair.
 #include "ec.cuh"
 
 template <int NW, int E>
@@ -24,8 +26,30 @@ dbl_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
   jac_store<NW, E>(ox, oy, oz, L, i, P);
 }
 
+// P's coordinates again, through volatile loads, for the rare P == Q
+// repair: the compiler cannot reuse the values loaded for the formula, so
+// those die at their use and not at the repair.
 template <int NW, int E>
-__global__ void __launch_bounds__(128)
+__device__ __forceinline__ Fe<NW, E> fe_load_again(const volatile int32_t* base,
+                                                   int64_t L, int64_t i) {
+  Fe<NW, E> r;
+#pragma unroll
+  for (int c = 0; c < E; ++c)
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      uint32_t lo = (uint32_t)base[(int64_t)(2 * (c * NW + k)) * L + i];
+      uint32_t hi = (uint32_t)base[(int64_t)(2 * (c * NW + k) + 1) * L + i];
+      r.c[c].w[k] = (lo & 0xFFFFu) | (hi << 16);
+    }
+  return r;
+}
+
+// add: the Z's first (infinity on either side copies the other point),
+// then X1, Y1, X2, Y2 before the formula (loading each at its use instead
+// ran no faster on an H100, and for G1 at 24 limbs needed 212 registers
+// or spilled); a lane with P == Q loads P again and doubles it.
+template <int NW, int E>
+__global__ void __launch_bounds__(128, Blocks<NW, E>::add)
 add_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
            const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
            const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
@@ -33,9 +57,28 @@ add_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
            const __grid_constant__ Mod<NW> M) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= L) return;
-  Jac<NW, E> P = jac_load<NW, E>(x1, y1, z1, L, i);
-  Jac<NW, E> Q = jac_load<NW, E>(x2, y2, z2, L, i);
-  jac_store<NW, E>(ox, oy, oz, L, i, ec_add<NW, E>(P, Q, M));
+  Fe<NW, E> Z1 = fe_load<NW, E>(z1, L, i);
+  Fe<NW, E> Z2 = fe_load<NW, E>(z2, L, i);
+  Jac<NW, E> R;
+  if (fe_is_zero<NW, E>(Z1)) {
+    R.X = fe_load<NW, E>(x2, L, i);
+    R.Y = fe_load<NW, E>(y2, L, i);
+    R.Z = Z2;
+  } else if (fe_is_zero<NW, E>(Z2)) {
+    R.X = fe_load<NW, E>(x1, L, i);
+    R.Y = fe_load<NW, E>(y1, L, i);
+    R.Z = Z1;
+  } else if (!ec_add_finite<NW, E>(
+                 fe_load<NW, E>(x1, L, i), fe_load<NW, E>(y1, L, i), Z1,
+                 fe_load<NW, E>(x2, L, i), fe_load<NW, E>(y2, L, i), Z2, R,
+                 M)) {
+    Jac<NW, E> P;
+    P.X = fe_load_again<NW, E>(x1, L, i);
+    P.Y = fe_load_again<NW, E>(y1, L, i);
+    P.Z = fe_load_again<NW, E>(z1, L, i);
+    R = ec_dbl<NW, E>(P, M);
+  }
+  jac_store<NW, E>(ox, oy, oz, L, i, R);
 }
 
 template <int NW, int E>

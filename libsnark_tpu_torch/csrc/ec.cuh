@@ -11,6 +11,36 @@
 #pragma once
 #include "field.cuh"
 
+// __launch_bounds__ minimum blocks of 128 threads per SM of add_kernel and
+// bucket_reduce_kernel for G1: it sets ptxas's register budget at
+// 65536 / (128 blocks) per thread (4: 128 registers, 3: 168, 2: 255). G2
+// takes 1: its products are called functions and it sits at the 255 cap
+// whatever the budget. The values are the fastest budgets at which ptxas
+// spills nothing in scripts/sweep_launch_bounds.py's runs on an H100
+// (ptxas then takes add 162 / 220 registers at 16 / 24 limbs and
+// bucket_reduce 107 / 149; one block more spilled: add 88 / 108 B,
+// bucket_reduce 84 B at 24 limbs); its builds set them with -D.
+#ifndef LSN_ADD_BLOCKS_N16
+#define LSN_ADD_BLOCKS_N16 3
+#endif
+#ifndef LSN_ADD_BLOCKS_N24
+#define LSN_ADD_BLOCKS_N24 2
+#endif
+#ifndef LSN_BUCKET_BLOCKS_N16
+#define LSN_BUCKET_BLOCKS_N16 4
+#endif
+#ifndef LSN_BUCKET_BLOCKS_N24
+#define LSN_BUCKET_BLOCKS_N24 3
+#endif
+
+template <int NW, int E>
+struct Blocks {
+  static constexpr int add =
+      E == 2 ? 1 : NW == 8 ? LSN_ADD_BLOCKS_N16 : LSN_ADD_BLOCKS_N24;
+  static constexpr int bucket =
+      E == 2 ? 1 : NW == 8 ? LSN_BUCKET_BLOCKS_N16 : LSN_BUCKET_BLOCKS_N24;
+};
+
 template <int NW, int E>
 struct Jac {
   Fe<NW, E> X, Y, Z;
@@ -36,6 +66,16 @@ __device__ __forceinline__ Jac<NW, E> ec_dbl(const Jac<NW, E>& P,
   return R;
 }
 
+// Register budget. A product keeps about 2 NW + 4 words of its own live
+// beside its operands, so a kernel's registers are set by how many field
+// elements are live at once. The formulas below are ordered so that every
+// value dies at its last use and at most six elements of the result's
+// field are live beside a product. Z3 is computed as 2 Z1 H (madd) and
+// 2 Z1 Z2 H (add): the same field element as the (Z1 + H)^2 - Z1Z1 - HH
+// and ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H of the plain formulas, with as many
+// products and without Z1Z1 and Z2Z2 to the end; values are canonical,
+// so the limbs are the same.
+
 // madd-2007-bl: P Jacobian + Q affine (X2, Y2); q_inf / !valid keep P.
 // P == Q (as group elements, P finite, Q live) is repaired in-thread.
 template <int NW, int E>
@@ -54,23 +94,51 @@ __device__ __forceinline__ Jac<NW, E> ec_madd(const Jac<NW, E>& P,
     return R;
   }
   F Z1Z1 = fe_sqr<NW, E>(P.Z, M);
-  F U2 = fe_mul(X2, Z1Z1, M);
-  F S2 = fe_mul(fe_mul(Y2, P.Z, M), Z1Z1, M);
-  F H = fe_sub<NW, E>(U2, P.X, M);
-  F rr = fe_dbl<NW, E>(fe_sub<NW, E>(S2, P.Y, M), M);
+  F H = fe_sub<NW, E>(fe_mul(X2, Z1Z1, M), P.X, M);
+  F rr = fe_dbl<NW, E>(
+      fe_sub<NW, E>(fe_mul(fe_mul(Y2, P.Z, M), Z1Z1, M), P.Y, M), M);
   if (fe_is_zero<NW, E>(H) && fe_is_zero<NW, E>(rr)) return ec_dbl<NW, E>(P, M);
-  F HH = fe_sqr<NW, E>(H, M);
-  F I = fe_dbl<NW, E>(fe_dbl<NW, E>(HH, M), M);
+  Jac<NW, E> R;
+  R.Z = fe_dbl<NW, E>(fe_mul(P.Z, H, M), M);
+  F I = fe_dbl<NW, E>(fe_dbl<NW, E>(fe_sqr<NW, E>(H, M), M), M);
   F J = fe_mul(H, I, M);
   F V = fe_mul(P.X, I, M);
-  Jac<NW, E> R;
+  F YJ = fe_mul(P.Y, J, M);
   R.X = fe_sub<NW, E>(fe_sub<NW, E>(fe_sqr<NW, E>(rr, M), J, M),
                       fe_dbl<NW, E>(V, M), M);
   R.Y = fe_sub<NW, E>(fe_mul(rr, fe_sub<NW, E>(V, R.X, M), M),
-                      fe_dbl<NW, E>(fe_mul(P.Y, J, M), M), M);
-  R.Z = fe_sub<NW, E>(
-      fe_sub<NW, E>(fe_sqr<NW, E>(fe_add<NW, E>(P.Z, H, M), M), Z1Z1, M), HH, M);
+                      fe_dbl<NW, E>(YJ, M), M);
   return R;
+}
+
+// add-2007-bl for finite P and Q (Z1, Z2 != 0); Z1 and Z2 die in Z1 Z2
+// before the P == Q test. Returns false, with R unset, if P == Q: the
+// caller doubles P, which it holds or loads again.
+template <int NW, int E>
+__device__ __forceinline__ bool ec_add_finite(
+    const Fe<NW, E>& X1, const Fe<NW, E>& Y1, const Fe<NW, E>& Z1,
+    const Fe<NW, E>& X2, const Fe<NW, E>& Y2, const Fe<NW, E>& Z2,
+    Jac<NW, E>& R, const Mod<NW>& M) {
+  typedef Fe<NW, E> F;
+  F Z2Z2 = fe_sqr<NW, E>(Z2, M);
+  F U1 = fe_mul(X1, Z2Z2, M);
+  F S1 = fe_mul(fe_mul(Y1, Z2, M), Z2Z2, M);
+  F Z1Z1 = fe_sqr<NW, E>(Z1, M);
+  F H = fe_sub<NW, E>(fe_mul(X2, Z1Z1, M), U1, M);
+  F rr = fe_dbl<NW, E>(
+      fe_sub<NW, E>(fe_mul(fe_mul(Y2, Z1, M), Z1Z1, M), S1, M), M);
+  F ZZ = fe_mul(Z1, Z2, M);
+  if (fe_is_zero<NW, E>(H) && fe_is_zero<NW, E>(rr)) return false;
+  R.Z = fe_dbl<NW, E>(fe_mul(ZZ, H, M), M);
+  F I = fe_sqr<NW, E>(fe_dbl<NW, E>(H, M), M);
+  F J = fe_mul(H, I, M);
+  F V = fe_mul(U1, I, M);
+  F SJ = fe_mul(S1, J, M);
+  R.X = fe_sub<NW, E>(fe_sub<NW, E>(fe_sqr<NW, E>(rr, M), J, M),
+                      fe_dbl<NW, E>(V, M), M);
+  R.Y = fe_sub<NW, E>(fe_mul(rr, fe_sub<NW, E>(V, R.X, M), M),
+                      fe_dbl<NW, E>(SJ, M), M);
+  return true;
 }
 
 // add-2007-bl: both Jacobian; infinity on either side returns the other.
@@ -78,31 +146,11 @@ template <int NW, int E>
 __device__ __forceinline__ Jac<NW, E> ec_add(const Jac<NW, E>& P,
                                              const Jac<NW, E>& Q,
                                              const Mod<NW>& M) {
-  typedef Fe<NW, E> F;
   if (fe_is_zero<NW, E>(P.Z)) return Q;
   if (fe_is_zero<NW, E>(Q.Z)) return P;
-  F Z1Z1 = fe_sqr<NW, E>(P.Z, M);
-  F Z2Z2 = fe_sqr<NW, E>(Q.Z, M);
-  F U1 = fe_mul(P.X, Z2Z2, M);
-  F U2 = fe_mul(Q.X, Z1Z1, M);
-  F S1 = fe_mul(fe_mul(P.Y, Q.Z, M), Z2Z2, M);
-  F S2 = fe_mul(fe_mul(Q.Y, P.Z, M), Z1Z1, M);
-  F H = fe_sub<NW, E>(U2, U1, M);
-  F rr = fe_dbl<NW, E>(fe_sub<NW, E>(S2, S1, M), M);
-  if (fe_is_zero<NW, E>(H) && fe_is_zero<NW, E>(rr)) return ec_dbl<NW, E>(P, M);
-  F I = fe_sqr<NW, E>(fe_dbl<NW, E>(H, M), M);
-  F J = fe_mul(H, I, M);
-  F V = fe_mul(U1, I, M);
   Jac<NW, E> R;
-  R.X = fe_sub<NW, E>(fe_sub<NW, E>(fe_sqr<NW, E>(rr, M), J, M),
-                      fe_dbl<NW, E>(V, M), M);
-  R.Y = fe_sub<NW, E>(fe_mul(rr, fe_sub<NW, E>(V, R.X, M), M),
-                      fe_dbl<NW, E>(fe_mul(S1, J, M), M), M);
-  R.Z = fe_mul(
-      fe_sub<NW, E>(
-          fe_sub<NW, E>(fe_sqr<NW, E>(fe_add<NW, E>(P.Z, Q.Z, M), M), Z1Z1, M),
-          Z2Z2, M),
-      H, M);
+  if (!ec_add_finite<NW, E>(P.X, P.Y, P.Z, Q.X, Q.Y, Q.Z, R, M))
+    return ec_dbl<NW, E>(P, M);
   return R;
 }
 

@@ -9,9 +9,10 @@
 // 12 for a 384-bit one; the interface has NL = 2*NW limbs); products are
 // 64-bit. R = 2^(32*NW) is the JAX package's 2^(16*N), so the Montgomery
 // form is the same; only the REDC constant differs: n0inv = -p^-1 mod 2^32
-// here (mod 2^16 in the JAX code). Nothing below assumes that p fills its
-// top word: CIOS keeps an (NW+2)-word accumulator, its result is < 2p for
-// any p < R, and fp_reduce_once takes the carry word beside the NW words.
+// here (mod 2^16 in the JAX code). The product (fp_mul, a carry chain)
+// needs p < R/2, which every curve of the repository meets and
+// ops/cuda_lib.make_mod checks; fp_reduce_once takes a carry word beside the
+// NW words for fp_add.
 //
 // Every value a function returns is canonical (< p), so any correct
 // formula gives the JAX package's bits exactly.
@@ -60,16 +61,6 @@ __device__ __forceinline__ void fp_store(int32_t* __restrict__ base,
     base[(2 * k) * stride + idx] = (int32_t)(a.w[k] & 0xFFFFu);
     base[(2 * k + 1) * stride + idx] = (int32_t)(a.w[k] >> 16);
   }
-}
-
-// row-major load: the 2*NW limbs of one element are contiguous
-template <int NW>
-__device__ __forceinline__ Fp<NW> fp_load_row(const int32_t* __restrict__ row) {
-  Fp<NW> r;
-#pragma unroll
-  for (int k = 0; k < NW; ++k)
-    r.w[k] = ((uint32_t)row[2 * k] & 0xFFFFu) | ((uint32_t)row[2 * k + 1] << 16);
-  return r;
 }
 
 // ------------------------------------------------------------------ helpers
@@ -171,42 +162,143 @@ __device__ __forceinline__ Fp<NW> fp_dbl(const Fp<NW>& a, const Mod<NW>& M) {
   return fp_add<NW>(a, a, M);
 }
 
-// CIOS Montgomery product a*b*2^(-32 NW) mod p (inputs canonical).
+// ------------------------------------------------- carry-chain product
+// The Montgomery product as PTX carry chains (mad.lo.cc, madc.hi.cc,
+// addc) over two column accumulators. "even" takes the products of the
+// even words a[0], a[2], ..: lo at column j and hi at j + 1, disjoint
+// pairs, so a row of them is one unbroken chain of multiply-adds and no
+// wide product needs separate adds for its carries; "odd" takes those of
+// the odd words, one column up. The running value is even + 2^32 odd.
+// Each round adds a b_i and m p (m zeroes the low word) and divides by
+// 2^32 by swapping the two roles: the accumulator whose low word is zero
+// moves down two words into the other role (rshift) while the round's
+// products go into it. Needs p < R/2: the value then stays below 2p, and
+// the carries the code drops (out of each odd chain) are zero.
+// The carry flag lives between consecutive asm statements; they are
+// volatile so that the compiler keeps their order, and nothing between
+// them writes the flag (only .cc instructions do, and only these).
+namespace chain {
+
+template <int NW>
+__device__ __forceinline__ void mul_n(uint32_t* acc, const uint32_t* a,
+                                      uint32_t bi) {
+#pragma unroll
+  for (int j = 0; j < NW; j += 2) {
+    acc[j] = a[j] * bi;
+    acc[j + 1] = __umulhi(a[j], bi);
+  }
+}
+
+// acc += a[j] bi at columns (j, j + 1), j even; carry out in the flag
+template <int NW>
+__device__ __forceinline__ void cmad_n(uint32_t* acc, const uint32_t* a,
+                                       uint32_t bi) {
+  asm volatile("mad.lo.cc.u32 %0, %2, %3, %0; madc.hi.cc.u32 %1, %2, %3, %1;"
+               : "+r"(acc[0]), "+r"(acc[1]) : "r"(a[0]), "r"(bi));
+#pragma unroll
+  for (int j = 2; j < NW; j += 2)
+    asm volatile("madc.lo.cc.u32 %0, %2, %3, %0; madc.hi.cc.u32 %1, %2, %3, %1;"
+                 : "+r"(acc[j]), "+r"(acc[j + 1]) : "r"(a[j]), "r"(bi));
+}
+
+// acc <- (acc >> 2 words) + a[j] bi at columns (j, j + 1), carry in from
+// the flag; the top word takes no carry out (hi(a b) + 1 < 2^32)
+template <int NW>
+__device__ __forceinline__ void madc_n_rshift(uint32_t* acc, const uint32_t* a,
+                                              uint32_t bi) {
+#pragma unroll
+  for (int j = 0; j < NW - 2; j += 2)
+    asm volatile("madc.lo.cc.u32 %0, %2, %3, %4; madc.hi.cc.u32 %1, %2, %3, %5;"
+                 : "=r"(acc[j]), "=r"(acc[j + 1])
+                 : "r"(a[j]), "r"(bi), "r"(acc[j + 2]), "r"(acc[j + 3]));
+  asm volatile("madc.lo.cc.u32 %0, %2, %3, 0; madc.hi.u32 %1, %2, %3, 0;"
+               : "=r"(acc[NW - 2]), "=r"(acc[NW - 1]) : "r"(a[NW - 2]), "r"(bi));
+}
+
+// One round: even + 2^32 odd (+)= a bi, then + m p with m = even[0] n0inv,
+// which zeroes even[0]. On entry (after the first round) odd holds the
+// previous round's zeroed accumulator and even its other one.
+template <int NW, bool FIRST>
+__device__ __forceinline__ void mad_n_redc(uint32_t* even, uint32_t* odd,
+                                           const uint32_t* a, uint32_t bi,
+                                           const Mod<NW>& M) {
+  if (FIRST) {
+    mul_n<NW>(odd, a + 1, bi);
+    mul_n<NW>(even, a, bi);
+  } else {
+    asm volatile("add.cc.u32 %0, %0, %1;" : "+r"(even[0]) : "r"(odd[1]));
+    madc_n_rshift<NW>(odd, a + 1, bi);
+    cmad_n<NW>(even, a, bi);
+    asm volatile("addc.u32 %0, %0, 0;" : "+r"(odd[NW - 1]));
+  }
+  uint32_t mi = even[0] * M.n0inv;
+  cmad_n<NW>(odd, M.p + 1, mi);
+  cmad_n<NW>(even, M.p, mi);
+  asm volatile("addc.u32 %0, %0, 0;" : "+r"(odd[NW - 1]));
+}
+
+}  // namespace chain
+
+// Products of LSN_CHAIN_ROLL_NW words or more (every width, by default)
+// run the rounds after the first two in a loop of two rounds that is not
+// unrolled; the b words rotate down two places an iteration, so every
+// index stays static. Unrolled, ptxas overlaps many rounds and, out of
+// carry predicates, keeps carries as bits of a register (at NW = 12 the
+// product took 822 instructions, 413 of them LOP3 / P2R / ISETP moving
+// carries); rolled, G1 add at 24 limbs ran 1.38x and bucket_reduce 1.29x
+// faster on an H100, with fewer registers (bucket_reduce 168 -> 149), and
+// at 16 limbs 0-10 % faster (scripts/sweep_launch_bounds.py, which sets
+// it with -D).
+#ifndef LSN_CHAIN_ROLL_NW
+#define LSN_CHAIN_ROLL_NW 8
+#endif
+
+// a*b*2^(-32 NW) mod p (inputs canonical, p < R/2), canonical out; ROLLED:
+// the loop above
+template <int NW, bool ROLLED>
+__device__ __forceinline__ Fp<NW> fp_mul_chain(const Fp<NW>& a,
+                                               const Fp<NW>& b,
+                                               const Mod<NW>& M) {
+  static_assert(NW % 2 == 0, "the carry-chain product pairs words");
+  uint32_t even[NW], odd[NW];
+  chain::mad_n_redc<NW, true>(even, odd, a.w, b.w[0], M);
+  chain::mad_n_redc<NW, false>(odd, even, a.w, b.w[1], M);
+  if constexpr (ROLLED) {
+    uint32_t bw[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) bw[k] = b.w[k];
+#pragma unroll 1
+    for (int i = 2; i < NW; i += 2) {
+#pragma unroll
+      for (int k = 0; k + 2 < NW; ++k) bw[k] = bw[k + 2];
+      chain::mad_n_redc<NW, false>(even, odd, a.w, bw[0], M);
+      chain::mad_n_redc<NW, false>(odd, even, a.w, bw[1], M);
+    }
+  } else {
+#pragma unroll
+    for (int i = 2; i < NW; i += 2) {
+      chain::mad_n_redc<NW, false>(even, odd, a.w, b.w[i], M);
+      chain::mad_n_redc<NW, false>(odd, even, a.w, b.w[i + 1], M);
+    }
+  }
+  // the value is even + odd / 2^32 (odd[0] is zero), below 2p
+  Fp<NW> r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r.w[0]) : "r"(even[0]), "r"(odd[1]));
+#pragma unroll
+  for (int j = 1; j < NW - 1; ++j)
+    asm volatile("addc.cc.u32 %0, %1, %2;"
+                 : "=r"(r.w[j]) : "r"(even[j]), "r"(odd[j + 1]));
+  asm volatile("addc.u32 %0, %1, 0;" : "=r"(r.w[NW - 1]) : "r"(even[NW - 1]));
+  return fp_reduce_once<NW>(r, 0, M);
+}
+
+// The field product of every kernel. CIOS, the body it replaced (583
+// instructions at NW = 8, 1260 at NW = 12), stays in csrc/probe.cu as
+// variant 0 of the CIOS probe, beside both forms of the chain.
 template <int NW>
 __device__ __forceinline__ Fp<NW> fp_mul(const Fp<NW>& a, const Fp<NW>& b,
                                          const Mod<NW>& M) {
-  uint32_t t[NW + 2];
-#pragma unroll
-  for (int k = 0; k < NW + 2; ++k) t[k] = 0;
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    uint64_t C = 0;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      uint64_t s = (uint64_t)a.w[j] * b.w[i] + t[j] + C;
-      t[j] = (uint32_t)s;
-      C = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[NW] + C;
-    t[NW] = (uint32_t)s;
-    t[NW + 1] = (uint32_t)(s >> 32);
-    uint32_t m = t[0] * M.n0inv;
-    s = (uint64_t)m * M.p[0] + t[0];
-    C = s >> 32;
-#pragma unroll
-    for (int j = 1; j < NW; ++j) {
-      s = (uint64_t)m * M.p[j] + t[j] + C;
-      t[j - 1] = (uint32_t)s;
-      C = s >> 32;
-    }
-    s = (uint64_t)t[NW] + C;
-    t[NW - 1] = (uint32_t)s;
-    t[NW] = t[NW + 1] + (uint32_t)(s >> 32);
-  }
-  Fp<NW> r;
-#pragma unroll
-  for (int k = 0; k < NW; ++k) r.w[k] = t[k];
-  return fp_reduce_once<NW>(r, t[NW], M);
+  return fp_mul_chain<NW, (NW >= LSN_CHAIN_ROLL_NW)>(a, b, M);
 }
 
 // The same product as a called function: one copy per kernel instead of
@@ -246,14 +338,6 @@ __device__ __forceinline__ void fe_store(int32_t* base, int64_t stride,
 #pragma unroll
   for (int c = 0; c < E; ++c)
     fp_store<NW>(base + (int64_t)c * 2 * NW * stride, stride, idx, a.c[c]);
-}
-
-template <int NW, int E>
-__device__ __forceinline__ Fe<NW, E> fe_load_row(const int32_t* row) {
-  Fe<NW, E> r;
-#pragma unroll
-  for (int c = 0; c < E; ++c) r.c[c] = fp_load_row<NW>(row + c * 2 * NW);
-  return r;
 }
 
 template <int NW, int E>

@@ -3,7 +3,8 @@
 // of NW = 8 (16 limbs) and NW = 12 (24 limbs) 32-bit words.
 //
 // One thread per lane: load a and b (2 NW limbs each, coalesced across the
-// warp), run the NW x 32-bit CIOS product of field.cuh, store 2 NW limbs.
+// warp), run the NW x 32-bit carry-chain product of field.cuh, store 2 NW
+// limbs.
 // Bound on the card: 2 NW^2 + NW wide multiply-adds per product against
 // 24 NW bytes moved per lane, so at 2^20 lanes it sits near the memory
 // bound; the design keeps every intermediate in registers and touches each

@@ -19,11 +19,15 @@
 // chain whatever K is.
 //
 // cios_kernel: the counterpart of scripts/probe_cios.py:98. K chained
-// Montgomery products x <- x * b per lane in two bodies: the CIOS of
-// field.cuh (variant 0) and a separated operand-scanning product (variant
-// 1: the full 2 NW-word product by rows of multiply-adds, then NW reduction
-// rows with one running top carry). Both return canonical values, so each
-// is exact against the plain Montgomery product. Bound: 2 NW^2 + NW wide
+// Montgomery products x <- x * b per lane in four bodies: CIOS (variant
+// 0, the kernels' product until the carry chain replaced it), a separated
+// operand-scanning product (variant 1: the full 2 NW-word product by rows
+// of multiply-adds, then NW reduction rows with one running top carry) and
+// the carry-chain product of field.cuh (PTX mad.lo.cc / madc.hi.cc chains
+// over even and odd column accumulators) with its rounds unrolled (variant
+// 2) and in a loop of two rounds (variant 3); fp_mul takes one of the two
+// by the width. All return canonical values, so each is exact
+// against the plain Montgomery product. Bound: 2 NW^2 + NW wide
 // multiply-adds per product.
 #include "field.cuh"
 
@@ -95,6 +99,48 @@ extern "C" int lsn_probe_rate(int op, const void* a, const void* b, void* out,
   return (int)cudaGetLastError();
 }
 
+// CIOS: the field product of every kernel before the carry chain of
+// field.cuh replaced it; a*b*2^(-32 NW) mod p (inputs canonical). Its
+// (NW+2)-word accumulator takes any p < R.
+template <int NW>
+__device__ __forceinline__ Fp<NW> fp_mul_cios(const Fp<NW>& a,
+                                              const Fp<NW>& b,
+                                              const Mod<NW>& M) {
+  uint32_t t[NW + 2];
+#pragma unroll
+  for (int k = 0; k < NW + 2; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t C = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      uint64_t s = (uint64_t)a.w[j] * b.w[i] + t[j] + C;
+      t[j] = (uint32_t)s;
+      C = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[NW] + C;
+    t[NW] = (uint32_t)s;
+    t[NW + 1] = (uint32_t)(s >> 32);
+    uint32_t m = t[0] * M.n0inv;
+    s = (uint64_t)m * M.p[0] + t[0];
+    C = s >> 32;
+#pragma unroll
+    for (int j = 1; j < NW; ++j) {
+      s = (uint64_t)m * M.p[j] + t[j] + C;
+      t[j - 1] = (uint32_t)s;
+      C = s >> 32;
+    }
+    s = (uint64_t)t[NW] + C;
+    t[NW - 1] = (uint32_t)s;
+    t[NW] = t[NW + 1] + (uint32_t)(s >> 32);
+  }
+  Fp<NW> r;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) r.w[k] = t[k];
+  return fp_reduce_once<NW>(r, t[NW], M);
+}
+
+
 // Separated operand scanning: t = a * b (2 NW words), then NW rounds of
 // t += m_i * p * 2^(32 i) with m_i = t[i] * n0inv; the carry out of round
 // i's top word (position i + NW) enters round i + 1's.
@@ -145,8 +191,16 @@ cios_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
   if (i >= L) return;
   Fp<NW> x = fp_load<NW>(a, L, i);
   Fp<NW> y = fp_load<NW>(b, L, i);
-  for (int k = 0; k < K; ++k)
-    x = VARIANT == 0 ? fp_mul<NW>(x, y, M) : fp_mul_sos<NW>(x, y, M);
+  for (int k = 0; k < K; ++k) {
+    if constexpr (VARIANT == 0)
+      x = fp_mul_cios<NW>(x, y, M);
+    else if constexpr (VARIANT == 1)
+      x = fp_mul_sos<NW>(x, y, M);
+    else if constexpr (VARIANT == 2)
+      x = fp_mul_chain<NW, false>(x, y, M);
+    else
+      x = fp_mul_chain<NW, true>(x, y, M);
+  }
   fp_store<NW>(out, L, i, x);
 }
 
@@ -160,6 +214,12 @@ static int cios_launch(int variant, const void* a, const void* b, void* out,
                                             (int32_t*)out, L, K, *mod);
   else if (variant == 1)
     cios_kernel<NW, 1><<<grid, 256, 0, s>>>((const int32_t*)a, (const int32_t*)b,
+                                            (int32_t*)out, L, K, *mod);
+  else if (variant == 2)
+    cios_kernel<NW, 2><<<grid, 256, 0, s>>>((const int32_t*)a, (const int32_t*)b,
+                                            (int32_t*)out, L, K, *mod);
+  else if (variant == 3)
+    cios_kernel<NW, 3><<<grid, 256, 0, s>>>((const int32_t*)a, (const int32_t*)b,
                                             (int32_t*)out, L, K, *mod);
   else
     return (int)cudaErrorInvalidValue;

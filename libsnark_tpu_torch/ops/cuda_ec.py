@@ -34,6 +34,8 @@ def counter_keys(kernels):
 
 
 LAUNCHES = dict.fromkeys(counter_keys(("dbl", "add", "madd", "aadd")), 0)
+# the work of those launches: lanes (dbl: lanes x doublings)
+WORK = dict.fromkeys(LAUNCHES, 0)
 
 
 def ext_of(fk) -> int:
@@ -203,7 +205,7 @@ def _unflatten(fk, outs, batch):
     return tuple(o.reshape(lead + batch) for o in outs)
 
 
-def _call(fn_name, fk, ins, L, extra=(), kernel=""):
+def _call(fn_name, fk, ins, L, extra=(), kernel="", work=None):
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
     f = getattr(cuda_lib.lib("ec"), fn_name)
     ptrs = [t.data_ptr() if t is not None else None for t in ins]
@@ -212,6 +214,7 @@ def _call(fn_name, fk, ins, L, extra=(), kernel=""):
                              cuda_lib.stream_ptr(outs[0])])
     cuda_lib.check(f(*args), kernel)
     LAUNCHES[counter_key(kernel, fk)] += 1
+    WORK[counter_key(kernel, fk)] += L if work is None else work
     return outs
 
 
@@ -220,7 +223,7 @@ def dbl(fk, P, reps: int = 1):
     if not P[0].is_cuda:
         return dbl_plain(fk, P, reps)
     flat, batch, L = _flatten(fk, P)
-    outs = _call("lsn_ec_dbl", fk, flat, L, (reps,), "dbl")
+    outs = _call("lsn_ec_dbl", fk, flat, L, (reps,), "dbl", L * reps)
     return _unflatten(fk, outs, batch)
 
 

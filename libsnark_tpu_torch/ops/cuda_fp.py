@@ -3,8 +3,8 @@
 Replaces the Pallas TPU kernel ``libsnark_tpu/ops/pallas_fp.py:_build_mul``
 (public ``mont_mul``). The kernel (csrc/fp.cu, built per field width) runs
 one thread per lane: it loads both operands' N limbs (coalesced: limb k of
-lane t at k*L + t), repacks them into N/2 words of 32 bits, runs CIOS with
-64-bit products and stores N limbs. What bounds it on the card: at 2^20
+lane t at k*L + t), repacks them into N/2 words of 32 bits, runs the
+carry-chain Montgomery product of csrc/field.cuh and stores N limbs. What bounds it on the card: at 2^20
 lanes the 12 N bytes each lane moves against N^2/2 + N/2 wide multiply-adds
 put it near the memory bound; the design keeps every intermediate in
 registers and touches each word of input and output once.
@@ -23,8 +23,10 @@ import torch
 from . import cuda_lib
 from .limbs import LIMB_BITS, LIMB_MASK
 
-# launches per field width (N 16-bit limbs)
+# launches per field width (N 16-bit limbs), and the work they did: lanes,
+# one product each
 LAUNCHES = {f"mont_mul_n{2 * nw}": 0 for nw in cuda_lib.WIDTHS}
+WORK = dict.fromkeys(LAUNCHES, 0)
 
 
 def normalize(cols: torch.Tensor):
@@ -124,4 +126,5 @@ def mont_mul(fk, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         ctypes.addressof(fk.mod), cuda_lib.stream_ptr(a2))
     cuda_lib.check(code, "mont_mul")
     LAUNCHES[f"mont_mul_n{fk.N}"] += 1
+    WORK[f"mont_mul_n{fk.N}"] += L
     return out

@@ -53,8 +53,8 @@ _ARGTYPES = {
         "lsn_ec_aadd": [_I, _I] + [_VP] * 9 + [_LL, _VP, _VP],
     },
     "bucket": {
-        "lsn_bucket_reduce": [_I, _I, _VP, _LL, _VP, _VP, _VP, _LL, _VP, _VP,
-                              _VP, _VP, _VP],
+        "lsn_bucket_reduce": [_I, _I, _VP, _LL, _VP, _VP, _VP, _VP, _LL, _VP,
+                              _VP, _VP, _VP, _VP],
         "lsn_horner": [_I, _I, _VP, _VP, _VP, _LL, _I, _VP, _VP, _VP, _VP,
                        _VP],
     },
@@ -228,8 +228,9 @@ def make_mod(p: int, num_limbs: int, beta_small: int = 0,
     """The kernels' constants for modulus p over ``num_limbs`` 16-bit
     limbs: R = 2^(16 num_limbs) = 2^(32 NW), as in the JAX package."""
     nw = words_of(num_limbs)
-    if not p < 1 << (32 * nw):
-        raise ValueError("modulus does not fit its limbs")
+    if not p < 1 << (32 * nw - 1):
+        raise ValueError("the kernels' carry-chain product needs a modulus "
+                         "below R/2 = 2^(16 num_limbs - 1)")
     words = lambda x: (ctypes.c_uint32 * nw)(
         *[(x >> (32 * k)) & 0xFFFFFFFF for k in range(nw)])
     n0inv = (-pow(p, -1, 1 << 32)) % (1 << 32)

@@ -11,6 +11,10 @@ sits at ``k * L + t``.
 On the host the limbs are numpy uint32 (the JAX package's dtype); on the
 torch side they are ``torch.int32``, which holds the same bits for values
 below 2^16 (torch's uint32 has partial operator coverage).
+
+``limbs_to_words`` / ``words_to_limbs`` convert to and from the CUDA
+kernels' register layout, 32-bit words (two limbs each) carried as int32
+bit patterns: the packed row table that ``bucket_reduce`` gathers.
 """
 from __future__ import annotations
 
@@ -73,3 +77,20 @@ def from_torch(t: torch.Tensor) -> np.ndarray:
     if a.dtype == np.bool_:
         return a
     return a.astype(np.uint32)
+
+
+def limbs_to_words(a: torch.Tensor) -> torch.Tensor:
+    """(2K, *batch) int32 16-bit limbs -> (K, *batch) int32 words: word k
+    holds limb 2k in its low and limb 2k + 1 in its high 16 bits, its 32
+    bits carried as an int32 bit pattern."""
+    return (a[0::2] & LIMB_MASK) | (a[1::2] << LIMB_BITS)
+
+
+def words_to_limbs(w: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``limbs_to_words``: (K, *batch) int32 words -> (2K,
+    *batch) int32 limbs."""
+    out = torch.empty((2 * w.shape[0],) + tuple(w.shape[1:]),
+                      dtype=torch.int32, device=w.device)
+    out[0::2] = w & LIMB_MASK
+    out[1::2] = (w >> LIMB_BITS) & LIMB_MASK
+    return out

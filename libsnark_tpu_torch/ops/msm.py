@@ -9,8 +9,9 @@ Variable-base MSM, signed-digit Pippenger:
   3. bucket accumulation, by the kernel's ``strategy``:
      ``"segments"`` (the default): ``bucket_reduce`` (ops/cuda_bucket.py),
      one kernel launch reduces all bucket runs, cut into segments of
-     bounded length (one thread each, gathering its own rows); a pairwise
-     add tree joins the segments of a bucket;
+     bounded length (one thread each, longest segments first, gathering its
+     own rows from the packed row table); a pairwise add tree joins the
+     segments of a bucket;
      ``"dense"``: the runs are gathered into a dense (depth, window,
      bucket) layout, level 0 is one ``aadd`` launch on pairs of affine
      rows, the levels above are ``add`` launches (a log-depth tree), and
@@ -41,7 +42,7 @@ import torch
 
 from .cuda_bucket import bucket_reduce, horner_combine
 from .cuda_ec import ext_of
-from .limbs import LIMB_BITS, ints_to_limbs
+from .limbs import LIMB_BITS, ints_to_limbs, limbs_to_words, words_to_limbs
 
 
 def default_window_bits(m: int) -> int:
@@ -151,16 +152,20 @@ class MSMKernel:
         return gidx, starts, counts
 
     def row_table(self, points_aff, signed: bool = False):
-        """Affine (x, y, inf) -> (m, 2FW) int32 rows [x | y], infinity
-        rows all zero (y == 0 is never a valid affine point here).
-        signed: m further rows [x | -y], so that a signed row index
-        idx + sign*m gathers the point a negative digit adds."""
+        """Affine (x, y, inf) -> (m, FW) int32 packed rows [x | y]: each
+        coordinate as its FW / 2 32-bit words (``limbs_to_words``, the
+        kernels' register layout; Fp2 rows are [x0 x1 | y0 y1]), half the
+        bytes of its 16-bit limbs. Infinity rows are all zero (y == 0 is
+        never a valid affine point here). signed: m further rows [x | -y],
+        so that a signed row index idx + sign*m gathers the point a
+        negative digit adds."""
         x, y, inf = points_aff
         FW = ext_of(self.fk) * self.fk.N
         m = x.shape[-1]
         ys = [y, self.fk.neg(y)] if signed else [y]
-        rows = torch.cat([torch.cat([x.reshape(FW, m), v.reshape(FW, m)],
-                                    dim=0).T for v in ys], dim=0)
+        rows = torch.cat([limbs_to_words(torch.cat(
+            [x.reshape(FW, m), v.reshape(FW, m)], dim=0)).T for v in ys],
+            dim=0)
         dead = inf.reshape(m, 1).repeat(len(ys), 1)
         return torch.where(dead, torch.zeros_like(rows), rows).contiguous()
 
@@ -229,8 +234,12 @@ class MSMKernel:
         buckets; equal scalars put all m in one), and one thread per whole
         run would serialise it. Segments stay in (bucket, rank) order.
 
+        ``seg_order`` lists the segments longest first (ties in segment
+        order), the order in which ``bucket_reduce`` hands them to threads.
+
         Returns dict(gidx (W*m,) int32, seg_start (S,) int64, seg_count
-        (S,) int32, seg_bucket (S,) int64, num_buckets W*(B+1), W)."""
+        (S,) int32, seg_order (S,) int64, seg_bucket (S,) int64,
+        num_buckets W*(B+1), W)."""
         m = scalars.shape[-1]
         B = 1 << (c - 1)
         digits, signs = self.signed_digits(scalars, c)         # (W, m)
@@ -247,10 +256,13 @@ class MSMKernel:
         first = torch.cumsum(nseg, 0) - nseg
         rank = (torch.arange(bucket.shape[0], dtype=torch.int64, device=dev)
                 - first[bucket])
+        seg_count = torch.clamp(ct[bucket] - rank * seg_len,
+                                max=seg_len).to(torch.int32)
         return dict(gidx=gidx.reshape(-1).to(torch.int32),
                     seg_start=st[bucket] + rank * seg_len,
-                    seg_count=torch.clamp(ct[bucket] - rank * seg_len,
-                                          max=seg_len).to(torch.int32),
+                    seg_count=seg_count,
+                    seg_order=torch.argsort(seg_count, descending=True,
+                                            stable=True),
                     seg_bucket=bucket, num_buckets=ct.shape[0], W=W)
 
     def _combine_segments(self, P, bucket, num_buckets: int):
@@ -283,7 +295,7 @@ class MSMKernel:
         W = seg["W"]
         rows = self.row_table(points_aff)
         flat = bucket_reduce(fk, rows, seg["gidx"], seg["seg_start"],
-                             seg["seg_count"])
+                             seg["seg_count"], seg["seg_order"])
         sums = self._combine_segments(
             tuple(a.reshape(lead + (a.shape[-1],)) for a in flat),
             seg["seg_bucket"], seg["num_buckets"])
@@ -341,7 +353,7 @@ class MSMKernel:
             pos = torch.clamp(st[None] + depth, 0, m - 1)     # (R, Wn, nb)
             live = (depth < ct[None]).reshape(R, Wn * nb)
             rg = gidx[(woff + pos).reshape(-1)]
-            gt = rows[rg].T.contiguous()                      # (2FW, K)
+            gt = words_to_limbs(rows[rg].T)                   # (2FW, K)
             qx = gt[:FW].reshape(lead + (R, Wn * nb))
             qy = gt[FW:].reshape(lead + (R, Wn * nb))
             qinf = (gt[FW:] == 0).all(dim=0).reshape(R, Wn * nb) | ~live
@@ -369,7 +381,7 @@ class MSMKernel:
         W = digits.shape[0]
         gidx, starts, counts = self._sort_signed_bounds(digits, signs, m, B)
         gidx = gidx.reshape(-1)
-        rows = self.row_table(points_aff, signed=True)          # (2m, 2FW)
+        rows = self.row_table(points_aff, signed=True)          # (2m, FW)
         dev = rows.device
 
         W_full = min(W, self.scalar_bits // c)

@@ -6,7 +6,7 @@ product bodies (csrc/probe.cu), and the layout and row-copy probes
 thread runs 8 independent chains of K dependent steps of one operation
 (``RATE_OPS``), so a launch takes steps / rate. ``cios_chain`` replaces
 ``scripts/probe_cios.py:98``: K chained Montgomery products x <- x * b per
-lane in two bodies (``CIOS_VARIANTS``), at every built field width.
+lane in four bodies (``CIOS_VARIANTS``), at every built field width.
 
 Beside each stands its plain PyTorch version (int64 arithmetic masked to
 32 bits; the plain Montgomery product), taken for CPU tensors and used to
@@ -51,7 +51,9 @@ from .ops.cuda_fp import mont_mul_plain
 CHAINS = 8                       # independent chains per thread (probe.cu)
 RATE_OPS = ("mul_lo", "mad_lo", "mad_hi", "mad_wide", "add64", "shift_and",
             "mul_f32")           # in the order of enum RateOp
-CIOS_VARIANTS = ("cios", "sos")  # field.cuh's body; separated operand scanning
+# CIOS; separated operand scanning; field.cuh's carry chain with its rounds
+# unrolled and in a loop of two rounds
+CIOS_VARIANTS = ("cios", "sos", "chain", "chain_rolled")
 LAUNCHES = {f"probe_rate_{op}": 0 for op in RATE_OPS}
 LAUNCHES.update({f"probe_cios_{v}_n{2 * nw}": 0 for v in CIOS_VARIANTS
                  for nw in cuda_lib.WIDTHS})

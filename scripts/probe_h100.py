@@ -12,9 +12,10 @@ probes.py, csrc/probe.cu, csrc/probe_layout.cu) on one NVIDIA card:
   each kernel's main loop read from the built library (cuobjdump -sass), so
   that a step's rate can be told from an instruction's;
 * the CIOS-variant probe: K chained Montgomery products per lane at 8 and
-  12 words (alt_bn128 Fq, BLS12-377 Fq) in the CIOS body of csrc/field.cuh
-  and a separated operand-scanning body; each checked against the plain
-  Montgomery product, then G products/s;
+  12 words (alt_bn128 Fq, BLS12-377 Fq) in four bodies (CIOS, separated
+  operand scanning, and the carry-chain product of csrc/field.cuh with its
+  rounds unrolled and in a loop of two rounds); each checked against the
+  plain Montgomery product, then G products/s;
 * the eleven layout probes (row copy from a run-time offset through shared
   memory, 3-D transpose, three reshapes, two rolls by a run-time shift, a
   branch on a block-wide vote, a window copy from an unaligned offset, a

@@ -100,13 +100,95 @@ def test_bucket_and_horner_kernels_match_plain_on_card(system, group_name):
     seg = mk.bucket_segments(system.scalars_to_dev(scalars), c)
     args = (mk.row_table(ck.encode_points(pts, jacobian=False)),
             seg["gidx"], seg["seg_start"], seg["seg_count"])
-    kern = cuda_bucket.bucket_reduce(mk.fk, *args)
+    kern = cuda_bucket.bucket_reduce(mk.fk, *args, seg["seg_order"])
     plain = cuda_bucket.bucket_reduce_plain(mk.fk, *args)
     assert all(torch.equal(a, b) for a, b in zip(kern, plain))
     S = tuple(a[:, :seg["W"]].contiguous() for a in kern)
     hk = cuda_bucket.horner_combine(mk.fk, S, c)
     hp = cuda_bucket.horner_combine_plain(mk.fk, S, c)
     assert all(torch.equal(a, b) for a, b in zip(hk, hp))
+
+
+def _planted_lanes(system, group_name, L):
+    """Jacobian P, Q over L lanes from 16 random points with random Z:
+    lanes 0-7 P = inf, 8-15 Q = inf, 16-23 both, 24-31 P == Q (other Z),
+    32-39 P == -Q; the rest random pairs."""
+    ck, _ = _group(system, group_name)
+    group = getattr(system.curve, group_name)
+    fk = ck.fk
+    rng = random.Random(17)
+    G = group.one()
+    pts = [G * rng.randrange(1, system.curve.r) for _ in range(16)]
+    aff = ck.encode_points(pts, jacobian=False)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    i1 = torch.randint(0, 16, (L,), generator=gen, device="cuda")
+    i2 = torch.randint(0, 16, (L,), generator=gen, device="cuda")
+    i2[24:40] = i1[24:40]
+    zs = ck.encode_points([G * rng.randrange(1, system.curve.r)
+                           for _ in range(16)])[0]       # nonzero field values
+
+    def lift(idx, zi):
+        x, y = aff[0][..., idx], aff[1][..., idx]
+        Z = zs[..., zi]
+        Z2 = fk.sqr(Z)
+        return [fk.mul(x, Z2), fk.mul(y, fk.mul(Z2, Z)), Z]
+    P = lift(i1, torch.randint(0, 16, (L,), generator=gen, device="cuda"))
+    Q = lift(i2, torch.randint(0, 16, (L,), generator=gen, device="cuda"))
+    Q[1][..., 32:40] = fk.neg(Q[1][..., 32:40])
+    for T, lanes in ((P, slice(0, 8)), (Q, slice(8, 16)), (P, slice(16, 24)),
+                     (Q, slice(16, 24))):
+        T[2][..., lanes] = 0
+    return tuple(P), tuple(Q)
+
+
+@pytest.mark.parametrize("group_name", ["G1", "G2"])
+def test_add_kernel_at_scan_width_matches_plain_on_card(system, group_name):
+    """add over 294,930 lanes, one launch of the suffix scan of a 2^20-point
+    MSM (18 windows of 2^14 + 1 buckets), with planted infinity, P == Q and
+    P == -Q lanes."""
+    ck, _ = _group(system, group_name)
+    L = 18 * ((1 << 14) + 1)
+    P, Q = _planted_lanes(system, group_name, L)
+    got = cuda_ec.add(ck.fk, P, Q)
+    want = cuda_ec.add_plain(ck.fk, P, Q)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    inf = ck.fk.is_zero(got[2])
+    assert bool(inf[16:24].all()) and bool(inf[32:40].all())
+    assert not bool(inf[:16].any()) and not bool(inf[24:32].any())
+
+
+@pytest.mark.parametrize("group_name", ["G1", "G2"])
+def test_bucket_reduce_deep_and_wide_on_card(system, group_name):
+    """bucket_reduce on the packed rows of a 2^16-point MSM (c = 11) whose
+    first 4096 scalars are equal (4096 rows in one bucket of every window,
+    cut into segments of seg_len), the rest random: bit-exact against the
+    plain version, and the same sums in length order, in segment order and
+    in a random order."""
+    ck, mk = _group(system, group_name)
+    group = getattr(system.curve, group_name)
+    m, c = 1 << 16, 11
+    rng = random.Random(19)
+    G = group.one()
+    base = ck.encode_points([G * rng.randrange(1, system.curve.r)
+                             for _ in range(64)], jacobian=False)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    idx = torch.randint(0, 64, (m,), generator=gen, device="cuda")
+    inf = torch.zeros(m, dtype=torch.bool, device="cuda")
+    inf[5000:5008] = True
+    pts = (base[0][..., idx], base[1][..., idx], inf)
+    sc = system.scalars_to_dev([rng.randrange(system.curve.r)
+                                for _ in range(m)])
+    sc[:, :4096] = sc[:, :1]
+    seg = mk.bucket_segments(sc, c)
+    counts = seg["seg_count"]
+    assert int(counts.max()) == max(16, 2 * -(-m // (1 << (c - 1))))
+    args = (mk.row_table(pts), seg["gidx"], seg["seg_start"], counts)
+    want = cuda_bucket.bucket_reduce_plain(mk.fk, *args)
+    perm = torch.randperm(counts.numel(), generator=gen, device="cuda")
+    for order in (seg["seg_order"], None, perm):
+        got = cuda_bucket.bucket_reduce(mk.fk, *args, order)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("group_name", ["G1", "G2"])
@@ -146,6 +228,9 @@ def test_dense_window_sums_equal_default_on_card(system, group_name,
 
 
 def test_probe_kernels_match_plain_on_card(system):
+    """The rate chains, and the three Montgomery bodies of the CIOS probe
+    (CIOS, operand scanning, the carry chain that is fp_mul) against the
+    plain product at both widths."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     for op in probes.RATE_OPS:
         a, b = probes._rate_inputs(op, 1000, gen)
