@@ -12,8 +12,10 @@
    the eleven layout and row-copy kernels in every case of
    probes.layout_cases (the TPU scripts' shapes, odd offsets, shifts
    outside [0, axis), tiles with no word above 7, trip counts 1..6), with
-   where each kernel's data went (shared, local memory, barriers) and the
-   row-copy rates at the row widths bucket_reduce gathers.
+   where each kernel's data went (shared, local memory, barriers), an
+   empty kernel's time as the launch floor, and the row-copy rates at the
+   row widths bucket_reduce gathers beside one index_select; and the latency
+   of one dependent product (one thread, one lane group).
 4. For alt_bn128 (16-limb Fq) and BLS12-377 (24-limb Fq), G1 and G2,
    holds every kernel against its plain PyTorch version on the card at
    main-path shapes, bit-exact (tolerance 0): mont_mul at 2^20 lanes;
@@ -21,7 +23,12 @@
    and P == -Q lanes, add also at 294,930 lanes (one suffix-scan launch of
    a 2^20-point MSM); bucket_reduce on the packed rows and length-ordered
    segments of a 2^16-point MSM with all-equal points in one bucket;
-   horner_combine;
+   horner_combine at W in {1, 2, 18} windows and c in {1, 15, 16} on
+   planted window sums (an infinity window, an infinity top window, a
+   first add that meets P == Q, a sum at infinity),
+   timed at the path's 18 windows of c = 15 beside its latency bound (the
+   critical path (W - 1)(3 c + 5) times the least product latency that the
+   probes measured);
    and the dense strategy's window sums against the default strategy's on
    a 2^16-point MSM, with random scalars and with 4096 all-equal scalars
    (the chunk loop). Times each (CUDA events).
@@ -110,6 +117,11 @@ PRODUCTS = {"aadd": 6, "dbl": 7, "madd": 11, "add": 16}  # base-field products
 # lanes of one add launch of the suffix scan of a 2^20-point MSM: 18 windows
 # of c = 15, 2^14 + 1 buckets each
 SCAN_LANES = 18 * ((1 << 14) + 1)
+# least latency of one dependent base-field product at each width (N limbs,
+# ms), over the one-thread carry chains and the lane-split product, as
+# check_probes measures it in this run: horner_combine's latency bound is its
+# critical path (W - 1)(3 c + 5) products times this
+PRODUCT_LATENCY_MS = {}
 
 
 def wide_mads(fk) -> int:
@@ -198,19 +210,29 @@ class Kernels:
         self.rows = {}
 
     def add(self, name, key, err, ms, plain_ms, nbytes, ops,
-            ops_per_s=INT32_OPS_PER_S, library_ms=None):
+            ops_per_s=INT32_OPS_PER_S, library_ms=None, **extra):
+        """extra: further keys of the row. Two of them raise the bound a
+        time is read against (the row's "bound_ms" stays bytes and
+        operations): latency_bound_ms (horner_combine's critical path times
+        the product latency) and launch_floor_ms (an empty kernel launched
+        the same way, for the launch-bound probes)."""
         b, by = bound_ms(nbytes, ops, ops_per_s)
         self.rows[key] = {
             "name": key, "route": "cuda", "source": SOURCE[name],
             "replaces": TPU_KERNEL[name], "launches": None, "path": None,
             "paths": {}, "path_ms": {}, "path_bound_ms": {},
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b, "bound_by": by, "library_ms": library_ms}
+            "bound_ms": b, "bound_by": by, "library_ms": library_ms, **extra}
         if err != 0:
             raise AssertionError(f"{key}: kernel differs from its plain "
                                  f"version (max abs limb error {err})")
+        floor = max([b] + [extra[k] for k in ("latency_bound_ms",
+                                              "launch_floor_ms") if k in extra])
         log(f"  {key}: bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms, bound {b:.3g} ms ({by})"
+            + "".join(f", {k} {extra[k]:.4g}" for k in
+                      ("latency_bound_ms", "launch_floor_ms") if k in extra)
+            + (f" -> {ms / floor:.2f}x max(bounds)" if floor > b else "")
             + (f", library call {library_ms:.4f} ms" if library_ms else ""))
 
     def count(self, key, path, n):
@@ -268,27 +290,35 @@ def check_layout(K):
     machine code's account of each, and the row-copy rates."""
     from libsnark_tpu_torch import probes
     log("probe: layout and row-copy kernels (times: device time per call "
-        "in a replayed CUDA graph; call: the wrapper in a loop)")
+        "in a replayed CUDA graph; call: the wrapper in a loop; floor: an "
+        "empty kernel launched and replayed the same way)")
     for r in probes.measure_layout():
         log(f"  {'OK  ' if r['exact'] else 'FAIL'} {r['name']}: {r['cases']} "
             f"cases; {r['case']}: {r['ms'] * 1e3:.2f} us "
-            f"(call {r['call_ms'] * 1e3:.2f} us), {r['bytes']} bytes, "
+            f"(call {r['call_ms'] * 1e3:.2f} us, floor "
+            f"{r['floor_ms'] * 1e3:.2f} us), {r['bytes']} bytes, "
             f"{r['gb_per_s']:.2f} GB/s")
         K.add(r["name"], f"probe_layout_{r['name']}", 0 if r["exact"] else 1,
               r["ms"], r["plain_ms"], r["bytes"], 0,
-              library_ms=r["library_ms"])
+              library_ms=r["library_ms"], launch_floor_ms=r["floor_ms"])
     log("probe: where each layout kernel's data went (cuobjdump -sass)")
     for key, ops in probes.sass_memory_ops().items():
         log(f"    {key}: " + ", ".join(f"{n} {opc}" for opc, n in ops.items()))
     log("probe: row_copy over 2^20 rows at bucket_reduce's row widths "
-        "(one block per segment of R rows at a random offset)")
+        "(segments of R rows at random offsets; torch: one index_select)")
+    rates = []
     for r in probes.measure_row_copy():
+        b = r["bytes"] / MEM_BYTES_PER_S * 1e3
         log(f"    {r['width']} words, R={r['R']}: "
             f"{'exact' if r['exact'] else 'FAIL'}, {r['ms']:.4f} ms, "
-            f"{r['gb_per_s']:.1f} GB/s; torch indexing {r['library_ms']:.4f} ms")
+            f"{r['gb_per_s']:.1f} GB/s ({b / r['ms']:.1%} of the byte bound "
+            f"{b:.4f} ms); torch index_select {r['library_ms']:.4f} ms")
         if not r["exact"]:
             raise AssertionError("row_copy differs from its plain version at "
                                  f"{r['width']} words, R={r['R']}")
+        rates.append({k: r[k] for k in ("width", "R", "ms", "library_ms",
+                                        "gb_per_s")} | {"bound_ms": b})
+    K.rows["probe_layout_row_copy"]["row_copy_rates"] = rates
 
 
 def check_probes(K, fqs):
@@ -316,6 +346,16 @@ def check_probes(K, fqs):
               r["plain_ms"], 3 * 4 * r["N"] * r["lanes"], ops)
         log(f"    N={r['N']} {r['variant']}: {r['gproducts_per_s']:.3f} G "
             f"products/s = {ops / r['ms'] / 1e9:.3f}e12 wide mads/s")
+    log("probe: latency of one dependent product (K chained products over "
+        "one element: one thread, or one lane group for 'lanes')")
+    for r in probes.measure_product_latency(fqs):
+        if not r["exact"]:
+            raise AssertionError(f"product latency probe N={r['N']} "
+                                 f"{r['variant']} differs from its plain chain")
+        ms = r["latency_us"] / 1e3
+        PRODUCT_LATENCY_MS[r["N"]] = min(PRODUCT_LATENCY_MS.get(r["N"], ms), ms)
+        log(f"    N={r['N']} {r['variant']}: {r['latency_us']:.4f} us a product "
+            f"({r['K']} products in {r['ms']:.4f} ms)")
     check_layout(K)
     for key, n in probes.LAUNCHES.items():
         if n == 0:
@@ -488,20 +528,109 @@ def check_bucket_and_horner(curve, g16, K, gen, rng):
         K.add("bucket_reduce", counter_key("bucket_reduce", fk), err, ms, pms,
               nbytes, ops)
 
-        # Horner at the 2^20 main path's window count and width, over
-        # the first of these segment sums
-        c = default_window_bits(1 << 20)
-        Wh = mk.num_windows(c)
-        S = tuple(a[:, :Wh].contiguous() for a in out)
-        hk = cuda_bucket.horner_combine(fk, S, c)
-        hp = cuda_bucket.horner_combine_plain(fk, S, c)
-        err = max_abs_err(hk, hp)
-        ms = cuda_ms(lambda: cuda_bucket.horner_combine(fk, S, c), 5)
-        pms = cuda_ms(lambda: cuda_bucket.horner_combine_plain(fk, S, c), 1)
-        prods = (Wh - 1) * (c * PRODUCTS["dbl"] + PRODUCTS["add"])
-        ops = prods * (3 if ext == 2 else 1) * wide_mads(fk)
-        K.add("horner_combine", counter_key("horner_combine", fk), err, ms,
-              pms, 4 * 3 * FW * (Wh + 1), ops)
+        check_horner(curve, ck, group, K, gen, rng, mk.num_windows(
+            default_window_bits(1 << 20)), default_window_bits(1 << 20))
+
+
+def rand_fe(fk, shape, gen):
+    """Uniform canonical elements of fk (Fp, or Fp2 as two Fp)."""
+    if hasattr(fk, "fp"):
+        return torch.stack([rand_field(fk.fp, shape, gen),
+                            rand_field(fk.fp, shape, gen)])
+    return rand_field(fk, shape, gen)
+
+
+def horner_windows(group, W: int, c: int, r: int, rng):
+    """Planted window sums S_0 .. S_(W-1) for horner_combine, as (label,
+    host points): random; an infinity window (in the middle, or S_0 at W =
+    2); an infinity top window; S_(W-2) = 2^c S_(W-1), so that the first add
+    meets P == Q; S_0 = -(sum of the rest), a result at infinity. W = 1:
+    random and infinity."""
+    G = group.one()
+    rnd = lambda: [G * rng.randrange(1, r) for _ in range(W)]
+    if W == 1:
+        return [("random", rnd()), ("infinity", [group.zero()])]
+    cases = [("random", rnd())]
+    pts = rnd()
+    pts[W // 2 if W > 2 else 0] = group.zero()
+    cases.append(("an infinity window", pts))
+    pts = rnd()
+    pts[W - 1] = group.zero()
+    cases.append(("infinity top window", pts))
+    pts = rnd()
+    pts[W - 2] = pts[W - 1] * (1 << c)
+    cases.append(("P == Q at the first add", pts))
+    pts = rnd()
+    rest = group.zero()
+    for w in range(1, W):
+        rest = rest + pts[w] * (1 << (c * w))
+    pts[0] = -rest
+    cases.append(("result at infinity", pts))
+    return cases
+
+
+def check_horner(curve, ck, group, K, gen, rng, W_path: int, c_path: int):
+    """horner_combine at W in {1, 2, W_path} and c in {1, c_path, 16} on the
+    planted windows of horner_windows (Jacobian, random Z), bit-exact
+    against the plain version run over all cases of a (W, c) at once; the
+    result of a random case equals the host's sum and the planted infinity
+    result has Z = 0. Then the time at the path's shape (W_path, c_path), with the
+    bounds: throughput (bound_ms) and latency (the critical path
+    (W - 1)(3 c + 5) times the least product latency)."""
+    from libsnark_tpu_torch.ops import cuda_bucket
+    from libsnark_tpu_torch.ops.cuda_ec import counter_key, ext_of
+    fk = ck.fk
+    ext = ext_of(fk)
+    FW = ext * fk.N
+    one = (2, fk.N, 1) if ext == 2 else (fk.N, 1)       # one point's shape
+    key = counter_key("horner_combine", fk)
+    timed = None
+    for W in (1, 2, W_path):
+        for c in (1, c_path, 16):
+            cases = horner_windows(group, W, c, curve.r, rng)
+            S = []
+            for _, pts in cases:
+                X, Y, Z = ck.encode_points(pts, device="cuda")
+                z = rand_fe(fk, (W,), gen)
+                z2 = fk.sqr(z)
+                S.append([a.reshape(FW, W) for a in (
+                    fk.mul(X, z2), fk.mul(Y, fk.mul(z2, z)), fk.mul(Z, z))])
+            batch = tuple(torch.stack([s[i] for s in S], dim=-1)
+                          for i in range(3))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = cuda_bucket.horner_combine_plain(fk, batch, c)
+            torch.cuda.synchronize()
+            pms = (time.perf_counter() - t0) * 1e3
+            for b, (label, pts) in enumerate(cases):
+                got = cuda_bucket.horner_combine(fk, S[b], c)
+                if max_abs_err(got, [a[:, b:b + 1] for a in want]):
+                    raise AssertionError(f"{key} differs from its plain "
+                                         f"version: W={W}, c={c}, {label}")
+                if label == "result at infinity" and bool(got[2].any()):
+                    raise AssertionError(f"{key}: a sum at infinity with Z != 0")
+                if label == "random" and (W <= 2 or c == c_path):
+                    host = group.zero()
+                    for w, P in enumerate(pts):
+                        host = host + P * (1 << (c * w))
+                    dec = ck.decode_points(
+                        tuple(a.reshape(one) for a in got), group)[0]
+                    if dec != host:
+                        raise AssertionError(f"{key}: W={W}, c={c}: the "
+                                             "result is not the host's sum")
+                if (W, c, label) == (W_path, c_path, "random"):
+                    timed = (S[b], pms, len(cases))
+            log(f"  {key}: W={W}, c={c}: {len(cases)} planted cases: "
+                "bit-exact")
+    Sr, pms, ncase = timed
+    ms = cuda_ms(lambda: cuda_bucket.horner_combine(fk, Sr, c_path), 5)
+    prods = (W_path - 1) * (c_path * PRODUCTS["dbl"] + PRODUCTS["add"])
+    ops = prods * (3 if ext == 2 else 1) * wide_mads(fk)
+    lat = latency_bound_ms(key, (W_path - 1) * (3 * c_path + 5))
+    log(f"  {key} at W={W_path}, c={c_path}: {ms:.4f} ms; latency bound "
+        f"{lat:.4f} ms; plain over {ncase} chains {pms:.1f} ms")
+    K.add("horner_combine", key, 0, ms, pms, 4 * 3 * FW * (W_path + 1), ops,
+          latency_bound_ms=lat)
 
 
 def check_dense_window_sums(curve, g16, gen, rng):
@@ -844,8 +973,8 @@ def kzg_path(curve, log2: int, small_log2=None, paths=None) -> dict:
 # ------------------------------------------------------- device time by kernel
 
 # profiler kernel names (demangled or mangled) -> launch-counter families
-_KERNEL_NAME = re.compile(r"(?:^|[\s:]|_Z\d+)([a-z_]+)_kernel(?:<(\d+)(?:, (\d+))?>"
-                          r"|ILi(\d+)E(?:Li(\d+)E)?)")
+_KERNEL_NAME = re.compile(r"(?:^|[\s:]|_Z\d+)([a-z_]+)_kernel(?:<(\d+)(?:, (\d+))?"
+                          r"(?:, \d+)*>|ILi(\d+)E(?:Li(\d+)E)?)")
 _FAMILY = {"mont_mul": "mont_mul", "dbl": "dbl", "add": "add", "madd": "madd",
            "aadd": "aadd", "bucket_reduce": "bucket_reduce",
            "horner": "horner_combine"}
@@ -877,7 +1006,7 @@ def unit_cost(key: str):
         return 12 * N, wm
     if fam == "bucket_reduce":
         return 4 * FW + 4, PRODUCTS["madd"] * per * wm
-    if fam == "horner_combine":
+    if fam == "horner_combine":      # throughput; latency: latency_bound_ms
         return 0, per * wm
     nfield = {"dbl": 6, "add": 9, "madd": 8, "aadd": 7}[fam]
     return (nfield * FW * 4 + (2 if fam in ("madd", "aadd") else 0),
@@ -889,6 +1018,14 @@ def work_bound_ms(key: str, work: int) -> float:
     in its work, so the sum over launches is that of the total."""
     nbytes, ops = unit_cost(key)
     return bound_ms(nbytes * work, ops * work)[0]
+
+
+def latency_bound_ms(key: str, depth: int) -> float:
+    """Least time of a chain of ``depth`` dependent base-field products at
+    the key's width: depth times the least product latency measured in this
+    run (0 for a kernel that is no chain)."""
+    n = int(key.rsplit("_n", 1)[1])
+    return depth * PRODUCT_LATENCY_MS.get(n, 0.0)
 
 
 def device_profile(fn):
@@ -924,16 +1061,15 @@ def device_profile(fn):
     return out, per, busy / 1e3, wall
 
 
-def path_timing(label: str, fn, paths: dict):
-    """fn() as one measured path: the device time of each path kernel
-    (profiler, summed by __global__ name), its launches (the wrappers'
-    counts, checked against the profiler's), its work and the bound of that
-    work; device busy time and wall time. Stored in paths[label]."""
-    from libsnark_tpu_torch.ops import (launch_counts, reset_launch_counts,
-                                        work_counts)
+def profiled_rows(fn):
+    """fn() under the device profiler, with the counts set to 0 just before:
+    (result, {path kernel key: row}, busy ms, wall ms, the keys whose
+    profiled kernels differ in number from the wrappers' launches)."""
+    from libsnark_tpu_torch.ops import (depth_counts, launch_counts,
+                                        reset_launch_counts, work_counts)
     reset_launch_counts()
     out, per, busy, wall = device_profile(fn)
-    launches, work = launch_counts(), work_counts()
+    launches, work, depth = launch_counts(), work_counts(), depth_counts()
     rows = {}
     for name, (n, ms) in per.items():
         key = kernel_key(name)
@@ -944,14 +1080,34 @@ def path_timing(label: str, fn, paths: dict):
         r["profiled"] += n
         r["ms"] += ms
     for key, r in rows.items():
-        r["bound_ms"] = work_bound_ms(key, r["work"])
-        if r["profiled"] != r["launches"]:
-            raise AssertionError(f"{label}: the profiler saw {r['profiled']} "
-                                 f"{key} kernels, the wrapper counted "
-                                 f"{r['launches']}")
-    missing = [k for k, n in launches.items() if n and k not in rows]
-    if missing:
-        raise AssertionError(f"{label}: no device time for {missing}")
+        # horner_combine: the larger of its throughput and latency bounds
+        r["throughput_bound_ms"] = work_bound_ms(key, r["work"])
+        r["latency_bound_ms"] = latency_bound_ms(key, depth.get(key, 0))
+        r["bound_ms"] = max(r["throughput_bound_ms"], r["latency_bound_ms"])
+    differ = {k: (r["profiled"], r["launches"]) for k, r in rows.items()
+              if r["profiled"] != r["launches"]}
+    differ.update({k: (0, n) for k, n in launches.items()
+                   if n and k not in rows})
+    return out, rows, busy, wall, differ
+
+
+def path_timing(label: str, fn, paths: dict):
+    """fn() as one measured path: the device time of each path kernel
+    (profiler, summed by __global__ name), its launches (the wrappers'
+    counts, checked against the profiler's), its work and the bound of that
+    work; device busy time and wall time. Stored in paths[label]. The
+    profiler has recorded one kernel fewer than the wrapper launched (one
+    of a BLS12-377 prove's 74 mont_mul_n16 launches, on an H100, in a run
+    whose every other count agreed); a path whose counts differ is
+    profiled once more, and it fails if they differ again."""
+    out, rows, busy, wall, differ = profiled_rows(fn)
+    if differ:
+        log(f"  path {label}: profiled / launched differ {differ}; "
+            "profiling the path once more")
+        out, rows, busy, wall, differ = profiled_rows(fn)
+    if differ:
+        raise AssertionError(f"{label}: profiled kernels / wrapper launches "
+                             f"differ twice: {differ}")
     kern = sum(r["ms"] for r in rows.values())
     paths[label] = {"kernels": rows, "busy_ms": busy, "wall_ms": wall}
     log(f"  path {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
@@ -959,7 +1115,10 @@ def path_timing(label: str, fn, paths: dict):
         f"{kern:.1f} ms:")
     for key, r in sorted(rows.items(), key=lambda kv: -kv[1]["ms"]):
         log(f"    {key}: {r['launches']} launches, {r['ms']:.3f} ms, work "
-            f"{r['work']}, bound {r['bound_ms']:.3f} ms")
+            f"{r['work']}, bound {r['bound_ms']:.3f} ms"
+            + (f" (latency {r['latency_bound_ms']:.3f}, throughput "
+               f"{r['throughput_bound_ms']:.3g})" if r["latency_bound_ms"]
+               else ""))
     return out
 
 
@@ -997,7 +1156,8 @@ def warp_efficiency(counts) -> float:
 def redesign_ranking(K, paths: dict):
     """Rows 1-7 by device time - bound over the measured paths (one default
     prove per curve, the KZG commit and opening at full degree), each
-    kernel's time and bound those of its launches there."""
+    kernel's time and bound those of its launches there (horner_combine:
+    the larger of its throughput and latency bounds)."""
     family = {}
     for label, p in paths.items():
         for key, r in p["kernels"].items():

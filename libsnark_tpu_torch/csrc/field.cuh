@@ -313,6 +313,74 @@ __device__ __noinline__ Fp<NW> fp_mul_call(const Fp<NW>& a, const Fp<NW>& b,
   return fp_mul<NW>(a, b, M);
 }
 
+// ------------------------------------------------ lane-split product
+// The same Montgomery product spread over a group of GS lanes of one warp
+// (GS a power of two >= NW; groups are aligned to GS lanes): lane j holds
+// word j of a and of p, every lane holds all NW words of b, and lanes
+// NW .. GS-1 hold zeros. Every lane of the warp must call it together.
+// Round i (CIOS, word-serial over b): each lane adds lo(a_j b_i) to its
+// 64-bit column t_j; the group's lane 0 forms m = lo(t_0) n0inv and
+// broadcasts it (one shuffle); each lane adds lo(m p_j); the division by
+// 2^32 moves each column one lane down (one 64-bit shuffle) and adds the
+// high words of the lane's own two products, which belong one column up.
+// Columns stay unnormalised (below 2^38 after NW rounds), so no carry
+// crosses a lane inside a round: a round's critical path is two
+// multiplies, two shuffles and a few adds. At the end the high parts move
+// one lane up, and the carries into each word come from a carry-lookahead
+// over two warp votes (generate: the word overflowed; propagate: it is
+// all ones): the carries are those of the binary sum G + (G | P) of the
+// two masks. The conditional subtract of p takes its borrows the same way,
+// and the borrow out of the top word says whether the value was >= p.
+// Returns word j of the canonical product in lane j (junk in lanes >= NW).
+// lanes of a group at a width: NW words in a power of two of lanes
+template <int NW>
+struct LaneGroup {
+  static constexpr int GS = NW <= 8 ? 8 : NW <= 16 ? 16 : 32;
+};
+
+template <int GS>
+__device__ __forceinline__ uint32_t group_vote(bool pred, uint32_t mask) {
+  uint32_t base = (threadIdx.x & 31) & ~(uint32_t)(GS - 1);
+  return (__ballot_sync(0xffffffffu, pred) >> base) & mask;
+}
+
+template <int NW, int GS>
+__device__ __forceinline__ uint32_t fp_mul_lanes(uint32_t aj,
+                                                 const uint32_t* bw,
+                                                 uint32_t pj, int j,
+                                                 const Mod<NW>& M) {
+  static_assert(GS >= NW && GS <= 32 && (GS & (GS - 1)) == 0,
+                "a group is a power of two of lanes holding NW words");
+  constexpr uint32_t WORDS = (1u << NW) - 1;
+  uint64_t t = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t P = (uint64_t)aj * bw[i];
+    uint64_t U = t + (uint32_t)P;
+    uint32_t m = __shfl_sync(0xffffffffu, (uint32_t)U * M.n0inv, 0, GS);
+    uint64_t Q = (uint64_t)m * pj;
+    U += (uint32_t)Q;                     // lane 0: the low word is now 0
+    uint64_t H = (P >> 32) + (Q >> 32);
+    uint32_t nlo = __shfl_down_sync(0xffffffffu, (uint32_t)U, 1, GS);
+    uint32_t nhi = __shfl_down_sync(0xffffffffu, (uint32_t)(U >> 32), 1, GS);
+    uint64_t Un = j == NW - 1 ? 0 : ((uint64_t)nhi << 32 | nlo);
+    t = Un + H + (j == 0 ? (U >> 32) : 0);
+  }
+  // value sum_j t_j 2^(32 j) < 2p < R: normalise the words
+  uint32_t hprev = __shfl_up_sync(0xffffffffu, (uint32_t)(t >> 32), 1, GS);
+  uint64_t s = (uint64_t)(uint32_t)t + (j == 0 ? 0 : hprev);
+  uint32_t w = (uint32_t)s;
+  uint32_t G = group_vote<GS>((s >> 32) != 0, WORDS);
+  uint32_t P = group_vote<GS>(w == 0xFFFFFFFFu, WORDS);
+  w += (((G + (G | P)) ^ P) >> j) & 1;    // carry into word j
+  // subtract p if the value is >= p
+  uint32_t BG = group_vote<GS>(w < pj, WORDS);
+  uint32_t BP = group_vote<GS>(w == pj, WORDS);
+  uint32_t S = BG + (BG | BP);
+  uint32_t d = w - pj - (((S ^ BP) >> j) & 1);
+  return ((S >> NW) & 1) ? w : d;         // a borrow out of the top: w < p
+}
+
 // ------------------------------------------------ extension-generic element
 // E = 1: Fp; E = 2: Fp2 = Fp[s]/(s^2 - beta), beta = (-1)^beta_neg *
 // beta_small. Coefficient c sits in field rows [c*NL, (c+1)*NL), NL = 2 NW,

@@ -26,9 +26,13 @@
 // the carry-chain product of field.cuh (PTX mad.lo.cc / madc.hi.cc chains
 // over even and odd column accumulators) with its rounds unrolled (variant
 // 2) and in a loop of two rounds (variant 3); fp_mul takes one of the two
-// by the width. All return canonical values, so each is exact
-// against the plain Montgomery product. Bound: 2 NW^2 + NW wide
-// multiply-adds per product.
+// by the width; and the lane-split product of field.cuh (variant 4), one
+// element a group of GS lanes (8 at NW = 8, 16 at NW = 12), the product of
+// horner_combine's lane groups. All return canonical values, so each is
+// exact against the plain Montgomery product. Bound: 2 NW^2 + NW wide
+// multiply-adds per product. Launched over one element (L = 1), each
+// variant's time over K is the latency of one dependent product, the
+// yardstick of horner_combine's latency bound.
 #include "field.cuh"
 
 #define CHAINS 8
@@ -204,6 +208,38 @@ cios_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
   fp_store<NW>(out, L, i, x);
 }
 
+// variant 4: element e on the GS lanes e GS .. e GS + GS - 1; lane j holds
+// word j of x and p and every lane all words of b. Groups past L compute on
+// element L - 1 and store nothing, so every lane of a warp takes part in
+// the shuffles.
+template <int NW>
+__global__ void __launch_bounds__(256)
+lanes_chain_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                   int32_t* __restrict__ out, int64_t L, int K,
+                   const __grid_constant__ Mod<NW> M) {
+  constexpr int GS = LaneGroup<NW>::GS;
+  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int64_t e = t / GS;
+  int j = (int)(t % GS);
+  bool live = e < L;
+  if (!live) e = L - 1;
+  Fp<NW> y = fp_load<NW>(b, L, e);
+  uint32_t x = 0, pj = 0;
+  if (j < NW) {
+    uint32_t lo = (uint32_t)a[(2 * j) * L + e];
+    uint32_t hi = (uint32_t)a[(2 * j + 1) * L + e];
+    x = (lo & 0xFFFFu) | (hi << 16);
+  }
+#pragma unroll
+  for (int k = 0; k < NW; ++k)
+    if (k == j) pj = M.p[k];
+  for (int k = 0; k < K; ++k) x = fp_mul_lanes<NW, GS>(x, y.w, pj, j, M);
+  if (live && j < NW) {
+    out[(2 * j) * L + e] = (int32_t)(x & 0xFFFFu);
+    out[(2 * j + 1) * L + e] = (int32_t)(x >> 16);
+  }
+}
+
 template <int NW>
 static int cios_launch(int variant, const void* a, const void* b, void* out,
                        long long L, int K, const void* M, cudaStream_t s) {
@@ -221,6 +257,15 @@ static int cios_launch(int variant, const void* a, const void* b, void* out,
   else if (variant == 3)
     cios_kernel<NW, 3><<<grid, 256, 0, s>>>((const int32_t*)a, (const int32_t*)b,
                                             (int32_t*)out, L, K, *mod);
+  else if (variant == 4) {
+    // whole warps; one warp for a single element (the latency probe)
+    long long lanes = (L * LaneGroup<NW>::GS + 31) / 32 * 32;
+    int threads = lanes < 256 ? (int)lanes : 256;
+    lanes_chain_kernel<NW><<<(unsigned)((lanes + threads - 1) / threads),
+                             threads, 0, s>>>((const int32_t*)a,
+                                              (const int32_t*)b, (int32_t*)out,
+                                              L, K, *mod);
+  }
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

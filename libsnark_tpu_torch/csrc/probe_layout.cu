@@ -23,22 +23,53 @@
 // Words are uint32_t; the wrappers carry them as int32 tensors.
 #include <stdint.h>
 
-// ---- row 10: out[b] = x[s + seg[b] : s + seg[b] + R, :], one block per
-// segment, global -> shared -> global. s is a kernel argument read at run
-// time; seg holds each segment's further row offset. The staging buffer is
-// (R, width) or slot 0 of (2, R, width), the TPU probe's two forms: the
-// second only asks for twice the shared memory.
-__global__ void __launch_bounds__(128)
-row_copy_kernel(const uint32_t* __restrict__ x, const int64_t* __restrict__ seg,
-                uint32_t* __restrict__ out, int width, int R, int64_t s) {
-  extern __shared__ uint32_t stage[];
-  const int n = R * width;
-  const uint32_t* src = x + (s + seg[blockIdx.x]) * (int64_t)width;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) stage[j] = src[j];
-  __syncthreads();
-  uint32_t* dst = out + (int64_t)blockIdx.x * n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) dst[j] = stage[j];
+#define ROW_COPY_UNROLL 4
+
+// ---- row 10: out[b] = x[s + seg[b] : s + seg[b] + R, :]. s is a kernel
+// argument read at run time; seg holds each segment's further row offset,
+// or is null for one segment at 0. A segment is R * width contiguous words
+// of x and of out, so the copy is flat: thread t moves piece t of the
+// output (a 16-byte uint4 where the row width is a multiple of 4 words and
+// both arrays are 16-byte aligned, else a word), piece t - b q of segment
+// b = t / q, q pieces a segment. A warp thus serves as many segments as
+// fit its 32 pieces (8 single-row segments of 16 words), every store of a
+// warp is one contiguous 512-byte run and every load a run of 16-byte
+// pieces inside a segment. The TPU probe's global -> VMEM -> global DMA
+// is not part of the function, and a shared-memory stage in its place
+// only adds a round trip and a barrier; the (2, R, width) staging form is
+// the same copy. Bound: the bytes, R * width * 4 read and written a segment,
+// and seg's 8 bytes.
+template <typename T>
+__global__ void __launch_bounds__(256)
+row_copy_kernel(const T* __restrict__ x, const int64_t* __restrict__ seg,
+                T* __restrict__ out, uint32_t q, uint32_t total,
+                int64_t first, int64_t row) {
+  // ROW_COPY_UNROLL pieces a thread an iteration, loaded before any is
+  // stored: that many independent loads (and seg reads) in flight
+  constexpr int U = ROW_COPY_UNROLL;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t t0 = blockIdx.x * blockDim.x + threadIdx.x; t0 < total;
+       t0 += U * stride) {
+    T v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      uint32_t t = t0 + u * stride;
+      if (t < total) {
+        uint32_t b = t / q;
+        v[u] = __ldg(x + first + (seg ? __ldg(seg + b) * row : 0) +
+                     (t - b * q));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (t0 + u * stride < total) out[t0 + u * stride] = v[u];
+  }
 }
+
+// The launch floor: a kernel that does nothing, launched as the layout
+// kernels are, so that a probe's time can be read against the least time
+// any launch takes in the same replayed CUDA graph.
+__global__ void empty_kernel() {}
 
 // ---- row 11: out[l, r, b] = x[b, r, l] for x (B, R, L): 32 x 32 tiles of
 // the (b, l) plane through shared memory, padded to 33 columns so that the
@@ -205,16 +236,39 @@ static inline unsigned blocks_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+// slots (1 or 2) only sizes the TPU probe's staging buffer, which the
+// wrapper checks against 48 KB; the copy is the same
 extern "C" int lsn_layout_row_copy(const void* x, const void* seg, void* out,
                                    int width, int R, long long nseg,
                                    long long s, int slots, void* stream) {
   if (width <= 0 || R <= 0 || nseg < 0 || slots < 1)
     return (int)cudaErrorInvalidValue;
-  size_t smem = (size_t)slots * R * width * sizeof(uint32_t);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  if (nseg > 0)
-    row_copy_kernel<<<(unsigned)nseg, 128, smem, (cudaStream_t)stream>>>(
-        U32(x), (const int64_t*)seg, O32(out), width, R, (int64_t)s);
+  if (slots * (long long)R * width * 4 > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  long long words = nseg * R * width;
+  if (words >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (words == 0) return (int)cudaGetLastError();
+  bool vec = width % 4 == 0 && ((uintptr_t)x | (uintptr_t)out) % 16 == 0;
+  int per = vec ? 4 : 1;                       // words a piece
+  uint32_t q = (uint32_t)(R * width / per);
+  uint32_t total = (uint32_t)(words / per);
+  int threads = total < 256 ? (int)((total + 31) / 32 * 32) : 256;
+  unsigned grid = blocks_for(total, threads * ROW_COPY_UNROLL);
+  if (grid > 132 * 16) grid = 132 * 16;        // 16 blocks an SM, then a stride
+  int64_t first = s * width / per, row = width / per;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t* sg = (const int64_t*)seg;
+  if (vec)
+    row_copy_kernel<uint4><<<grid, threads, 0, st>>>(
+        (const uint4*)x, sg, (uint4*)out, q, total, first, row);
+  else
+    row_copy_kernel<uint32_t><<<grid, threads, 0, st>>>(
+        U32(x), sg, O32(out), q, total, first, row);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lsn_layout_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -28,8 +28,14 @@ def work_counts() -> dict:
     return {k: int(v) for c in _WORK for k, v in c.items()}
 
 
+def depth_counts() -> dict:
+    """Kernel name -> critical path of its launches since the last reset, in
+    dependent base-field products (horner_combine only)."""
+    return {k: int(v) for k, v in cuda_bucket.DEPTH.items()}
+
+
 def reset_launch_counts():
-    """Zero the launch counts and the work counts."""
-    for c in _COUNTERS + _WORK:
+    """Zero the launch, work and depth counts."""
+    for c in _COUNTERS + _WORK + (cuda_bucket.DEPTH,):
         for k in c:
             c[k] = 0

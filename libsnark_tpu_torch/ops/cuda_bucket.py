@@ -21,8 +21,14 @@ field products (11 per row for G1, 33 base products for G2), i.e. integer
 multiply throughput; a row is 4 FW bytes. Nothing carries across blocks:
 deterministic sums.
 
-horner_combine: one thread, sum_w 2^(c w) S_w MSB first (c doublings and
-one add per window) -- a latency-bound chain of a few hundred group ops.
+horner_combine: sum_w 2^(c w) S_w MSB first (c doublings and one add per
+window), a chain of (W - 1)(c + 1) group operations whose critical path is
+(W - 1)(3 c + 5) dependent base-field products (``DEPTH``): latency, not
+throughput, bounds it. One block runs the chain with its field elements in
+shared memory; the independent products of each level of dbl and add run
+at once, each on a group of 8 or 16 lanes (the lane-split Montgomery
+product of csrc/field.cuh, one word a lane), and the additions between the
+levels run one word a lane too.
 
 The plain versions run the same sequence of group operations with torch
 ops over plain field products, so kernel and plain results are equal
@@ -44,6 +50,9 @@ LAUNCHES = dict.fromkeys(counter_keys(("bucket_reduce", "horner_combine")), 0)
 # that counting never waits for the card), horner_combine products of the
 # coordinate field, (W - 1)(7 c + 16) for c doublings and one add a window
 WORK = dict.fromkeys(LAUNCHES, 0)
+# horner_combine's critical path in dependent base-field products,
+# (W - 1)(3 c + 5) a launch: dbl is 3 levels of independent products, add 5
+DEPTH = dict.fromkeys(LAUNCHES, 0)
 
 
 def _field_view(fk, a):
@@ -124,14 +133,19 @@ def bucket_reduce(fk, rows, gidx, starts, counts, order=None):
 
 
 def horner_combine_plain(fk, S, c: int):
+    """The same chain with torch ops. S: (X, Y, Z) of shape (FW, W), or
+    (FW, W, B) for B independent combines at once (one column each);
+    returns (FW, 1), or (FW, B)."""
     FW = ext_of(fk) * fk.N
-    W = S[0].shape[-1]
-    pt = lambda w: tuple(_field_view(fk, a[:, w:w + 1]) for a in S)
+    W = S[0].shape[1]
+    batch = S[0].shape[2:]
+    pt = lambda w: tuple(_field_view(fk, a[:, w:w + 1] if not batch
+                                     else a[:, w]) for a in S)
     acc = pt(W - 1)
     for w in range(W - 2, -1, -1):
         acc = dbl_plain(fk, acc, c)
         acc = add_plain(fk, acc, pt(w))
-    return tuple(a.reshape(FW, 1) for a in acc)
+    return tuple(a.reshape(FW, -1) for a in acc)
 
 
 def horner_combine(fk, S, c: int):
@@ -142,8 +156,9 @@ def horner_combine(fk, S, c: int):
     FW = ext_of(fk) * fk.N
     S = [a.to(torch.int32).contiguous() for a in S]
     W = S[0].shape[-1]
-    if S[0].shape[0] != FW or W < 1:
-        raise ValueError("horner_combine: S must be (FW, W) tensors")
+    if S[0].shape[0] != FW or W < 1 or c < 0:
+        raise ValueError("horner_combine: S must be (FW, W) tensors, W >= 1, "
+                         "c >= 0")
     outs = [torch.empty((FW, 1), dtype=torch.int32, device=S[0].device)
             for _ in range(3)]
     code = cuda_lib.lib("bucket").lsn_horner(
@@ -151,6 +166,8 @@ def horner_combine(fk, S, c: int):
         *[o.data_ptr() for o in outs], ctypes.addressof(fk.mod),
         cuda_lib.stream_ptr(S[0]))
     cuda_lib.check(code, "horner_combine")
-    LAUNCHES[counter_key("horner_combine", fk)] += 1
-    WORK[counter_key("horner_combine", fk)] += (W - 1) * (7 * c + 16)
+    key = counter_key("horner_combine", fk)
+    LAUNCHES[key] += 1
+    WORK[key] += (W - 1) * (7 * c + 16)
+    DEPTH[key] += (W - 1) * (3 * c + 5)
     return tuple(outs)

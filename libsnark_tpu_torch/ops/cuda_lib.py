@@ -74,6 +74,7 @@ _ARGTYPES = {
         "lsn_layout_window_copy": [_VP, _VP, _LL, _I, _I, _I, _VP],
         "lsn_layout_loop_dyn": [_VP, _VP, _LL, _VP],
         "lsn_layout_dynslice_sum": [_VP, _VP, _I, _I, _I, _VP],
+        "lsn_layout_empty": [_VP],
     },
 }
 

@@ -6,7 +6,11 @@ product bodies (csrc/probe.cu), and the layout and row-copy probes
 thread runs 8 independent chains of K dependent steps of one operation
 (``RATE_OPS``), so a launch takes steps / rate. ``cios_chain`` replaces
 ``scripts/probe_cios.py:98``: K chained Montgomery products x <- x * b per
-lane in four bodies (``CIOS_VARIANTS``), at every built field width.
+lane in five bodies (``CIOS_VARIANTS``), at every built field width; the
+fifth splits each product over a group of lanes (``mont_mul_lanes_plain``
+models it word by word). ``measure_product_latency`` runs the chains over
+one element: the latency of one dependent product, the yardstick of
+``horner_combine``'s bound.
 
 Beside each stands its plain PyTorch version (int64 arithmetic masked to
 32 bits; the plain Montgomery product), taken for CPU tensors and used to
@@ -24,7 +28,8 @@ words carried as int32 bit patterns, beside a plain PyTorch version
 shapes first, then odd offsets, shifts outside [0, axis), tiles with no
 word above 7, trip counts 1..6), ``measure_layout`` times the eleven and
 ``measure_row_copy`` times ``row_copy`` at the row widths ``bucket_reduce``
-gathers.
+gathers; ``launch_floor_ms`` times an empty kernel launched and replayed the
+same way, the least time any of them can take.
 
 ``sass_loops`` reads the machine code of the built probe kernels
 (``cuobjdump -sass``) and counts the instructions of each kernel's main
@@ -47,13 +52,14 @@ import torch
 
 from .ops import cuda_lib
 from .ops.cuda_fp import mont_mul_plain
+from .ops.limbs import limbs_to_words, words_to_limbs
 
 CHAINS = 8                       # independent chains per thread (probe.cu)
 RATE_OPS = ("mul_lo", "mad_lo", "mad_hi", "mad_wide", "add64", "shift_and",
             "mul_f32")           # in the order of enum RateOp
 # CIOS; separated operand scanning; field.cuh's carry chain with its rounds
-# unrolled and in a loop of two rounds
-CIOS_VARIANTS = ("cios", "sos", "chain", "chain_rolled")
+# unrolled and in a loop of two rounds; field.cuh's lane-split product
+CIOS_VARIANTS = ("cios", "sos", "chain", "chain_rolled", "lanes")
 LAUNCHES = {f"probe_rate_{op}": 0 for op in RATE_OPS}
 LAUNCHES.update({f"probe_cios_{v}_n{2 * nw}": 0 for v in CIOS_VARIANTS
                  for nw in cuda_lib.WIDTHS})
@@ -142,6 +148,47 @@ def cios_chain_plain(fk, a: torch.Tensor, b: torch.Tensor, K: int):
     return x
 
 
+def mont_mul_lanes_plain(fk, a: torch.Tensor, b: torch.Tensor):
+    """The lane-split Montgomery product of csrc/field.cuh (fp_mul_lanes),
+    word by word: the lanes of a group are axis 0 of (NW, L) int64 tensors
+    (lane j holds word j), a shuffle down or up is a shift along that axis
+    with the edge lane zeroed, the broadcast of m a copy of row 0, a warp
+    vote a bit mask over the rows. a, b: canonical (N, L) int32 limbs;
+    returns a b R^-1 mod p, canonical, as (N, L) int32 limbs."""
+    nw = fk.N // 2
+    dev = a.device
+    aw = limbs_to_words(a).to(torch.int64) & _M32
+    bw = limbs_to_words(b).to(torch.int64) & _M32
+    p = torch.tensor([(fk.p >> (32 * k)) & _M32 for k in range(nw)],
+                     dtype=torch.int64, device=dev)[:, None]
+    n0inv = (-pow(fk.p, -1, 1 << 32)) % (1 << 32)
+    j = torch.arange(nw, device=dev)[:, None]
+    first, last = j == 0, j == nw - 1
+    t = torch.zeros_like(aw)
+    for i in range(nw):
+        bi = bw[i:i + 1]
+        U = t + ((aw * bi) & _M32)                       # + lo(a_j b_i)
+        m = ((U[0:1] & _M32) * n0inv) & _M32             # lane 0, broadcast
+        U = U + ((m * p) & _M32)                         # + lo(m p_j)
+        H = _mul_hi(aw, bi) + _mul_hi(m, p)
+        down = torch.roll(U, -1, 0).masked_fill(last, 0)  # shuffle down
+        t = down + H + torch.where(first, U >> 32, 0)
+    up = torch.roll(t >> 32, 1, 0).masked_fill(first, 0)  # shuffle up
+    s = (t & _M32) + up
+    w = s & _M32
+    bit = 1 << j
+
+    def vote(pred):
+        return (pred.to(torch.int64) * bit).sum(0, keepdim=True)
+    G, P = vote(s >> 32 != 0), vote(w == _M32)
+    w = (w + ((((G + (G | P)) ^ P) >> j) & 1)) & _M32
+    BG, BP = vote(w < p), vote(w == p)
+    S = BG + (BG | BP)
+    d = (w - p - (((S ^ BP) >> j) & 1)) & _M32
+    r = torch.where(((S >> nw) & 1) == 1, w, d)
+    return words_to_limbs(_i32(r))
+
+
 def cios_chain(fk, variant: str, a: torch.Tensor, b: torch.Tensor, K: int):
     """x <- x * b (Montgomery) K times per lane, a and b canonical (N, L)
     int32 limbs of the field kernel ``fk``; ``variant`` picks the body."""
@@ -204,12 +251,14 @@ def row_copy(x, s: int, R: int, seg=None, into3d: bool = False,
     """out[b] = x[s + seg[b] : s + seg[b] + R, :] as (nseg, R, width).
 
     x: (rows, width) words; s: row offset, a kernel argument read at run
-    time; seg: (nseg,) int64 further row offsets, one segment per block
-    (default one segment at 0); into3d: stage through slot 0 of a
-    (2, R, width) buffer instead of an (R, width) one. Each block copies
-    global -> shared -> global. validate=False skips the bounds check of
-    seg (a reduction that waits for the device): only for offsets already
-    checked, as in a timing loop."""
+    time; seg: (nseg,) int64 further row offsets (default one segment at 0,
+    which the kernel takes from a null pointer: no device allocation);
+    into3d: the TPU probe's staging through slot 0 of a (2, R, width)
+    buffer, which only doubles the staging size checked against 48 KB.
+    The kernel copies each segment's R * width contiguous words in 16-byte
+    pieces where the width allows, many segments a block. validate=False
+    skips the bounds check of seg (a reduction that waits for the device):
+    only for offsets already checked, as in a timing loop."""
     x = _words(x, 2, "row_copy")
     rows, width = x.shape
     slots = 2 if into3d else 1
@@ -218,7 +267,6 @@ def row_copy(x, s: int, R: int, seg=None, into3d: bool = False,
                          "more and fit 48 KB of shared memory")
     if seg is None:
         lo = hi = 0
-        seg = torch.zeros(1, dtype=torch.int64, device=x.device)
     elif seg.dtype != torch.int64 or seg.dim() != 1 or seg.device != x.device:
         raise ValueError("row_copy: seg must be a 1-D int64 tensor on x's "
                          "device")
@@ -230,12 +278,21 @@ def row_copy(x, s: int, R: int, seg=None, into3d: bool = False,
         raise ValueError("row_copy: a segment leaves the array")
     if not x.is_cuda:
         return row_copy_plain(x, s, R, seg)
-    seg = seg.contiguous()
-    out = torch.empty((seg.numel(), R, width), dtype=torch.int32,
-                      device=x.device)
+    nseg = 1 if seg is None else seg.numel()
+    seg = None if seg is None else seg.contiguous()
+    out = torch.empty((nseg, R, width), dtype=torch.int32, device=x.device)
     _launch("row_copy", "lsn_layout_row_copy", x, x.data_ptr(),
-            seg.data_ptr(), out.data_ptr(), width, R, seg.numel(), s, slots)
+            None if seg is None else seg.data_ptr(), out.data_ptr(), width, R,
+            nseg, s, slots)
     return out
+
+
+def row_gather_index(s: int, R: int, seg, device):
+    """The (nseg R,) row indices of ``row_copy``'s segments, for the one
+    PyTorch call that computes the same gather (``x.index_select``)."""
+    seg = torch.zeros(1, dtype=torch.int64, device=device) \
+        if seg is None else seg
+    return ((s + seg)[:, None] + torch.arange(R, device=device)).reshape(-1)
 
 
 def transpose_plain(x):
@@ -455,10 +512,21 @@ def layout_cases(device, seed: int = 11) -> list:
              lambda x=x: x[None, 40:56].clone(), 2 * 16 * width)
     x = rnd(4096, 24)
     seg = torch.randint(0, 4096 - 16 - 7, (64,), generator=gen, device=device)
+    idx = row_gather_index(7, 16, seg, device)
     case("row_copy", "(4096,24) 64 random segments of 16 rows from s=7",
          lambda x=x, seg=seg: row_copy(x, 7, 16, seg),
-         lambda x=x, seg=seg: row_copy_plain(x, 7, 16, seg), None,
-         2 * 64 * 16 * 24)
+         lambda x=x, seg=seg: row_copy_plain(x, 7, 16, seg),
+         lambda x=x, idx=idx: x.index_select(0, idx).view(64, 16, 24),
+         2 * 64 * 16 * 24 + 2 * 64)          # seg: 2 words a segment
+    # a width that is no multiple of 4 words: the kernel's word-wise path
+    x = rnd(1000, 5)
+    seg = torch.randint(-2, 1000 - 3 - 2, (37,), generator=gen, device=device)
+    idx = row_gather_index(2, 3, seg, device)
+    case("row_copy", "(1000,5) 37 random segments of 3 rows from s=2",
+         lambda x=x, seg=seg: row_copy(x, 2, 3, seg),
+         lambda x=x, seg=seg: row_copy_plain(x, 2, 3, seg),
+         lambda x=x, idx=idx: x.index_select(0, idx).view(37, 3, 5),
+         2 * 37 * 3 * 5 + 2 * 37)
 
     for x, label in ((ar(128, 8, 32), "(128,8,32)->(32,8,128)"),
                      (rnd(70, 3, 45), "(70,3,45) ragged tiles")):
@@ -624,6 +692,48 @@ def measure_cios(fks, L: int = 1 << 20, K: int = 64, seed: int = 8) -> list:
     return rows
 
 
+def measure_product_latency(fks, K: int = 2048, seed: int = 9,
+                            variants=("chain", "chain_rolled", "lanes")) -> list:
+    """One row per (field kernel, variant): K chained products over ONE
+    element, so the time over K is the latency of one dependent product
+    (one thread for the carry chains, one lane group for ``lanes``), in us;
+    exact against the plain chain. Needs the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for fk in fks:
+        top = fk.p >> (16 * (fk.N - 1))
+
+        def rand():
+            lo = torch.randint(0, 1 << 16, (fk.N - 1, 1), generator=gen,
+                               device="cuda", dtype=torch.int32)
+            hi = torch.randint(0, top, (1, 1), generator=gen, device="cuda",
+                               dtype=torch.int32)
+            return torch.cat([lo, hi], dim=0)
+        a, b = rand(), rand()
+        want = cios_chain_plain(fk, a, b, K)
+        for variant in variants:
+            got = cios_chain(fk, variant, a, b, K)
+            ms = _cuda_ms(lambda: cios_chain(fk, variant, a, b, K), 3)
+            rows.append({"N": fk.N, "variant": variant,
+                         "exact": bool(torch.equal(got, want)), "K": K,
+                         "ms": ms, "latency_us": ms * 1e3 / K})
+    return rows
+
+
+def _empty_launch():
+    code = cuda_lib.lib("probe_layout").lsn_layout_empty(
+        torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(code, "probe_layout[empty]")
+
+
+def launch_floor_ms(reps: int = 200) -> float:
+    """Device time per call of an empty kernel launched through the same
+    C entry route and replayed in a CUDA graph as ``measure_layout`` times
+    the layout kernels: the least time any of them can take. Needs the
+    card."""
+    return _graph_ms(_empty_launch, reps)
+
+
 def _graph_ms(fn, reps: int) -> float:
     """Mean device milliseconds per call of ``reps`` calls replayed as one
     CUDA graph: a call that moves a few KB takes less time on the card than
@@ -665,8 +775,11 @@ def measure_layout(seed: int = 11, reps: int = 200) -> list:
     ``library_ms`` (None where no PyTorch call computes the function) are
     device times per call inside a replayed CUDA graph; ``call_ms`` is the
     wrapper called in a loop, which at these sizes is the host's time to
-    launch. Then the bytes moved and GB/s. Needs the card."""
+    launch. Then the bytes moved and GB/s, and ``floor_ms``: the empty
+    kernel's time in the same kind of graph (``launch_floor_ms``). Needs
+    the card."""
     rows = {}
+    floor = launch_floor_ms(reps)
     for name, label, kern, plain, lib, nbytes in layout_cases("cuda", seed):
         want = plain()
         same = bool(torch.equal(kern(), want))
@@ -683,7 +796,7 @@ def measure_layout(seed: int = 11, reps: int = 200) -> list:
             "call_ms": _cuda_ms(kern, reps),
             "plain_ms": _graph_ms(plain, reps),
             "library_ms": _graph_ms(lib, reps) if lib else None,
-            "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6}
+            "floor_ms": floor, "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6}
     return [rows[name] for name in LAYOUT_PROBES]
 
 
@@ -692,8 +805,10 @@ def measure_row_copy(widths=(16, 24, 32, 48), total_rows: int = 1 << 20,
     """``row_copy`` over 2^20 rows of a 2^21-row table at the row widths
     ``bucket_reduce`` gathers (2 NW words: 16 and 24 for G1 at 16 and 24
     limbs, 32 and 48 for G2), as segments of R = 1 and R = 16 rows at random
-    offsets, one block each; beside it the time of the same gather as one
-    PyTorch indexing call. One row per (width, R). Needs the card."""
+    offsets; beside it the time of the same gather as one
+    ``x.index_select`` over row indices built before the timing. One row
+    per (width, R), with the bytes (rows read and written once, 8 bytes of
+    seg a segment). Needs the card."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = []
     for width in widths:
@@ -704,11 +819,16 @@ def measure_row_copy(widths=(16, 24, 32, 48), total_rows: int = 1 << 20,
             nseg = total_rows // R
             seg = torch.randint(0, 2 * total_rows - R, (nseg,), generator=gen,
                                 device="cuda")
+            idx = row_gather_index(0, R, seg, "cuda")
+            want = row_copy_plain(x, 0, R, seg)
             got = row_copy(x, 0, R, seg)
-            exact = bool(torch.equal(got, row_copy_plain(x, 0, R, seg)))
+            lib = x.index_select(0, idx).view(nseg, R, width)
+            if not torch.equal(lib, want):
+                raise AssertionError("index_select computes another gather")
+            exact = bool(torch.equal(got, want))
             ms = _cuda_ms(lambda: row_copy(x, 0, R, seg, validate=False),
                           reps)
-            lib_ms = _cuda_ms(lambda: row_copy_plain(x, 0, R, seg), reps)
+            lib_ms = _cuda_ms(lambda: x.index_select(0, idx), reps)
             nbytes = 2 * 4 * total_rows * width + 8 * nseg
             out.append({"width": width, "R": R, "segments": nseg,
                         "exact": exact, "ms": ms, "library_ms": lib_ms,
@@ -743,6 +863,9 @@ def _kernel_label(mangled: str):
     m = re.search(r"rate_kernelILi(\d+)E", mangled)
     if m:
         return f"probe_rate_{RATE_OPS[int(m.group(1))]}"
+    m = re.search(r"lanes_chain_kernelILi(\d+)E", mangled)
+    if m:
+        return f"probe_cios_lanes_n{2 * int(m.group(1))}"
     m = re.search(r"cios_kernelILi(\d+)ELi(\d+)E", mangled)
     if m:
         return f"probe_cios_{CIOS_VARIANTS[int(m.group(2))]}_n{2 * int(m.group(1))}"

@@ -12,10 +12,12 @@ probes.py, csrc/probe.cu, csrc/probe_layout.cu) on one NVIDIA card:
   each kernel's main loop read from the built library (cuobjdump -sass), so
   that a step's rate can be told from an instruction's;
 * the CIOS-variant probe: K chained Montgomery products per lane at 8 and
-  12 words (alt_bn128 Fq, BLS12-377 Fq) in four bodies (CIOS, separated
-  operand scanning, and the carry-chain product of csrc/field.cuh with its
-  rounds unrolled and in a loop of two rounds); each checked against the
-  plain Montgomery product, then G products/s;
+  12 words (alt_bn128 Fq, BLS12-377 Fq) in five bodies (CIOS, separated
+  operand scanning, the carry-chain product of csrc/field.cuh with its
+  rounds unrolled and in a loop of two rounds, and its lane-split product
+  over a group of 8 or 16 lanes); each checked against the plain
+  Montgomery product, then G products/s; then the same chains over one
+  element: the latency of one dependent product (horner_combine's bound);
 * the eleven layout probes (row copy from a run-time offset through shared
   memory, 3-D transpose, three reshapes, two rolls by a run-time shift, a
   branch on a block-wide vote, a window copy from an unaligned offset, a
@@ -81,6 +83,13 @@ def main(argv=None) -> int:
               f"{r['ms']:9.4f} {r['gproducts_per_s']:13.3f} "
               f"{r['gproducts_per_s'] * r['wide_mads_per_product']:14.1f}",
               flush=True)
+    latency = probes.measure_product_latency(fks)
+    print("latency of one dependent product (K chained products over one "
+          "element: one thread, or one lane group for 'lanes')")
+    print(f"{'limbs':<6} {'variant':<13} {'exact':<6} {'us a product':>13}")
+    for r in latency:
+        print(f"{r['N']:<6} {r['variant']:<13} {str(r['exact']):<6} "
+              f"{r['latency_us']:13.4f}", flush=True)
     loops = probes.sass_loops(dump_to=args.sass)
     print("main loop of each kernel (cuobjdump -sass):")
     for key, loop in loops.items():
@@ -89,7 +98,8 @@ def main(argv=None) -> int:
                  or "no loop"), flush=True)
     layout = probes.measure_layout()
     print("layout probes (us: device time of a call in a replayed CUDA "
-          "graph; call: the wrapper in a loop; torch: the one PyTorch call)")
+          "graph; call: the wrapper in a loop; torch: the one PyTorch call; "
+          f"an empty kernel takes {layout[0]['floor_ms'] * 1e3:.2f} us)")
     for r in layout:
         lib = (f", torch {r['library_ms'] * 1e3:.2f} us"
                if r["library_ms"] else "")
@@ -105,15 +115,17 @@ def main(argv=None) -> int:
         print(f"  {key}: " + ", ".join(f"{n} {opc}" for opc, n in ops.items()))
     row_copy = probes.measure_row_copy()
     print(f"{'words':<6} {'R':>3} {'exact':<6} {'ms':>9} {'GB/s':>9} "
-          f"{'torch indexing ms':>18}")
+          f"{'torch index_select ms':>22}")
     for r in row_copy:
         print(f"{r['width']:<6} {r['R']:>3} {str(r['exact']):<6} "
-              f"{r['ms']:9.4f} {r['gb_per_s']:9.1f} {r['library_ms']:18.4f}",
+              f"{r['ms']:9.4f} {r['gb_per_s']:9.1f} {r['library_ms']:22.4f}",
               flush=True)
     print(json.dumps({"card": card, "rates": rates, "cios": cios,
+                      "product_latency": latency,
                       "main_loops": loops, "layout": layout,
                       "layout_memory_ops": mem_ops, "row_copy": row_copy}))
-    bad = [r for r in rates + cios + layout + row_copy if not r["exact"]]
+    bad = [r for r in rates + cios + latency + layout + row_copy
+           if not r["exact"]]
     if bad:
         print(f"probe_h100: {len(bad)} kernels differ from their plain "
               f"versions", file=sys.stderr)

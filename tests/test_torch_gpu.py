@@ -109,6 +109,91 @@ def test_bucket_and_horner_kernels_match_plain_on_card(system, group_name):
     assert all(torch.equal(a, b) for a, b in zip(hk, hp))
 
 
+def _horner_windows(group, r, W, c, rng):
+    """Planted window sums (host points, window 0 first): random; an
+    infinity window; an infinity top window; S_(W-2) = 2^c S_(W-1) (the
+    first add meets P == Q); S_0 = -(the rest) (a sum at infinity)."""
+    G = group.one()
+    rnd = lambda: [G * rng.randrange(1, r) for _ in range(W)]
+    if W == 1:
+        return [rnd(), [group.zero()]]
+    out = [rnd()]
+    for plant in range(4):
+        pts = rnd()
+        if plant == 0:
+            pts[W // 2 if W > 2 else 0] = group.zero()
+        elif plant == 1:
+            pts[W - 1] = group.zero()
+        elif plant == 2:
+            pts[W - 2] = pts[W - 1] * (1 << c)
+        else:
+            rest = group.zero()
+            for w in range(1, W):
+                rest = rest + pts[w] * (1 << (c * w))
+            pts[0] = -rest
+        out.append(pts)
+    return out
+
+
+@pytest.mark.parametrize("group_name", ["G1", "G2"])
+def test_horner_planted_windows_on_card(system, group_name):
+    """horner_combine at W in {1, 2, 18} and c in {1, 15, 16} on planted
+    window sums with random Z, bit-exact against the plain version run over
+    all cases of a (W, c) at once."""
+    ck, _ = _group(system, group_name)
+    group = getattr(system.curve, group_name)
+    fk = ck.fk
+    ext = 2 if hasattr(fk, "fp") else 1
+    FW = ext * fk.N
+    rng = random.Random(23)
+    key = cuda_ec.counter_key("horner_combine", fk)
+    for W in (1, 2, 18):
+        for c in (1, 15, 16):
+            S = []
+            for pts in _horner_windows(group, system.curve.r, W, c, rng):
+                X, Y, Z = ck.encode_points(pts)
+                zs = ck.encode_points([group.one() * rng.randrange(
+                    1, system.curve.r) for _ in range(W)])[0]   # nonzero
+                z2 = fk.sqr(zs)
+                S.append([fk.mul(X, z2).reshape(FW, W),
+                          fk.mul(Y, fk.mul(z2, zs)).reshape(FW, W),
+                          fk.mul(Z, zs).reshape(FW, W)])
+            batch = tuple(torch.stack([s[i] for s in S], -1)
+                          for i in range(3))
+            want = cuda_bucket.horner_combine_plain(fk, batch, c)
+            for b, s in enumerate(S):
+                before = cuda_bucket.LAUNCHES[key]
+                got = cuda_bucket.horner_combine(fk, s, c)
+                assert cuda_bucket.LAUNCHES[key] == before + 1
+                for x, y in zip(got, want):
+                    assert torch.equal(x, y[:, b:b + 1]), (W, c, b)
+            if W > 1:
+                assert not bool(want[2][:, 4].any())     # the sum at infinity
+
+
+def test_row_copy_segments_on_card(system):
+    """row_copy at the default segment, at single-row and 16-row segments
+    of bucket_reduce's row widths, at a width that takes the word path and
+    from a negative s: bit-exact against the plain gather."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for width in (16, 24, 32, 48, 5):
+        x = torch.randint(-(1 << 31), 1 << 31, (4096, width), generator=gen,
+                          device="cuda", dtype=torch.int64).to(torch.int32)
+        assert torch.equal(probes.row_copy(x, 9, 16),
+                           probes.row_copy_plain(x, 9, 16))
+        for R in (1, 16):
+            seg = torch.randint(0, 4096 - R - 3, (1000,), generator=gen,
+                                device="cuda")
+            want = probes.row_copy_plain(x, 3, R, seg)
+            assert torch.equal(probes.row_copy(x, 3, R, seg), want)
+            assert torch.equal(probes.row_copy(x, 3, R, seg, validate=False),
+                               want)
+            assert torch.equal(probes.row_copy(x, -3, R, seg + 6),
+                               probes.row_copy_plain(x, -3, R, seg + 6))
+        empty = torch.zeros(0, dtype=torch.int64, device="cuda")
+        assert probes.row_copy(x, 0, 4, empty).shape == (0, 4, width)
+
+
 def _planted_lanes(system, group_name, L):
     """Jacobian P, Q over L lanes from 16 random points with random Z:
     lanes 0-7 P = inf, 8-15 Q = inf, 16-23 both, 24-31 P == Q (other Z),
