@@ -21,14 +21,19 @@
    main-path shapes, bit-exact (tolerance 0): mont_mul at 2^20 lanes;
    dbl / add / madd / aadd at 2^16 lanes with planted infinity, P == Q
    and P == -Q lanes, add also at 294,930 lanes (one suffix-scan launch of
-   a 2^20-point MSM); bucket_reduce on the packed rows and length-ordered
+   a 2^20-point MSM), timed in a replayed CUDA graph (the wrapper called
+   in a loop takes longer on the host than the kernel on the card); bucket_reduce on the packed rows and length-ordered
    segments of a 2^16-point MSM with all-equal points in one bucket;
    horner_combine at W in {1, 2, 18} windows and c in {1, 15, 16} on
    planted window sums (an infinity window, an infinity top window, a
    first add that meets P == Q, a sum at infinity),
    timed at the path's 18 windows of c = 15 beside its latency bound (the
    critical path (W - 1)(3 c + 5) times the least product latency that the
-   probes measured);
+   probes measured); madd_win (the fixed-base scan in one launch) at the
+   keygen's 2^20 lanes on its table, c = 8 (32 windows), with planted
+   scalars, against its plain version and the per-window madd kernel loop
+   it replaced, timed beside that loop; host encoding of 2^20 values, the
+   Python Montgomery form against FpKernel.encode (mont_mul on the card);
    and the dense strategy's window sums against the default strategy's on
    a 2^16-point MSM, with random scalars and with 4096 all-equal scalars
    (the chunk loop). Times each (CUDA events).
@@ -45,10 +50,16 @@
    prove under torch.profiler (CUDA activity): each hand-written kernel's
    device time summed by __global__ name, its launches (checked against
    the wrappers' counters), its work (the wrappers' WORK counters) and the
-   bound of that work, device busy time and idle share; and the device
-   time of a 2^20-point G1 and G2 MSM split into sort, bucket_reduce, add,
-   horner_combine and the rest, with bucket_reduce's warp efficiency in
-   bucket order and in length order.
+   bound of that work, device busy time and idle share; the same for the
+   keygen (profiled as it runs, with the parts of its fixed-base phase:
+   host encoding, window table, batch exp, to_affine) and for one more
+   dense prove; the device time of a 2^20-point G1 and G2 MSM split into
+   sort, bucket_reduce, add, horner_combine and the rest, with
+   bucket_reduce's warp efficiency in bucket order and in length order;
+   and the keygen's five fixed-base queries again with the per-window madd
+   loop (before madd_windows) and with madd_windows: equal points, the
+   parts of the phase and the madd family's device time (CUDA events
+   around each call) - bound of each.
 7. Runs KZG10 through its entry points: over BLS12-377 at degree 2^22 - 1
    and over alt_bn128 at 2^20 - 1: setup(seed=3) on the device, then for a
    seeded random polynomial commit, create_evaluation_witness,
@@ -62,23 +73,29 @@
    batched two-point opening and the BDFG21 opening of a few polynomials
    of degree 2^12 - 1, each accepted and rejected after tampering. Every
    G1 kernel of the path must have launched in it. Over BLS12-377 the
-   random polynomial is committed and opened once more under the profiler,
-   as the provers above.
-8. Ranks the kernels by device time - bound over those three profiled
-   paths (the order of the redesign PRs).
+   setup runs under the profiler, the random polynomial is committed and
+   opened once more under it, as the provers above, and the setup's batch
+   exp at 2^22 lanes is timed (CUDA events) as the per-window madd loop
+   and as madd_windows (equal limbs).
+8. Ranks the kernels by device time - bound over the profiled paths
+   (keygen, default and dense prove of each curve; KZG setup and commit +
+   opening at 2^22): the order of the redesign PRs.
 
 Prints the kernel table as one JSON line, the card line, and last the
 line {"ok": true, "device": {...}}. Each row of the table names in "path"
 the run its "launches" were counted in: the alt_bn128 or the bls12_377
-Groth16 path (keygen + both proves), or "probe" (the kernels that ran in
+Groth16 path (keygen + both proves), "fixed_base_loop_<curve>" (the
+single-launch madd: the keygen's fixed base as the per-window loop), or
+"probe" (the kernels that ran in
 one probes.measure_rates / measure_cios / measure_layout /
 measure_row_copy: every case once, the timing loops, and the replays of
 the CUDA graphs the layout kernels are timed in); "paths" holds the
 row's launches in every path that ran it, the KZG paths (kzg_bls12_377,
 kzg_alt_bn128: setup + commit + opening) among them; "path_ms" and
 "path_bound_ms" the device time and bound of its launches in each
-profiled path (prove_alt_bn128, prove_bls12_377, kzg_bls12_377). Any
-failed check raises: exit code 1.
+profiled path (keygen_<curve>, prove_<curve>, prove_dense_<curve>,
+kzg_setup_bls12_377, kzg_bls12_377). Any failed check raises: exit
+code 1.
 
     python3 chip_smoke.py                     # needs one CUDA card
     python3 chip_smoke.py --log2 14 --bn-log2 12 --kzg-log2 14   # small sizes
@@ -135,6 +152,9 @@ TPU_KERNEL = {
     "mont_mul": "libsnark_tpu/ops/pallas_fp.py:291",
     "dbl": "libsnark_tpu/ops/pallas_ec.py:355",
     "madd": "libsnark_tpu/ops/pallas_ec.py:255",
+    # the fixed-base scan of the JAX batch_exp (libsnark_tpu/ops/msm.py:
+    # 946-983), this Pallas kernel once a window
+    "madd_win": "libsnark_tpu/ops/pallas_ec.py:255",
     "add": "libsnark_tpu/ops/pallas_ec.py:290",
     "aadd": "libsnark_tpu/ops/pallas_ec.py:322",
     "bucket_reduce": "libsnark_tpu/ops/pallas_bucket.py:72",
@@ -157,6 +177,7 @@ SOURCE = {
     "mont_mul": "libsnark_tpu_torch/csrc/fp.cu",
     "dbl": "libsnark_tpu_torch/csrc/ec.cu",
     "madd": "libsnark_tpu_torch/csrc/ec.cu",
+    "madd_win": "libsnark_tpu_torch/csrc/ec.cu",
     "add": "libsnark_tpu_torch/csrc/ec.cu",
     "aadd": "libsnark_tpu_torch/csrc/ec.cu",
     "bucket_reduce": "libsnark_tpu_torch/csrc/bucket.cu",
@@ -428,6 +449,10 @@ def ec_inputs(curve, ck, group, L, gen, rng):
 
 
 def check_ec(curve, g16, K, gen, rng):
+    """Group ops at 2^16 lanes (add also at SCAN_LANES), each timed in a
+    replayed CUDA graph (probes._graph_ms): at that size the wrapper takes
+    longer on the host to launch than the kernel on the card."""
+    from libsnark_tpu_torch import probes
     from libsnark_tpu_torch.ops import cuda_ec
     L = 1 << 16
     for ck, _, group, ext in groups_of(curve, g16):
@@ -448,13 +473,15 @@ def check_ec(curve, g16, K, gen, rng):
         }
         for name, (kern, plain, nfield) in cases.items():
             err = max_abs_err(kern(), plain())
-            ms = cuda_ms(kern, 20)
+            ms = probes._graph_ms(kern, 20)
+            call_ms = cuda_ms(kern, 20)
             pms = cuda_ms(plain, 1)
             ops = PRODUCTS[name] * (3 if ext == 2 else 1) * wide_mads(fk) * L
             nbytes = nfield * FW * 4 * L + (2 * L if name in ("madd", "aadd")
                                             else 0)
             K.add(name, cuda_ec.counter_key(name, fk), err, ms, pms, nbytes,
-                  ops)
+                  ops, call_ms=call_ms)
+            log(f"    (the wrapper called in a loop: {call_ms:.4f} ms a call)")
         # add at the shape of one suffix-scan launch of a 2^20 MSM
         # (W = 18 windows x (B + 1) = 16,385 buckets), planted lanes as above
         L2 = SCAN_LANES
@@ -463,7 +490,7 @@ def check_ec(curve, g16, K, gen, rng):
         if err:
             raise AssertionError(f"add differs from its plain version at "
                                  f"{L2} lanes ({fk.N} limbs, ext={ext})")
-        ms = cuda_ms(lambda: cuda_ec.add(fk, P2, Q2), 10)
+        ms = probes._graph_ms(lambda: cuda_ec.add(fk, P2, Q2), 10)
         key = cuda_ec.counter_key("add", fk)
         b = work_bound_ms(key, L2)
         K.rows[key].update({"scan_lanes": L2, "scan_ms": ms,
@@ -476,6 +503,114 @@ def check_ec(curve, g16, K, gen, rng):
             if not bool(out[2][24:40].all()) or bool(out[2][:24].any()):
                 raise AssertionError("P == -Q and both-infinity lanes must "
                                      "give infinity, and no other planted lane")
+
+
+def planted_scalar_limbs(r: int, c: int, W: int, rng):
+    """(16, 7) int32 scalar limbs on the card: 0, 1, r - 1, every window
+    2^c - 1 (all 256 bits set), digit 0 in every odd / every even window,
+    only the top window nonzero."""
+    from libsnark_tpu_torch.ops.limbs import ints_to_limbs
+    full = (1 << 256) - 1
+    digits = lambda keep: sum(rng.randrange(1, 1 << c) << (c * w)
+                              for w in range(W) if keep(w)) & full
+    top = ((rng.randrange(1 << c) | 1) << (c * (W - 1))) & full
+    xs = [0, 1, r - 1, full, digits(lambda w: w % 2 == 0),
+          digits(lambda w: w % 2 == 1), top or 1 << 255]
+    return torch.from_numpy(ints_to_limbs(xs, 16).astype("int32")).cuda()
+
+
+def fixed_base_madds(fk, scalars, c: int, W: int) -> int:
+    """The madds a fixed-base scan of these scalars needs: a nonzero digit
+    after a lane's first nonzero one (that one lifts the table row, a zero
+    digit adds nothing)."""
+    from libsnark_tpu_torch.ops.cuda_ec import window_digit
+    sc = scalars.to(torch.int64)
+    nz = torch.zeros((W, sc.shape[1]), dtype=torch.bool, device=sc.device)
+    for w in range(W):
+        d = window_digit(sc, c, w)
+        if d is not None:
+            nz[w] = d != 0
+    return int(nz.sum()) - int(nz.any(dim=0).sum())
+
+
+def check_madd_windows(curve, g16, K, gen, rng):
+    """madd_win at the keygen's shape: 2^20 lanes, c = 8 (W = 32 windows)
+    on the keygen's own table of each group, random scalars below r with
+    planted lanes (planted_scalar_limbs): bit-exact against its plain
+    version and against the per-window madd kernel loop that batch_exp ran
+    before it (timed beside it), with the bound of the madds these scalars
+    need."""
+    from libsnark_tpu_torch.ops import cuda_ec
+    m, c = 1 << 20, 8
+    for ck, mk, group, ext in groups_of(curve, g16):
+        fk = mk.fk
+        FW = ext * fk.N
+        key = cuda_ec.counter_key("madd_win", fk)
+        taff, rows = g16._window_table_affine(ck, mk, group.one(), c)
+        W = rows.shape[0] >> c
+        sc = rand_field(g16.fr, (m,), gen)
+        planted = planted_scalar_limbs(curve.r, c, W, rng)
+        sc[:, :planted.shape[1]] = planted
+        kern = lambda: cuda_ec.madd_windows(fk, rows, sc, c)
+        loop = lambda: mk.batch_exp_loop(taff, sc, c)
+        got = kern()
+        err = max_abs_err(got, loop())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = cuda_ec.madd_windows_plain(fk, rows, sc, c)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3           # one call: it is slow
+        err = max(err, max_abs_err(got, plain))
+        del plain
+        inf = fk.is_zero(got[2])
+        if not bool(inf[0]) or bool(inf[1:planted.shape[1]].any()):
+            raise AssertionError(f"{key}: planted lanes at infinity wrong")
+        ms = cuda_ms(kern, 5)
+        loop_ms = cuda_ms(loop, 2)
+        n_madd = fixed_base_madds(fk, sc, c, W)
+        ops = n_madd * PRODUCTS["madd"] * (3 if ext == 2 else 1) * wide_mads(fk)
+        nbytes = 4 * (sc.numel() + rows.numel() + 3 * FW * m)
+        log(f"madd_win: {m} lanes, ext={ext}, N={fk.N}, c={c}, W={W}, "
+            f"{n_madd} madds; per-window madd loop {loop_ms:.4f} ms")
+        K.add("madd_win", key, err, ms, pms, nbytes, ops, loop_ms=loop_ms,
+              lanes=m, windows=W, madds=n_madd)
+        b = K.rows[key]["bound_ms"]
+        log(f"  {key}: {loop_ms / ms:.2f}x the per-window loop; "
+            f"{b / ms:.1%} of the product bound (loop {b / loop_ms:.1%})")
+
+
+def encode_python_form(fk, xs):
+    """The host encoding that FpKernel.encode replaced: the Montgomery form
+    int(x) R mod p per element in Python, then the limbs to the card."""
+    from libsnark_tpu_torch.ops.limbs import ints_to_limbs
+    R, p = fk.params.R, fk.p
+    arr = ints_to_limbs([int(x) * R % p for x in xs], fk.N)
+    return torch.from_numpy(arr.astype("int32")).cuda()
+
+
+def check_encode(fk, label: str):
+    """FpKernel.encode (reduce and pack on the host, Montgomery form by one
+    mont_mul launch) against the Python form it replaced, on the same 2^20
+    seeded values: equal limbs; wall time of each (host to card, ended by a
+    synchronize), in turns."""
+    xs = seeded_coeffs(fk.p, 1 << 20, 50)
+    times = {"python": [], "card": []}
+    for form in ("python", "card", "card", "python"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode_python_form(fk, xs) if form == "python" else fk.encode(xs)
+        torch.cuda.synchronize()
+        times[form].append(time.perf_counter() - t0)
+        if form == "card":
+            got = out
+        else:
+            want = out
+    if not torch.equal(got, want):
+        raise AssertionError(f"encode of {label} differs from the Python form")
+    log(f"encode {label} (N={fk.N}), 2^20 values: Python Montgomery form "
+        + " / ".join(f"{t:.3f}" for t in times["python"])
+        + " s, reduce + pack + mont_mul on the card "
+        + " / ".join(f"{t:.3f}" for t in times["card"]) + " s: equal limbs")
 
 
 def msm_inputs(curve, g16, ck, group, m, gen, rng):
@@ -694,14 +829,19 @@ def small_cross_check(curve):
     log("20-constraint seeded proof: card == CPU plain, verifies")
 
 
-def main_path(curve, log2: int, paths: dict) -> dict:
-    """Keygen, prove (default strategy), prove (dense strategy), verify.
-    Counts are set to 0 just before each phase and read just after; returns
-    the path's launches per kernel (the three phases added up). Then one
-    more default prove under the device profiler (paths["prove_<curve>"])
-    and the device time of its G1 and G2 MSMs by part."""
+def main_path(curve, log2: int, paths: dict):
+    """Keygen (under the device profiler, paths["keygen_<curve>"], and the
+    port's phase blocks), prove (default strategy), prove (dense strategy),
+    verify. Counts are set to 0 just before each phase and read just after.
+    Then one more prove of each strategy under the device profiler
+    (paths["prove_<curve>"], paths["prove_dense_<curve>"]), the keygen's
+    fixed-base phase again with the per-window madd loop and with
+    madd_windows (fixed_base_before_after), and the device time of a G1 and
+    a G2 MSM by part. Returns the path's launches per kernel (the three
+    phases added up) and the launches of the fixed base's loop run."""
     from libsnark_tpu_torch.ops import launch_counts, reset_launch_counts
     from libsnark_tpu_torch.ops.msm import default_window_bits
+    from libsnark_tpu_torch.profiling import PROFILER, start_profiling
     from libsnark_tpu_torch.proof_systems.groth16 import Groth16
     from libsnark_tpu_torch.relations.examples import generate_r1cs_example
     n = (1 << log2) - 3
@@ -730,7 +870,15 @@ def main_path(curve, log2: int, paths: dict) -> dict:
         return out
 
     g16 = systems["segments"]
-    kp = run("keygen", lambda t: g16.generator(cs, seed=5, timings=t))
+    # a system of its own for each profiled try: a second try of the same
+    # system would find the window tables built and launch no dbl or add
+    start_profiling()
+    kp = run("keygen", lambda t: path_timing(
+        f"keygen_{curve.name}", lambda: Groth16(curve).generator(
+            cs, seed=5, timings=t), paths))
+    PROFILER.enabled = False
+    log("  keygen_fixed_base by part (s, port profiler blocks): "
+        + fixed_base_parts(PROFILER))
     log(f"  domain m = {g16._domain(cs.num_constraints, cs.num_inputs).m}")
     for strategy, g in systems.items():
         proofs[strategy] = run(f"prove[{strategy}]", lambda t: g.prover(
@@ -753,10 +901,13 @@ def main_path(curve, log2: int, paths: dict) -> dict:
     if not (ok and rej_input and rej_proof):
         raise AssertionError("Groth16 verification checks failed")
 
-    timed = path_timing(f"prove_{curve.name}", lambda: g16.prover(
-        kp.pk, primary, aux, seed=9), paths)
-    if timed != proof:
-        raise AssertionError("the profiled proof differs")
+    for strategy, label in (("segments", "prove"), ("dense", "prove_dense")):
+        timed = path_timing(f"{label}_{curve.name}", lambda: systems[
+            strategy].prover(kp.pk, primary, aux, seed=9), paths)
+        if timed != proof:
+            raise AssertionError(f"the profiled proof ({strategy}) differs")
+    loop_counts = fixed_base_before_after(curve, g16,
+                                          kp.pk.H_query[0].shape[-1])
     gen = torch.Generator(device="cuda").manual_seed(77)
     c = default_window_bits(kp.pk.r1cs_dev.num_variables + 1)
     for which, q in (("g1", kp.pk.H_query), ("g2", kp.pk.B_query_g2)):
@@ -785,14 +936,129 @@ def main_path(curve, log2: int, paths: dict) -> dict:
             total[k] = total.get(k, 0) + v
     nq = g16.fq.N
     path = [f"mont_mul_n{nq}", f"mont_mul_n{g16.fr.N}"] + [
-        f"{k}_{f}_n{nq}" for k in ("dbl", "add", "madd", "aadd",
+        f"{k}_{f}_n{nq}" for k in ("dbl", "add", "madd_win", "aadd",
                                    "bucket_reduce", "horner_combine")
         for f in ("fp", "fp2")]
     missing = [k for k in path if not total.get(k)]
     if missing:
         raise AssertionError(f"kernels not launched on the {curve.name} "
                              f"main path: {missing}")
-    return total
+    return total, loop_counts
+
+
+def fixed_base_parts(profiler) -> str:
+    """The keygen.fixed_base.* blocks of the port's profiler, seconds."""
+    return ", ".join(f"{k.rsplit('.', 1)[1]} {v:.3f}" for k, v in
+                     profiler.totals.items()
+                     if k.startswith("keygen.fixed_base."))
+
+
+class KernelEvents:
+    """CUDA events around every call of a module's kernel wrapper while
+    the context is open: each call's device time, however many kernels
+    the profiler would keep a record of."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.events = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.orig(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def fixed_base_before_after(curve, g16, m: int) -> dict:
+    """The keygen's fixed-base phase once more: its five queries (four G1,
+    one G2) of m seeded scalars through PairingSystem.fixed_base_g1 / _g2
+    on tables built before, first with batch_exp as the per-window madd
+    loop it was before madd_windows, then as it is. Both give the same
+    affine points. Prints the parts of the phase (the port's profiler
+    blocks) and the madd family's device time (CUDA events around each
+    madd / madd_windows call) against the bound of its work, for each.
+    Returns the loop's launch counts (the single-launch madd's path)."""
+    from libsnark_tpu_torch.ops import (cuda_ec, launch_counts, msm,
+                                        reset_launch_counts, work_counts)
+    from libsnark_tpu_torch.profiling import PROFILER, start_profiling
+    G1, G2 = curve.G1.one(), curve.G2.one()
+    for ck, mk, group, _ in groups_of(curve, g16):
+        g16._window_table_affine(ck, mk, group.one(), 8)
+    scalars = seeded_coeffs(curve.r, m, 40)
+    queries = lambda: ([g16.fixed_base_g1(G1, scalars) for _ in range(4)]
+                       + [g16.fixed_base_g2(G2, scalars)])
+    mks = (g16.msm_g1, g16.msm_g2)
+    outs, loss, counts = {}, {}, {}
+    for form, (module, name) in (("loop", (cuda_ec, "madd")),
+                                 ("windows", (msm, "madd_windows"))):
+        if form == "loop":
+            for mk in mks:
+                mk.batch_exp = (lambda t, sc, c, rows=None, mk=mk:
+                                mk.batch_exp_loop(t, sc, c))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        start_profiling()
+        try:
+            with KernelEvents(module, name) as ev:
+                outs[form] = queries()
+                ms = ev.ms()
+        finally:
+            PROFILER.enabled = False
+            for mk in mks:
+                mk.__dict__.pop("batch_exp", None)
+        counts[form] = {k: v for k, v in launch_counts().items() if v}
+        work = work_counts()
+        fam = [k for k in counts[form] if k.startswith("madd_")]
+        bound = sum(work_bound_ms(k, work[k]) for k in fam)
+        loss[form] = ms - bound
+        log(f"  fixed base {curve.name}, {form}: five queries of {m} scalars "
+            f"by part (s): {fixed_base_parts(PROFILER)}; madd family "
+            f"({', '.join(f'{k} x{counts[form][k]}' for k in fam)}) "
+            f"{ms:.2f} ms of device time, bound {bound:.2f}, loss "
+            f"{ms - bound:.2f} ms")
+    for a, b in zip(outs["loop"], outs["windows"]):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError("fixed base: madd_windows and the per-window "
+                                 "madd loop give different points")
+    log(f"  fixed base {curve.name}: equal points; the madd family's device "
+        f"time - bound {loss['loop']:.2f} -> {loss['windows']:.2f} ms "
+        f"({loss['windows'] / loss['loop']:.3f} of before)")
+    return counts["loop"]
+
+
+def kzg_batch_exp_before_after(kzg, n: int):
+    """KZG10.setup's batch exp at n lanes on its own table (c = 8), random
+    scalars below r: the per-window madd loop and madd_windows, each timed
+    between CUDA events; equal Jacobian limbs."""
+    c = 8
+    taff, rows = kzg._window_table_affine(kzg.g1, kzg.msm, kzg.curve.G1.one(),
+                                          c)
+    gen = torch.Generator(device="cuda").manual_seed(91)
+    sc = rand_field(kzg.fr, (n,), gen)
+    out = {}
+    for form, fn in (("loop", lambda: kzg.msm.batch_exp_loop(taff, sc, c)),
+                     ("windows", lambda: kzg.msm.batch_exp(taff, sc, c,
+                                                           rows))):
+        out[form] = fn()
+        log(f"  kzg.setup.batch_exp at {n} lanes, {form}: "
+            f"{cuda_ms(fn, 2):.2f} ms of device time a call")
+    if max_abs_err(out["loop"], out["windows"]):
+        raise AssertionError("KZG setup: madd_windows and the per-window "
+                             "madd loop differ")
 
 
 def seeded_coeffs(r: int, n: int, seed: int) -> list:
@@ -890,9 +1156,10 @@ def kzg_path(curve, log2: int, small_log2=None, paths=None) -> dict:
     """KZG10 through its entry points at degree 2^log2 - 1. Counts are set
     to 0 just before setup and read just after the first polynomial's
     opening: the path's launches per kernel. small_log2: also run the
-    batched and BDFG21 openings at that degree. paths: also commit and
-    open that polynomial once more under the device profiler
-    (paths["kzg_<curve>"])."""
+    batched and BDFG21 openings at that degree. paths: run the setup under
+    the device profiler (paths["kzg_setup_<curve>"]), commit and open that
+    polynomial once more under it (paths["kzg_<curve>"]), and time the
+    setup's batch exp as the per-window madd loop and as madd_windows."""
     from libsnark_tpu_torch.ops import launch_counts, reset_launch_counts
     from libsnark_tpu_torch.polynomial_commitments.kzg10 import KZG10
     from libsnark_tpu_torch.profiling import PROFILER, start_profiling
@@ -910,7 +1177,11 @@ def kzg_path(curve, log2: int, small_log2=None, paths=None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    srs = kzg.setup(n - 1, seed=3)
+    if paths is None:
+        srs = kzg.setup(n - 1, seed=3)
+    else:       # a fresh system each try, as the keygen's
+        srs = path_timing(f"kzg_setup_{curve.name}",
+                          lambda: KZG10(curve).setup(n - 1, seed=3), paths)
     torch.cuda.synchronize()
     log(f"  setup {time.perf_counter() - t0:.3f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the SRS "
@@ -924,7 +1195,7 @@ def kzg_path(curve, log2: int, small_log2=None, paths=None) -> dict:
     log("  launches " + json.dumps(counts))
     nq = kzg.fq.N
     path = [f"mont_mul_n{nq}", f"mont_mul_n{kzg.fr.N}"] + [
-        f"{k}_fp_n{nq}" for k in ("dbl", "add", "madd", "bucket_reduce",
+        f"{k}_fp_n{nq}" for k in ("dbl", "add", "madd_win", "bucket_reduce",
                                   "horner_combine")]
     missing = [k for k in path if not counts.get(k)]
     if missing:
@@ -935,6 +1206,7 @@ def kzg_path(curve, log2: int, small_log2=None, paths=None) -> dict:
         path_timing(f"kzg_{curve.name}", lambda: (
             kzg.commit(srs, coeffs),
             kzg.create_evaluation_witness(srs, coeffs, z)), paths)
+        kzg_batch_exp_before_after(kzg, n)
 
     t0 = time.perf_counter()
     changed = [(coeffs[0] + 1) % r] + coeffs[1:]
@@ -976,8 +1248,8 @@ def kzg_path(curve, log2: int, small_log2=None, paths=None) -> dict:
 _KERNEL_NAME = re.compile(r"(?:^|[\s:]|_Z\d+)([a-z_]+)_kernel(?:<(\d+)(?:, (\d+))?"
                           r"(?:, \d+)*>|ILi(\d+)E(?:Li(\d+)E)?)")
 _FAMILY = {"mont_mul": "mont_mul", "dbl": "dbl", "add": "add", "madd": "madd",
-           "aadd": "aadd", "bucket_reduce": "bucket_reduce",
-           "horner": "horner_combine"}
+           "madd_windows": "madd_win", "aadd": "aadd",
+           "bucket_reduce": "bucket_reduce", "horner": "horner_combine"}
 
 
 def kernel_key(name: str):
@@ -996,7 +1268,8 @@ def kernel_key(name: str):
 def unit_cost(key: str):
     """(bytes, wide multiply-adds) of one unit of a wrapper's work count:
     a lane (mont_mul: one product; dbl: one doubling), a bucket_reduce
-    madd row (a packed row and its index), a horner_combine product."""
+    madd row (a packed row and its index), a horner_combine product, a
+    madd_win madd (a lane's windows after its first)."""
     fam, f, n = re.match(r"(.+?)_(?:(fp2?)_)?n(\d+)$", key).groups()
     N = int(n)
     wm = 2 * (N // 2) ** 2 + N // 2
@@ -1008,6 +1281,12 @@ def unit_cost(key: str):
         return 4 * FW + 4, PRODUCTS["madd"] * per * wm
     if fam == "horner_combine":      # throughput; latency: latency_bound_ms
         return 0, per * wm
+    if fam == "madd_win":
+        # a lane reads its 16 scalar limbs and writes 3 elements over the
+        # 31 madds of W = 32 windows (c = 8 on a 253- or 254-bit r, the
+        # fixed-base paths' width); the products outweigh the bytes ~100x.
+        # Zero digits (1 / 2^c of them) count as work they skip.
+        return (4 * 16 + 12 * FW) / 31, PRODUCTS["madd"] * per * wm
     nfield = {"dbl": 6, "add": 9, "madd": 8, "aadd": 7}[fam]
     return (nfield * FW * 4 + (2 if fam in ("madd", "aadd") else 0),
             PRODUCTS[fam] * per * wm)
@@ -1028,20 +1307,51 @@ def latency_bound_ms(key: str, depth: int) -> float:
     return depth * PRODUCT_LATENCY_MS.get(n, 0.0)
 
 
+PROFILE_WARMUP_LAUNCHES = 32
+
+
+def unmatched_launches(prof):
+    """The runtime API's kernel launches (cudaLaunchKernel and kin) whose
+    correlation id no device event carries: kernels the profiler's records
+    lost. None if the profiler's raw events do not say."""
+    try:
+        launches, device = set(), set()
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA:
+                device.add(e.correlation_id())
+            elif "LaunchKernel" in e.name():
+                launches.add(e.correlation_id())
+        return len(launches - device)
+    except (AttributeError, RuntimeError, TypeError):
+        return None
+
+
 def device_profile(fn):
     """fn() under torch.profiler (CUDA activity), ended by a synchronize.
     Returns (result, {kernel name: [launches, device ms]}, device busy ms,
-    wall ms). Raises if the profiler saw no device work."""
+    wall ms, unmatched_launches). Raises if the profiler saw no device
+    work."""
     from torch.profiler import ProfilerActivity, profile
+    from libsnark_tpu_torch import probes
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the profiler has kept no record of the first kernels it was to see
+        # (the first madd_windows of a fixed-base run, the first one-lane
+        # products of a KZG setup): empty kernels first, left out below
+        for _ in range(PROFILE_WARMUP_LAUNCHES):
+            probes._empty_launch()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    per, spans = {}, []
+    per, spans, warm = {}, [], 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "empty_kernel" in e.name:
+            warm += 1
             continue
         us = e.time_range.end - e.time_range.start
         row = per.setdefault(e.name, [0, 0.0])
@@ -1058,17 +1368,21 @@ def device_profile(fn):
         elif b > end:
             busy += b - end
             end = b
-    return out, per, busy / 1e3, wall
+    lost = unmatched_launches(prof)
+    if lost is not None:        # not the warm-up's own lost records
+        lost -= PROFILE_WARMUP_LAUNCHES - warm
+    return out, per, busy / 1e3, wall, lost
 
 
 def profiled_rows(fn):
     """fn() under the device profiler, with the counts set to 0 just before:
     (result, {path kernel key: row}, busy ms, wall ms, the keys whose
-    profiled kernels differ in number from the wrappers' launches)."""
+    profiled kernels differ in number from the wrappers' launches, the
+    runtime's kernel launches the profiler kept no device record of)."""
     from libsnark_tpu_torch.ops import (depth_counts, launch_counts,
                                         reset_launch_counts, work_counts)
     reset_launch_counts()
-    out, per, busy, wall = device_profile(fn)
+    out, per, busy, wall, lost = device_profile(fn)
     launches, work, depth = launch_counts(), work_counts(), depth_counts()
     rows = {}
     for name, (n, ms) in per.items():
@@ -1088,28 +1402,44 @@ def profiled_rows(fn):
               if r["profiled"] != r["launches"]}
     differ.update({k: (0, n) for k, n in launches.items()
                    if n and k not in rows})
-    return out, rows, busy, wall, differ
+    return out, rows, busy, wall, differ, lost
 
 
 def path_timing(label: str, fn, paths: dict):
     """fn() as one measured path: the device time of each path kernel
     (profiler, summed by __global__ name), its launches (the wrappers'
     counts, checked against the profiler's), its work and the bound of that
-    work; device busy time and wall time. Stored in paths[label]. The
-    profiler has recorded one kernel fewer than the wrapper launched (one
-    of a BLS12-377 prove's 74 mont_mul_n16 launches, on an H100, in a run
-    whose every other count agreed); a path whose counts differ is
-    profiled once more, and it fails if they differ again."""
-    out, rows, busy, wall, differ = profiled_rows(fn)
+    work; device busy time and wall time. Stored in paths[label].
+
+    The profiler loses a kernel's record now and then: in a prove of some
+    15,000 launches on an H100 it has kept no device record of one or two
+    launches that the CUDA runtime made (mont_mul_n16 among them). A path
+    whose counts differ is profiled once more. If they differ again, each
+    difference must be kernels the wrappers launched and the profiler did
+    not record, no more in all than the runtime's launches that have no
+    device record; else it fails. A wrapper that counts a launch it did
+    not make (the runtime sees no launch) or launches without counting
+    still fails."""
+    out, rows, busy, wall, differ, lost = profiled_rows(fn)
     if differ:
-        log(f"  path {label}: profiled / launched differ {differ}; "
-            "profiling the path once more")
-        out, rows, busy, wall, differ = profiled_rows(fn)
+        log(f"  path {label}: profiled / launched differ {differ}; runtime "
+            f"kernel launches without a device record: {lost}; profiling "
+            "the path once more")
+        out, rows, busy, wall, differ, lost = profiled_rows(fn)
     if differ:
-        raise AssertionError(f"{label}: profiled kernels / wrapper launches "
-                             f"differ twice: {differ}")
+        unrecorded = sum(n - p for p, n in differ.values())
+        if lost is None or unrecorded > lost or any(
+                p > n for p, n in differ.values()):
+            raise AssertionError(
+                f"{label}: profiled kernels / wrapper launches differ twice: "
+                f"{differ}; runtime kernel launches without a device record: "
+                f"{lost}")
+        log(f"  path {label}: profiled / launched differ again {differ}, "
+            f"within the {lost} runtime kernel launches the profiler kept no "
+            "device record of; their device time is missing from the rows")
     kern = sum(r["ms"] for r in rows.values())
-    paths[label] = {"kernels": rows, "busy_ms": busy, "wall_ms": wall}
+    paths[label] = {"kernels": rows, "busy_ms": busy, "wall_ms": wall,
+                    "unrecorded_launches": lost}
     log(f"  path {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
         f"(idle share {1 - busy / wall:.3f}), hand-written kernels "
         f"{kern:.1f} ms:")
@@ -1126,7 +1456,7 @@ def msm_breakdown(label: str, fn):
     """Device time of one MSM by part: the sort, bucket_reduce, add,
     horner_combine and the rest (digits, bounds, gathers, to_affine's
     products, copies)."""
-    out, per, busy, wall = device_profile(fn)
+    out, per, busy, wall, _ = device_profile(fn)
     parts = dict.fromkeys(("sort", "bucket_reduce", "add", "horner_combine",
                            "rest"), 0.0)
     for name, (_, ms) in per.items():
@@ -1154,10 +1484,11 @@ def warp_efficiency(counts) -> float:
 
 
 def redesign_ranking(K, paths: dict):
-    """Rows 1-7 by device time - bound over the measured paths (one default
-    prove per curve, the KZG commit and opening at full degree), each
-    kernel's time and bound those of its launches there (horner_combine:
-    the larger of its throughput and latency bounds)."""
+    """Rows 1-7 by device time - bound over the measured paths (keygen,
+    default and dense prove per curve, the KZG setup and the commit and
+    opening at full degree), each kernel's time and bound those of its
+    launches there (horner_combine: the larger of its throughput and
+    latency bounds)."""
     family = {}
     for label, p in paths.items():
         for key, r in p["kernels"].items():
@@ -1227,6 +1558,8 @@ def main(argv=None) -> int:
         log(f"--- kernels against their plain versions: {name}")
         check_mont_mul(g16.fr, g16.fq, K, gen)
         check_ec(g16.curve, g16, K, gen, rng)
+        check_madd_windows(g16.curve, g16, K, gen, rng)
+        check_encode(g16.fr, f"{name} Fr")
         check_bucket_and_horner(g16.curve, g16, K, gen, rng)
         check_dense_window_sums(g16.curve, g16, gen, rng)
         log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
@@ -1234,11 +1567,16 @@ def main(argv=None) -> int:
     del systems
     paths = {}
     for name, log2 in curves.items():
-        counts = main_path(get_curve(name), log2, paths)
+        counts, loop_counts = main_path(get_curve(name), log2, paths)
         for key, n in counts.items():
             # Fr is 16 limbs on both curves: mont_mul_n16 keeps the count of
             # the alt_bn128 path, where Fq and Fr both run through it
             K.count(key, name, n)
+        # the single-launch madd runs where batch_exp ran it before
+        # madd_windows: the keygen's fixed base as the per-window loop
+        for key, n in loop_counts.items():
+            if key.startswith("madd_fp"):
+                K.count(key, f"fixed_base_loop_{name}", n)
         log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
     for name, log2, small in (("bls12_377", args.kzg_log2, None),
                               ("alt_bn128", min(args.kzg_log2, 20), 12)):

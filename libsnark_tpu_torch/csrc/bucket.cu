@@ -50,19 +50,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-// the E NW words of x and of y from a row's 2 E NW words
-template <int NW, int E>
-__device__ __forceinline__ void row_point(const uint32_t* w, Fe<NW, E>& X,
-                                          Fe<NW, E>& Y) {
-#pragma unroll
-  for (int c = 0; c < E; ++c)
-#pragma unroll
-    for (int k = 0; k < NW; ++k) {
-      X.c[c].w[k] = w[c * NW + k];
-      Y.c[c].w[k] = w[(E + c) * NW + k];
-    }
-}
-
 template <int NW, int E>
 __global__ void __launch_bounds__(128, Blocks<NW, E>::bucket)
 bucket_reduce_kernel(const uint4* __restrict__ rows, int64_t m,

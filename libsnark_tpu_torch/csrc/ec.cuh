@@ -11,20 +11,46 @@
 #pragma once
 #include "field.cuh"
 
-// __launch_bounds__ minimum blocks of 128 threads per SM of add_kernel and
-// bucket_reduce_kernel for G1: it sets ptxas's register budget at
-// 65536 / (128 blocks) per thread (4: 128 registers, 3: 168, 2: 255). G2
-// takes 1: its products are called functions and it sits at the 255 cap
-// whatever the budget. The values are the fastest budgets at which ptxas
-// spills nothing in scripts/sweep_launch_bounds.py's runs on an H100
-// (ptxas then takes add 162 / 220 registers at 16 / 24 limbs and
-// bucket_reduce 107 / 149; one block more spilled: add 88 / 108 B,
-// bucket_reduce 84 B at 24 limbs); its builds set them with -D.
+// __launch_bounds__ minimum blocks of 128 threads per SM of add_kernel,
+// madd_kernel, madd_windows_kernel and bucket_reduce_kernel: it sets
+// ptxas's register budget at 65536 / (128 blocks) per thread (4: 128
+// registers, 3: 168, 2 and 1: 255). G2 add and bucket_reduce take 1 (their
+// products are called functions and they sit at the 255 cap whatever the
+// budget). The values are the fastest budgets at which ptxas spills
+// nothing in scripts/sweep_launch_bounds.py's runs on an H100 (ptxas then
+// takes add 162 / 220 registers at 16 / 24 limbs, bucket_reduce 107 / 149;
+// one block more spilled add 88 / 108 B and bucket_reduce 84 B at 24
+// limbs). madd and madd_windows take no budget below 255 registers (madd
+// 106 / 147, G2 192 / 255; madd_windows 102 / 145, G2 168 at 16 limbs),
+// except madd_windows for G2 at 24 limbs: at 3 blocks it spills 1.4 KB
+// and still ran faster than at 255 registers without spills. The sweep's
+// builds set them with -D.
 #ifndef LSN_ADD_BLOCKS_N16
 #define LSN_ADD_BLOCKS_N16 3
 #endif
 #ifndef LSN_ADD_BLOCKS_N24
 #define LSN_ADD_BLOCKS_N24 2
+#endif
+#ifndef LSN_MADD_BLOCKS_N16
+#define LSN_MADD_BLOCKS_N16 1
+#endif
+#ifndef LSN_MADD_BLOCKS_N24
+#define LSN_MADD_BLOCKS_N24 1
+#endif
+#ifndef LSN_MADD_BLOCKS_G2
+#define LSN_MADD_BLOCKS_G2 1
+#endif
+#ifndef LSN_MADD_WIN_BLOCKS_N16
+#define LSN_MADD_WIN_BLOCKS_N16 1
+#endif
+#ifndef LSN_MADD_WIN_BLOCKS_N24
+#define LSN_MADD_WIN_BLOCKS_N24 1
+#endif
+#ifndef LSN_MADD_WIN_BLOCKS_G2_N16
+#define LSN_MADD_WIN_BLOCKS_G2_N16 1
+#endif
+#ifndef LSN_MADD_WIN_BLOCKS_G2_N24
+#define LSN_MADD_WIN_BLOCKS_G2_N24 3
 #endif
 #ifndef LSN_BUCKET_BLOCKS_N16
 #define LSN_BUCKET_BLOCKS_N16 4
@@ -37,6 +63,12 @@ template <int NW, int E>
 struct Blocks {
   static constexpr int add =
       E == 2 ? 1 : NW == 8 ? LSN_ADD_BLOCKS_N16 : LSN_ADD_BLOCKS_N24;
+  static constexpr int madd = E == 2    ? LSN_MADD_BLOCKS_G2
+                              : NW == 8 ? LSN_MADD_BLOCKS_N16
+                                        : LSN_MADD_BLOCKS_N24;
+  static constexpr int madd_win =
+      E == 2 ? (NW == 8 ? LSN_MADD_WIN_BLOCKS_G2_N16 : LSN_MADD_WIN_BLOCKS_G2_N24)
+             : (NW == 8 ? LSN_MADD_WIN_BLOCKS_N16 : LSN_MADD_WIN_BLOCKS_N24);
   static constexpr int bucket =
       E == 2 ? 1 : NW == 8 ? LSN_BUCKET_BLOCKS_N16 : LSN_BUCKET_BLOCKS_N24;
 };
@@ -212,4 +244,18 @@ __device__ __forceinline__ void jac_store(int32_t* x, int32_t* y, int32_t* z,
   fe_store<NW, E>(x, L, i, P.X);
   fe_store<NW, E>(y, L, i, P.Y);
   fe_store<NW, E>(z, L, i, P.Z);
+}
+
+// the E NW words of x and of y from a row's 2 E NW words (a row of the
+// packed row table of ops/msm.py row_table: x then y, the register layout)
+template <int NW, int E>
+__device__ __forceinline__ void row_point(const uint32_t* w, Fe<NW, E>& X,
+                                          Fe<NW, E>& Y) {
+#pragma unroll
+  for (int c = 0; c < E; ++c)
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      X.c[c].w[k] = w[c * NW + k];
+      Y.c[c].w[k] = w[(E + c) * NW + k];
+    }
 }

@@ -95,26 +95,53 @@ transpose_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
 // memory each is a copy; the thread decomposes its element number by the
 // SOURCE shape, loads from the source's strides and stores at the offset
 // the DESTINATION shape gives, so equality checks the index arithmetic.
+// At the TPU scripts' shapes (2,048-4,096 words) a launch is one short
+// wave, so its time is the launch, one load's latency and the index
+// arithmetic on the thread's path. All of that arithmetic is 32-bit (the
+// wrapper refuses A Bm C >= 2^31) and it divides by C and Bm without a
+// division instruction: n / d == (n m_d) >> s_d for n < 2^31, with the
+// multiplier m_d < 2^32 and the shift s_d the host computes for each
+// divisor (probes.div_magic; one wide multiply and a shift in place of
+// the long sequence of a 64-bit division). A piece is a uint4 of four
+// words where C is a multiple of four and both arrays are 16-byte aligned
+// (the shape then holds in pieces: C / 4 of them a row), else a word.
+// Each thread moves one piece a pass, over blocks of up to
+// RESHAPE_THREADS: on an H100, spreading the pieces over that many threads
+// ran faster than fewer threads taking several pieces each (one block of
+// four warps, four pieces a thread, was the slowest form tried), and the
+// index arithmetic cost no measurable time beside a flat copy.
+#define RESHAPE_THREADS 256
 enum ReshapeMode { MERGE_MINOR = 0, MERGE_MAJOR, SQUEEZE };
 
-template <int MODE>
-__global__ void __launch_bounds__(256)
-reshape_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-               int A, int Bm, int C) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (int64_t)A * Bm * C) return;
-  int k = (int)(t % C);
-  int j = (int)((t / C) % Bm);
-  int i = (int)(t / ((int64_t)C * Bm));
-  uint32_t v = x[((int64_t)i * Bm + j) * C + k];
-  int64_t o;
-  if (MODE == MERGE_MINOR)        // (A, Bm, C) -> (A, Bm * C)
-    o = (int64_t)i * ((int64_t)Bm * C) + ((int64_t)j * C + k);
-  else if (MODE == MERGE_MAJOR)   // (A, Bm, C) -> (A * Bm, C)
-    o = ((int64_t)i * Bm + j) * C + k;
-  else                            // (A, 1, C) -> (A, C); j == 0
-    o = (int64_t)i * C + k;
-  out[o] = v;
+struct DivMagic {
+  uint32_t m, s;                          // n / d == (n m) >> s, n < 2^31
+};
+
+__device__ __forceinline__ uint32_t div_magic(uint32_t n, DivMagic q) {
+  return (uint32_t)(((uint64_t)n * q.m) >> q.s);
+}
+
+template <int MODE, typename T>
+__global__ void __launch_bounds__(RESHAPE_THREADS)
+reshape_kernel(const T* __restrict__ x, T* __restrict__ out, uint32_t Bm,
+               uint32_t C, uint32_t total, DivMagic byC, DivMagic byB) {
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t t = blockIdx.x * blockDim.x + threadIdx.x; t < total;
+       t += stride) {
+    uint32_t row = div_magic(t, byC);           // i Bm + j
+    uint32_t k = t - row * C;
+    uint32_t i = div_magic(row, byB);
+    uint32_t j = row - i * Bm;
+    T v = __ldg(x + ((i * Bm + j) * C + k));
+    uint32_t o;
+    if (MODE == MERGE_MINOR)        // (A, Bm, C) -> (A, Bm * C)
+      o = i * (Bm * C) + (j * C + k);
+    else if (MODE == MERGE_MAJOR)   // (A, Bm, C) -> (A * Bm, C)
+      o = (i * Bm + j) * C + k;
+    else                            // (A, 1, C) -> (A, C); j == 0
+      o = i * C + k;
+    out[o] = v;
+  }
 }
 
 // ---- row 15: out[i, j] = x[i, (j - s) mod n], s a run-time argument of
@@ -282,31 +309,45 @@ extern "C" int lsn_layout_transpose(const void* x, void* out, int B, int R,
   return (int)cudaGetLastError();
 }
 
-// one entry and one launch for each of rows 12-14 over the shared body
+// one entry and one launch for each of rows 12-14 over the shared body.
+// vec: 16-byte pieces (C % 4 == 0, both arrays 16-byte aligned); (mC, sC)
+// and (mB, sB) divide by the row length in pieces (C / 4 or C) and by Bm.
 template <int MODE>
 static int launch_reshape(const void* x, void* out, int A, int Bm, int C,
-                          void* stream) {
-  if (A <= 0 || Bm <= 0 || C <= 0 || (MODE == SQUEEZE && Bm != 1))
+                          int vec, unsigned mC, unsigned sC, unsigned mB,
+                          unsigned sB, void* stream) {
+  if (A <= 0 || Bm <= 0 || C <= 0 || (MODE == SQUEEZE && Bm != 1) ||
+      (long long)A * Bm * C >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  reshape_kernel<MODE><<<blocks_for((long long)A * Bm * C, 256), 256, 0,
-                         (cudaStream_t)stream>>>(U32(x), O32(out), A, Bm, C);
+  if (vec && (C % 4 != 0 || ((uintptr_t)x | (uintptr_t)out) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  uint32_t Cq = vec ? C / 4 : C;
+  uint32_t total = (uint32_t)A * Bm * Cq;
+  int threads = total < RESHAPE_THREADS ? (int)((total + 31) / 32 * 32)
+                                        : RESHAPE_THREADS;
+  unsigned grid = blocks_for(total, threads);
+  if (grid > 132 * 16) grid = 132 * 16;        // 16 blocks an SM, then a stride
+  DivMagic byC = {mC, sC}, byB = {mB, sB};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec)
+    reshape_kernel<MODE, uint4><<<grid, threads, 0, st>>>(
+        (const uint4*)x, (uint4*)out, (uint32_t)Bm, Cq, total, byC, byB);
+  else
+    reshape_kernel<MODE, uint32_t><<<grid, threads, 0, st>>>(
+        U32(x), O32(out), (uint32_t)Bm, Cq, total, byC, byB);
   return (int)cudaGetLastError();
 }
 
-extern "C" int lsn_layout_reshape_merge_minor(const void* x, void* out, int A,
-                                              int Bm, int C, void* stream) {
-  return launch_reshape<MERGE_MINOR>(x, out, A, Bm, C, stream);
-}
-
-extern "C" int lsn_layout_reshape_merge_major(const void* x, void* out, int A,
-                                              int Bm, int C, void* stream) {
-  return launch_reshape<MERGE_MAJOR>(x, out, A, Bm, C, stream);
-}
-
-extern "C" int lsn_layout_squeeze(const void* x, void* out, int A, int Bm,
-                                  int C, void* stream) {
-  return launch_reshape<SQUEEZE>(x, out, A, Bm, C, stream);
-}
+#define RESHAPE_ENTRY(NAME, MODE)                                            \
+  extern "C" int NAME(const void* x, void* out, int A, int Bm, int C,        \
+                      int vec, unsigned mC, unsigned sC, unsigned mB,        \
+                      unsigned sB, void* stream) {                           \
+    return launch_reshape<MODE>(x, out, A, Bm, C, vec, mC, sC, mB, sB,       \
+                                stream);                                     \
+  }
+RESHAPE_ENTRY(lsn_layout_reshape_merge_minor, MERGE_MINOR)
+RESHAPE_ENTRY(lsn_layout_reshape_merge_major, MERGE_MAJOR)
+RESHAPE_ENTRY(lsn_layout_squeeze, SQUEEZE)
 
 extern "C" int lsn_layout_roll_minor(const void* x, void* out, long long rows,
                                      int n, int s, void* stream) {

@@ -4,6 +4,10 @@ Replace the Pallas TPU kernels ``libsnark_tpu/ops/pallas_ec.py:_build_dbl``
 (``dbl``), ``_build_add`` (``add``), ``_build_madd`` (``madd``) and
 ``_build_aadd`` (``aadd``), for G1 (coordinates over Fp, ext = 1) and G2
 (over Fp2, ext = 2), a = 0 curves, at every built field width.
+``madd_windows`` runs the JAX package's fixed-base scan (``batch_exp``, one
+Pallas madd a window under a ``lax.scan``) in one launch: each thread keeps
+its lane's accumulator in registers across every window, takes its digits
+from the scalar limbs itself and reads one packed table row a window.
 
 The kernels (csrc/ec.cu over csrc/ec.cuh) run one thread per lane. What
 bounds them on the card: the field products (aadd 6, dbl 7, madd 11, add
@@ -25,6 +29,7 @@ import ctypes
 import torch
 
 from . import cuda_lib
+from .limbs import LIMB_BITS, words_to_limbs
 
 def counter_keys(kernels):
     """Launch-counter keys: one per kernel, coordinate field (fp: G1, fp2:
@@ -33,8 +38,10 @@ def counter_keys(kernels):
             for nw in cuda_lib.WIDTHS]
 
 
-LAUNCHES = dict.fromkeys(counter_keys(("dbl", "add", "madd", "aadd")), 0)
-# the work of those launches: lanes (dbl: lanes x doublings)
+LAUNCHES = dict.fromkeys(counter_keys(("dbl", "add", "madd", "aadd",
+                                       "madd_win")), 0)
+# the work of those launches: lanes (dbl: lanes x doublings; madd_win: the
+# madds after each lane's first window, lanes x (windows - 1))
 WORK = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -176,6 +183,58 @@ def aadd_plain(fk, P_aff, Q_aff):
     return aadd_formula(fk.as_plain(), P_aff, Q_aff)
 
 
+def window_digit(sc, c: int, w: int):
+    """The unsigned c-bit digit of window w of (NL, m) int64 plain 16-bit
+    scalar limbs, the JAX package's batch_exp extraction (a digit may span
+    two limbs; bits past the last limb are zero). None when the window
+    starts past the last limb: its digit is 0 in every lane."""
+    li, sh = divmod(c * w, LIMB_BITS)
+    if li >= sc.shape[0]:
+        return None
+    raw = sc[li] >> sh
+    if sh + c > LIMB_BITS and li + 1 < sc.shape[0]:
+        raw = raw | (sc[li + 1] << (LIMB_BITS - sh))
+    return raw & ((1 << c) - 1)
+
+
+def table_from_rows(fk, rows, c: int):
+    """(W 2^c, FW) packed rows -> the affine table (x, y, inf) with batch
+    (W, 2^c); a row with y == 0 is infinity."""
+    FW = ext_of(fk) * fk.N
+    W = rows.shape[0] >> c
+    lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
+    limbs = words_to_limbs(rows.T)
+    y = limbs[FW:]
+    return (limbs[:FW].reshape(lead + (W, 1 << c)),
+            y.reshape(lead + (W, 1 << c)),
+            (y == 0).all(dim=0).reshape(W, 1 << c))
+
+
+def windows_scan(fk, table_aff, scalars, c: int, madd_fn):
+    """acc <- madd_fn(acc, T[w, digit_w]) for w = 0 .. W - 1 from infinity
+    (1, 1, 0): the JAX package's batch_exp scan, one madd a window."""
+    tx, ty, tinf = table_aff
+    m = scalars.shape[-1]
+    dev = scalars.device
+    sc = scalars.to(torch.int64)
+    one = fk.one((m,), dev)
+    acc = (one, one.clone(), fk.zeros((m,), dev))
+    for w in range(tx.shape[-2]):
+        dig = window_digit(sc, c, w)
+        if dig is None:
+            break
+        acc = madd_fn(acc, (tx[..., w, :][..., dig], ty[..., w, :][..., dig],
+                            tinf[w][dig]))
+    return acc
+
+
+def madd_windows_plain(fk, rows, scalars, c: int):
+    """The windowed madd over plain products: the scan of ``windows_scan``
+    with ``madd_plain`` on the table the packed rows hold."""
+    return windows_scan(fk, table_from_rows(fk, rows, c), scalars, c,
+                        lambda P, Q: madd_plain(fk, P, Q))
+
+
 # ------------------------------------------------------------- launchers
 
 def _flatten(fk, arrs):
@@ -257,3 +316,46 @@ def aadd(fk, P_aff, Q_aff):
            _mask(i2, batch, L)]
     outs = _call("lsn_ec_aadd", fk, ins, L, (), "aadd")
     return _unflatten(fk, outs, batch)
+
+
+def madd_windows(fk, rows, scalars, c: int):
+    """Fixed-base exponentiation in ONE launch on the card: lane i gets
+    sum_w T[w, digit_w(scalars[:, i])], w = 0 .. W - 1, as Jacobian
+    (X, Y, Z) with batch (m,): the limbs of the per-window madd loop.
+
+    rows: the (W 2^c, FW) int32 packed row table (``MSMKernel.row_table``
+    of the affine window table, row w 2^c + j = j 2^(c w) base, all zero
+    for infinity; row 0 of each window is infinity). scalars: (NL, m)
+    int32 plain 16-bit limbs. c: window bits, 1 to 16."""
+    if not 1 <= c <= 16:
+        raise ValueError(f"madd_windows takes 1 to 16 window bits, not {c}")
+    FW = ext_of(fk) * fk.N
+    if (rows.dim() != 2 or rows.shape[1] != FW or rows.shape[0] % (1 << c)
+            or rows.dtype != torch.int32 or scalars.dtype != torch.int32
+            or scalars.dim() != 2 or scalars.shape[0] == 0):
+        raise ValueError(f"madd_windows takes a (W 2^c, {FW}) int32 row "
+                         "table and (NL, m) int32 scalar limbs")
+    if not rows.is_cuda:
+        return madd_windows_plain(fk, rows, scalars, c)
+    if scalars.device != rows.device:
+        raise ValueError("madd_windows: rows and scalars on one device")
+    rows = rows.contiguous()
+    scalars = scalars.contiguous()
+    if rows.data_ptr() % 16:
+        raise ValueError("madd_windows: the row table must be 16-byte aligned")
+    nl, m = scalars.shape
+    W = rows.shape[0] >> c
+    lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
+    outs = [torch.empty(lead + (m,), dtype=torch.int32, device=rows.device)
+            for _ in range(3)]
+    if m == 0:
+        return tuple(outs)
+    code = cuda_lib.lib("ec").lsn_ec_madd_windows(
+        fk.nw, ext_of(fk), rows.data_ptr(), scalars.data_ptr(), nl, c, W,
+        *[o.data_ptr() for o in outs], m, ctypes.addressof(fk.mod),
+        cuda_lib.stream_ptr(rows))
+    cuda_lib.check(code, "madd_win")
+    key = counter_key("madd_win", fk)
+    LAUNCHES[key] += 1
+    WORK[key] += m * max(0, W - 1)
+    return tuple(outs)

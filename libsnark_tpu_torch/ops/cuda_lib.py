@@ -43,6 +43,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _ARGTYPES = {
     "fp": {"lsn_mont_mul": [_I, _VP, _VP, _VP, _LL, _VP, _VP]},
     "ec": {
@@ -51,6 +52,8 @@ _ARGTYPES = {
         "lsn_ec_add": [_I, _I] + [_VP] * 9 + [_LL, _VP, _VP],
         "lsn_ec_madd": [_I, _I] + [_VP] * 10 + [_LL, _VP, _VP],
         "lsn_ec_aadd": [_I, _I] + [_VP] * 9 + [_LL, _VP, _VP],
+        "lsn_ec_madd_windows": [_I, _I, _VP, _VP, _I, _I, _I, _VP, _VP, _VP,
+                                _LL, _VP, _VP],
     },
     "bucket": {
         "lsn_bucket_reduce": [_I, _I, _VP, _LL, _VP, _VP, _VP, _VP, _LL, _VP,
@@ -65,9 +68,12 @@ _ARGTYPES = {
     "probe_layout": {
         "lsn_layout_row_copy": [_VP, _VP, _VP, _I, _I, _LL, _LL, _I, _VP],
         "lsn_layout_transpose": [_VP, _VP, _I, _I, _I, _VP],
-        "lsn_layout_reshape_merge_minor": [_VP, _VP, _I, _I, _I, _VP],
-        "lsn_layout_reshape_merge_major": [_VP, _VP, _I, _I, _I, _VP],
-        "lsn_layout_squeeze": [_VP, _VP, _I, _I, _I, _VP],
+        "lsn_layout_reshape_merge_minor": [_VP, _VP, _I, _I, _I, _I] + [_U] * 4
+            + [_VP],
+        "lsn_layout_reshape_merge_major": [_VP, _VP, _I, _I, _I, _I] + [_U] * 4
+            + [_VP],
+        "lsn_layout_squeeze": [_VP, _VP, _I, _I, _I, _I] + [_U] * 4
+            + [_VP],
         "lsn_layout_roll_minor": [_VP, _VP, _LL, _I, _I, _VP],
         "lsn_layout_roll_middle": [_VP, _VP, _I, _I, _I, _VP],
         "lsn_layout_cond": [_VP, _VP, _I, _VP],

@@ -182,14 +182,12 @@ class FpKernel:
     # -- host conversions -------------------------------------------------------------
     def encode(self, xs, mont=True, device=None):
         """Python ints -> (N, len(xs)) int32 limbs on the kernel's device
-        (Montgomery form unless mont=False)."""
-        if mont:
-            R, p = self.params.R, self.p
-            xs = [int(x) * R % p for x in xs]
-        else:
-            xs = [int(x) % self.p for x in xs]
-        arr = ints_to_limbs(xs, self.N).astype("int32")
-        return torch.from_numpy(arr).to(device or self.device)
+        (Montgomery form unless mont=False). The host only reduces mod p
+        and packs limbs; the Montgomery form is one ``to_mont`` product
+        (a mont_mul launch on the card, the plain product on the CPU)."""
+        arr = ints_to_limbs([int(x) % self.p for x in xs], self.N)
+        out = torch.from_numpy(arr.astype("int32")).to(device or self.device)
+        return self.to_mont(out) if mont and out.shape[1] else out
 
     def decode(self, arr, mont=True):
         """(N, *batch) limb tensor -> list (flat, batch order) of ints."""

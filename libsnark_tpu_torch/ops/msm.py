@@ -30,7 +30,8 @@ with an a-coefficient. Both give the same affine sums; the Jacobian
 window sums differ.
 
 Fixed-base batch exp (libff batch_exp / get_window_table): device-built
-window tables via a point prefix scan, then one gather + madd per window.
+window tables via a point prefix scan, then one ``madd_windows`` launch
+that runs every window of every lane (ops/cuda_ec.py).
 
 Scalars are plain (non-Montgomery) (NL, m) int32 16-bit limb tensors.
 """
@@ -41,7 +42,7 @@ import math
 import torch
 
 from .cuda_bucket import bucket_reduce, horner_combine
-from .cuda_ec import ext_of
+from .cuda_ec import ext_of, madd_windows, windows_scan
 from .limbs import LIMB_BITS, ints_to_limbs, limbs_to_words, words_to_limbs
 
 
@@ -454,33 +455,34 @@ class MSMKernel:
             T = ck.add(T, tuple(sh(a) for a in T))
         return T
 
-    def batch_exp(self, table_aff, scalars, c: int):
+    def fixed_base_rows(self, table_aff):
+        """The packed row table of an affine window table (batch (W, 2^c)):
+        (W 2^c, FW) rows, row w 2^c + j = T[w, j], what ``madd_windows``
+        reads."""
+        x, y, inf = table_aff
+        return self.row_table(tuple(a.reshape(a.shape[:-2] + (-1,))
+                                    for a in (x, y, inf)))
+
+    def batch_exp(self, table_aff, scalars, c: int, rows=None):
         """Fixed-base exponentiation: out[i] = scalars[i] * base.
 
         table_aff: affine table (x, y, inf) with batch (num_windows, 2^c)
-        from ``window_table`` + ``to_affine``. scalars: (NL, m) plain
-        limbs. Returns a Jacobian batch (m,).
-        """
-        ck = self.ck
-        m = scalars.shape[-1]
-        tx, ty, tinf = table_aff
-        W = tx.shape[-2]
-        sc = scalars.to(torch.int64)
-        acc = ck.zero((m,), scalars.device)
-        for w in range(W):
-            o = c * w
-            li, sh = o // LIMB_BITS, o % LIMB_BITS
-            if li >= sc.shape[0]:
-                break
-            raw = sc[li] >> sh
-            if sh + c > LIMB_BITS and li + 1 < sc.shape[0]:
-                raw = raw | (sc[li + 1] << (LIMB_BITS - sh))
-            dig = raw & ((1 << c) - 1)
-            qx = tx[..., w, :][..., dig]
-            qy = ty[..., w, :][..., dig]
-            qi = tinf[w][dig]
-            acc = ck.madd(acc, (qx, qy, qi))
-        return acc
+        from ``window_table`` + ``to_affine``; rows: its
+        ``fixed_base_rows`` where the caller keeps them. scalars: (NL, m)
+        plain limbs. Returns a Jacobian batch (m,): ONE ``madd_windows``
+        launch on the card (its plain version on CPU tensors), the limbs of
+        the JAX package's scan. A curve with an a-coefficient takes
+        ``batch_exp_loop``."""
+        if self.ck.mul_by_a is not None:
+            return self.batch_exp_loop(table_aff, scalars, c)
+        if rows is None:
+            rows = self.fixed_base_rows(table_aff)
+        return madd_windows(self.fk, rows, scalars, c)
+
+    def batch_exp_loop(self, table_aff, scalars, c: int):
+        """The same scan as one gather and one ``madd`` launch a window:
+        the form the windowed kernel replaced, kept as its yardstick."""
+        return windows_scan(self.fk, table_aff, scalars, c, self.ck.madd)
 
 
 def msm_host_scalars(msm_kernel, points_aff, scalar_ints, r, c=None):

@@ -75,7 +75,7 @@ class KZG10(PairingSystem):
 
     def setup_from_secret(self, degree: int, alpha: int):
         """[alpha^i]_1 for i <= degree by fixed-base batch exp (window
-        table, one madd launch per window, one batched to_affine), padded
+        table, one madd_windows launch, one batched to_affine), padded
         with infinity to the power-of-two bucket as in the JAX package.
         The window width is 8, the JAX package's, from 2^12 points up and 4
         below, where the table would outweigh the batch (the rule of
@@ -89,10 +89,11 @@ class KZG10(PairingSystem):
                                                 n))
             sc = self.pad_to(sc, self.bucket(n))
         with enter_block("kzg.setup.table", sync=self.device):
-            taff = self._window_table_affine(self.g1, self.msm,
-                                             self.curve.G1.one(), c)
+            taff, rows = self._window_table_affine(self.g1, self.msm,
+                                                   self.curve.G1.one(), c)
         with enter_block("kzg.setup.batch_exp", sync=self.device):
-            g1_powers = self.g1.to_affine(self.msm.batch_exp(taff, sc, c))
+            g1_powers = self.g1.to_affine(self.msm.batch_exp(taff, sc, c,
+                                                             rows))
         return KZG10SRS(alpha_powers_g1=g1_powers,
                         alpha_g2=self.curve.G2.one() * alpha,
                         degree=degree)

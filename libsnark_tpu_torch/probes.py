@@ -331,20 +331,38 @@ def reshape_plain(name: str, x):
     return x.reshape(_reshape_shape(name, x.shape)).clone()
 
 
+def div_magic(d: int):
+    """(m, s) with n // d == (n * m) >> s for every 0 <= n < 2^31, m < 2^32:
+    the reshape kernel's division by a run-time divisor d in [1, 2^31)
+    (Granlund and Montgomery's round-up multiplier: l = ceil(log2 d),
+    m = 2^(31 + l) // d + 1, so that 2^(31 + l) < m d <= 2^(31 + l) + 2^l)."""
+    if not 1 <= d < 1 << 31:
+        raise ValueError(f"div_magic: divisor {d} outside [1, 2^31)")
+    shift = 31 + (d - 1).bit_length()
+    m = (1 << shift) // d + 1
+    if m >= 1 << 32:
+        raise ValueError(f"div_magic: no 32-bit multiplier for {d}")
+    return m, shift
+
+
 def reshape3d(name: str, x):
     """One of ``RESHAPES`` on a contiguous (A, B, C) array: merge the two
     minor dimensions, merge the two major ones, or drop a unit middle
     one. The kernel reads by the source's indices and writes by the
-    destination's."""
+    destination's, in 32-bit index arithmetic (A B C < 2^31), moving
+    16-byte pieces where C % 4 == 0 and both arrays are 16-byte aligned."""
     x = _words(x, 3, name)
     shape = _reshape_shape(name, x.shape)
     if not x.is_cuda:
         return reshape_plain(name, x)
-    if x.numel() == 0:
-        raise ValueError(f"{name}: empty array")
+    A, B, C = x.shape
+    if x.numel() == 0 or x.numel() >= 1 << 31:
+        raise ValueError(f"{name}: the array must hold 1 to 2^31 - 1 words")
     out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    vec = C % 4 == 0 and (x.data_ptr() | out.data_ptr()) % 16 == 0
     _launch(name, f"lsn_layout_{name}", x, x.data_ptr(), out.data_ptr(),
-            *x.shape)
+            A, B, C, int(vec), *div_magic(C // 4 if vec else C),
+            *div_magic(B))
     return out
 
 

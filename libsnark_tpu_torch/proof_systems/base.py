@@ -20,6 +20,7 @@ from ..ops.fp import FpKernel
 from ..ops.fp2 import Fp2Kernel
 from ..ops.limbs import ints_to_limbs
 from ..ops.msm import MSMKernel
+from ..profiling import enter_block
 
 
 class PairingSystem:
@@ -129,28 +130,36 @@ class PairingSystem:
         return ck.encode_points(pts, jacobian=False)
 
     def _window_table_affine(self, ck, mk, base_host, c: int):
-        """Affine fixed-base table of base_host, built once per (group,
-        base, c) on the device (dbl + add kernels) and kept: every query
-        of a keygen shares the generator of its group."""
+        """Affine fixed-base table of base_host and its packed rows (what
+        ``batch_exp`` reads), built once per (group, base, c) on the device
+        (dbl + add kernels) and kept: every query of a keygen shares the
+        generator of its group."""
         key = (ck.name, str(base_host), c)
         if key not in self._fixed_tables:
             W = -(-self.curve.r.bit_length() // c)
             baff = ck.encode_points([base_host], jacobian=False)
-            self._fixed_tables[key] = ck.to_affine(
-                mk.window_table((baff[0], baff[1]), c, W))
+            taff = ck.to_affine(mk.window_table((baff[0], baff[1]), c, W))
+            self._fixed_tables[key] = (taff, mk.fixed_base_rows(taff))
         return self._fixed_tables[key]
 
     def _fixed_base(self, ck, mk, base_host, scalars):
-        """Device path: the affine window table, then batch exp (one madd
-        launch per window) and one batched to_affine. The window width
-        (8, as in the JAX package, from 2^12 scalars up; 4 below, where the
-        table would outweigh the batch) changes no output bit."""
+        """Device path: the affine window table, then batch exp (one
+        ``madd_windows`` launch for every window) and one batched
+        to_affine, each a ``keygen.fixed_base.*`` block of the port's
+        profiler. The window width (8, as in the JAX package, from 2^12
+        scalars up; 4 below, where the table would outweigh the batch)
+        changes no output bit."""
         scalars = list(scalars)
         scalars += [0] * (self.bucket(len(scalars)) - len(scalars))
         c = 8 if len(scalars) >= 1 << 12 else 4
-        taff = self._window_table_affine(ck, mk, base_host, c)
-        sc = self.scalars_to_dev(scalars)
-        return ck.to_affine(mk.batch_exp(taff, sc, c))
+        with enter_block("keygen.fixed_base.encode", sync=self.device):
+            sc = self.scalars_to_dev(scalars)
+        with enter_block("keygen.fixed_base.table", sync=self.device):
+            taff, rows = self._window_table_affine(ck, mk, base_host, c)
+        with enter_block("keygen.fixed_base.batch_exp", sync=self.device):
+            P = mk.batch_exp(taff, sc, c, rows)
+        with enter_block("keygen.fixed_base.to_affine", sync=self.device):
+            return ck.to_affine(P)
 
     def msm_affine(self, which: str, q, scalars, c: int):
         mk = self.msm_g1 if which == "g1" else self.msm_g2

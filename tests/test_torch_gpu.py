@@ -13,6 +13,7 @@ import torch
 
 from libsnark_tpu_torch import get_curve, probes
 from libsnark_tpu_torch.ops import cuda_bucket, cuda_ec, cuda_fp
+from libsnark_tpu_torch.ops.limbs import ints_to_limbs
 from libsnark_tpu_torch.ops.msm import MSMKernel
 from libsnark_tpu_torch.polynomial_commitments.kzg10 import KZG10
 from libsnark_tpu_torch.proof_systems.base import PairingSystem
@@ -310,6 +311,67 @@ def test_dense_window_sums_equal_default_on_card(system, group_name,
     live = ~want[2]
     for a, b in zip(got[:2], want[:2]):
         assert torch.equal(a[..., live], b[..., live])
+
+
+def _planted_scalar_ints(r, c, W, m, seed):
+    """0, 1, r - 1, every window 2^c - 1 (all 256 bits set), digit 0 in
+    every odd / every even window, only the top window nonzero; the rest
+    random below r."""
+    rng = random.Random(seed)
+    full = (1 << 256) - 1
+    digits = lambda keep: sum(rng.randrange(1, 1 << c) << (c * w)
+                              for w in range(W) if keep(w)) & full
+    top = ((rng.randrange(1 << c) | 1) << (c * (W - 1))) & full
+    xs = [0, 1, r - 1, full, digits(lambda w: w % 2 == 0),
+          digits(lambda w: w % 2 == 1), top or 1 << 255]
+    return xs + [rng.randrange(r) for _ in range(m - len(xs))]
+
+
+@pytest.mark.parametrize("group_name", ["G1", "G2"])
+def test_madd_windows_matches_plain_and_loop_on_card(system, group_name):
+    """The windowed fixed-base kernel at m = 2^12 on the fixed-base path's
+    own table (c = 4, 8; c = 6 puts digits across two limbs and a last
+    window past the last limb), planted scalars: bit-exact against its
+    plain version and against the per-window madd kernel loop, one launch
+    a call."""
+    ck, mk = _group(system, group_name)
+    group = getattr(system.curve, group_name)
+    key = cuda_ec.counter_key("madd_win", mk.fk)
+    for c in (4, 6, 8):
+        taff, rows = system._window_table_affine(ck, mk, group.one(), c)
+        W = rows.shape[0] >> c
+        xs = _planted_scalar_ints(system.curve.r, c, W, 1 << 12, seed=c)
+        sc = torch.from_numpy(ints_to_limbs(xs, 16).astype("int32")).cuda()
+        before = cuda_ec.LAUNCHES[key]
+        got = mk.batch_exp(taff, sc, c, rows)
+        assert cuda_ec.LAUNCHES[key] == before + 1
+        want = cuda_ec.madd_windows_plain(mk.fk, rows, sc, c)
+        loop = mk.batch_exp_loop(taff, sc, c)
+        for a, b, d in zip(got, want, loop):
+            assert torch.equal(a, b), c
+            assert torch.equal(a, d), c
+        inf = mk.fk.is_zero(got[2])
+        assert bool(inf[0]) and not bool(inf[1:].any())
+        assert ck.decode_points(tuple(a[..., 1:2] for a in got),
+                                group) == [group.one()]
+
+
+def test_reshape_forms_match_plain_on_card(system):
+    """Each reshape in its 16-byte form (C % 4 == 0, aligned), its word
+    form (C % 4 != 0, or an array 4 bytes off 16-byte alignment) and over
+    more pieces than one pass of the grid holds."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rnd = lambda *shape: torch.randint(-(1 << 31), 1 << 31, shape,
+                                       generator=gen, device="cuda",
+                                       dtype=torch.int64).to(torch.int32)
+    for name in probes.RESHAPES:
+        mid = 1 if name == "squeeze" else 7
+        big = rnd(300, mid, 8191)         # more pieces than one grid pass
+        shifted = rnd(1 + 33 * mid * 16).narrow(0, 1, 33 * mid * 16)
+        for x in (rnd(16, mid, 128), rnd(5, mid, 3), rnd(37, mid, 12),
+                  shifted.view(33, mid, 16), big, big[:, :, :8188]):
+            assert torch.equal(probes.reshape3d(name, x),
+                               probes.reshape_plain(name, x)), (name, x.shape)
 
 
 def test_probe_kernels_match_plain_on_card(system):

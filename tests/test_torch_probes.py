@@ -214,6 +214,50 @@ def test_reshape_argument_checks():
         probes.reshape3d("flatten", _t(_ar(4, 2, 8)))
 
 
+def test_div_magic_divides_every_31_bit_numerator():
+    """The reshape kernel's division, (n m) >> s with probes.div_magic's
+    (m, s), is n // d for divisors of every size and for numerators at the
+    edges of each quotient up to 2^31 - 1."""
+    rng = random.Random(5)
+    ds = set(range(1, 300)) | {1 << k for k in range(31)}
+    ds |= {(1 << k) + e for k in range(2, 31) for e in (-1, 1)}
+    ds |= {rng.randrange(1, 1 << 31) for _ in range(300)}
+    ds = sorted(d for d in ds if 1 <= d < 1 << 31)
+    top = (1 << 31) - 1
+    for d in ds:
+        m, sh = probes.div_magic(d)
+        assert m < 1 << 32 and 31 <= sh <= 62
+        q_top = top // d
+        ns = {0, 1, d - 1, d, d + 1, top, q_top * d, q_top * d - 1,
+              2 * d - 1} | {rng.randrange(1 << 31) for _ in range(40)}
+        for n in ns:
+            if 0 <= n <= top:
+                assert (n * m) >> sh == n // d, (n, d)
+    for bad in (0, -1, 1 << 31):
+        with pytest.raises(ValueError, match="divisor"):
+            probes.div_magic(bad)
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 2), (16, 2, 32), (16, 1, 32),
+                                   (5, 7, 3), (37, 1, 11), (3, 65537, 5)])
+def test_reshape_index_arithmetic_model(shape):
+    """The kernel's decomposition of a piece number t by magic division
+    (row = t / C, k, i = row / Bm, j) gives the source's (i, j, k) for
+    every t of the shape, in 32-bit values."""
+    A, B, C = shape
+    t = np.arange(A * B * C, dtype=np.uint64)
+    mC, sC = probes.div_magic(C)
+    mB, sB = probes.div_magic(B)
+    row = (t * np.uint64(mC)) >> np.uint64(sC)
+    k = t - row * np.uint64(C)
+    i = (row * np.uint64(mB)) >> np.uint64(sB)
+    j = row - i * np.uint64(B)
+    wi, wj, wk = np.unravel_index(t.astype(np.int64), shape)
+    np.testing.assert_array_equal(i, wi)
+    np.testing.assert_array_equal(j, wj)
+    np.testing.assert_array_equal(k, wk)
+
+
 @pytest.mark.parametrize("s", [40, 0, 1, 127, 128, 300, -1, -40, -129])
 def test_roll_minor_plain_matches_numpy(s):
     x = _ar(16, 128)
