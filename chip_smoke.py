@@ -32,7 +32,16 @@
    probes measured); madd_win (the fixed-base scan in one launch) at the
    keygen's 2^20 lanes on its table, c = 8 (32 windows), with planted
    scalars, against its plain version and the per-window madd kernel loop
-   it replaced, timed beside that loop; host encoding of 2^20 values, the
+   it replaced, timed beside that loop; dbl_chain (a window table's bases
+   in one block) at the keygen's W = 32, c = 8 against its plain version
+   and the per-window dbl_n loop it replaced, timed beside that loop and
+   its latency bound (3 c (W - 1) dependent products); aadd_rows (the
+   dense MSM's level 0 from the packed row table) on one dense chunk of a
+   2^20-point MSM (c = 15, the full windows at the chunk depth the dense
+   strategy picks), against its plain version (window by window) and the
+   gathered form it replaced (row gather, limb split, infinity mask, the
+   aadd kernel), each timed in a replayed CUDA graph and between CUDA
+   events; host encoding of 2^20 values, the
    Python Montgomery form against FpKernel.encode (mont_mul on the card);
    and the dense strategy's window sums against the default strategy's on
    a 2^16-point MSM, with random scalars and with 4096 all-equal scalars
@@ -45,15 +54,22 @@
    fixed-base path, prover(seed=9)), each proved with the default and with
    the dense MSM strategy. The two proofs must be equal, the proof must
    verify, and a corrupted proof and a wrong input must be rejected. Every
-   kernel of a path must have launched in it; aadd must launch under the
-   dense strategy and never under the default one. Then one more default
+   kernel of a path must have launched in it; aadd_rows must launch under
+   the dense strategy and never under the default one, and neither the
+   public dbl nor the public aadd may launch. Then one more default
    prove under torch.profiler (CUDA activity): each hand-written kernel's
    device time summed by __global__ name, its launches (checked against
    the wrappers' counters), its work (the wrappers' WORK counters) and the
    bound of that work, device busy time and idle share; the same for the
    keygen (profiled as it runs, with the parts of its fixed-base phase:
    host encoding, window table, batch exp, to_affine) and for one more
-   dense prove; the device time of a 2^20-point G1 and G2 MSM split into
+   dense prove, and that dense prove once more with its level 0 in the
+   gathered form (the yardstick: its device time, peak memory and the
+   public aadd's launches); the five largest device operations of each
+   profiled path that are no hand-written kernel; the keygen's window
+   tables once more with their bases by the per-window dbl_n loop and by
+   dbl_chain (equal tables; the public dbl's launches); the device time of
+   a 2^20-point G1 and G2 MSM split into
    sort, bucket_reduce, add, horner_combine and the rest, with
    bucket_reduce's warp efficiency in bucket order and in length order;
    and the keygen's five fixed-base queries again with the per-window madd
@@ -72,7 +88,8 @@
    strategy must equal the default strategy's. Over alt_bn128 also the
    batched two-point opening and the BDFG21 opening of a few polynomials
    of degree 2^12 - 1, each accepted and rejected after tampering. Every
-   G1 kernel of the path must have launched in it. Over BLS12-377 the
+   G1 kernel of the path must have launched in it, and the public dbl
+   never. Over BLS12-377 the
    setup runs under the profiler, the random polynomial is committed and
    opened once more under it, as the provers above, and the setup's batch
    exp at 2^22 lanes is timed (CUDA events) as the per-window madd loop
@@ -85,7 +102,11 @@ Prints the kernel table as one JSON line, the card line, and last the
 line {"ok": true, "device": {...}}. Each row of the table names in "path"
 the run its "launches" were counted in: the alt_bn128 or the bls12_377
 Groth16 path (keygen + both proves), "fixed_base_loop_<curve>" (the
-single-launch madd: the keygen's fixed base as the per-window loop), or
+single-launch madd: the keygen's fixed base as the per-window loop),
+"window_table_loop_<curve>" (the public dbl: the keygen's window tables
+with their bases by the per-window dbl_n loop),
+"prove_dense_gathered_<curve>" (the public aadd: a dense prove with level
+0 in the gathered form), or
 "probe" (the kernels that ran in
 one probes.measure_rates / measure_cios / measure_layout /
 measure_row_copy: every case once, the timing loops, and the replays of
@@ -130,7 +151,9 @@ INT32_LANE_OPS_PER_S = 67e12 / 4
 INT32_OPS_PER_S = INT32_LANE_OPS_PER_S / 2
 # an f32 multiply (67 TFLOP/s counts a fused multiply-add as two)
 F32_MUL_PER_S = 67e12 / 2
-PRODUCTS = {"aadd": 6, "dbl": 7, "madd": 11, "add": 16}  # base-field products
+# base-field products a lane (aadd_rows: an output lane; dbl_chain: a doubling)
+PRODUCTS = {"aadd": 6, "dbl": 7, "madd": 11, "add": 16, "aadd_rows": 6,
+            "dbl_chain": 7}
 # lanes of one add launch of the suffix scan of a 2^20-point MSM: 18 windows
 # of c = 15, 2^14 + 1 buckets each
 SCAN_LANES = 18 * ((1 << 14) + 1)
@@ -157,6 +180,12 @@ TPU_KERNEL = {
     "madd_win": "libsnark_tpu/ops/pallas_ec.py:255",
     "add": "libsnark_tpu/ops/pallas_ec.py:290",
     "aadd": "libsnark_tpu/ops/pallas_ec.py:322",
+    # level 0 of the JAX window_sums_dense (libsnark_tpu/ops/msm.py:476-493):
+    # a row gather and this Pallas kernel
+    "aadd_rows": "libsnark_tpu/ops/pallas_ec.py:322",
+    # the bases scan of the JAX window_table (libsnark_tpu/ops/msm.py:
+    # 914-920): this Pallas kernel once a window
+    "dbl_chain": "libsnark_tpu/ops/pallas_ec.py:355",
     "bucket_reduce": "libsnark_tpu/ops/pallas_bucket.py:72",
     "horner_combine": "libsnark_tpu/ops/pallas_bucket.py:212",
     "probe_rate": "scripts/probe_vpu_ops.py:49",
@@ -180,6 +209,8 @@ SOURCE = {
     "madd_win": "libsnark_tpu_torch/csrc/ec.cu",
     "add": "libsnark_tpu_torch/csrc/ec.cu",
     "aadd": "libsnark_tpu_torch/csrc/ec.cu",
+    "aadd_rows": "libsnark_tpu_torch/csrc/ec.cu",
+    "dbl_chain": "libsnark_tpu_torch/csrc/bucket.cu",
     "bucket_reduce": "libsnark_tpu_torch/csrc/bucket.cu",
     "horner_combine": "libsnark_tpu_torch/csrc/bucket.cu",
     "probe_rate": "libsnark_tpu_torch/csrc/probe.cu",
@@ -505,6 +536,121 @@ def check_ec(curve, g16, K, gen, rng):
                                      "give infinity, and no other planted lane")
 
 
+def check_dbl_chain(curve, g16, K, rng):
+    """dbl_chain at the keygen's window table (W = 32 windows of c = 8) on
+    a random point of each group: bit-exact against its plain version (run
+    on a CPU copy of the point: one lane's 248 doublings of small torch ops
+    take 3-12 s on the card, a fraction of that on the host) and the
+    per-window dbl_n loop it replaced (31 single-lane launches), both
+    timed in a replayed CUDA graph, beside the latency bound of its 3 c (W
+    - 1) dependent product levels at the least product latency measured
+    in this run."""
+    from libsnark_tpu_torch import probes
+    from libsnark_tpu_torch.ops import cuda_bucket
+    c, W = 8, 32
+    for ck, mk, group, ext in groups_of(curve, g16):
+        fk = mk.fk
+        FW = ext * fk.N
+        key = cuda_bucket.counter_key("dbl_chain", fk)
+        P = ck.encode_points([group.one() * rng.randrange(1, curve.r)],
+                             device="cuda")
+        kern = lambda: cuda_bucket.dbl_chain(fk, P, c, W)
+        loop = lambda: mk.window_bases_loop(P, c, W)
+        got = kern()
+        t0 = time.perf_counter()
+        plain = cuda_bucket.dbl_chain_plain(fk, tuple(a.cpu() for a in P), c,
+                                            W)
+        pms = (time.perf_counter() - t0) * 1e3           # one call, host
+        err = max(max_abs_err([a.cpu() for a in got], plain),
+                  max_abs_err(got, loop()))
+        ms = probes._graph_ms(kern, 10)
+        loop_ms = probes._graph_ms(loop, 10)
+        dbls = c * (W - 1)
+        ops = dbls * PRODUCTS["dbl"] * (3 if ext == 2 else 1) * wide_mads(fk)
+        lat = latency_bound_ms(key, 3 * dbls)
+        log(f"dbl_chain: W={W}, c={c}, ext={ext}, N={fk.N}: {dbls} doublings; "
+            f"per-window dbl_n loop {loop_ms:.4f} ms")
+        K.add("dbl_chain", key, err, ms, pms, 4 * 3 * FW * (W + 1), ops,
+              latency_bound_ms=lat, loop_ms=loop_ms, windows=W, c=c)
+        log(f"  {key}: {loop_ms / ms:.2f}x the loop; {ms / dbls * 1e3:.2f} us "
+            f"a doubling ({lat / dbls * 1e3:.2f} at the latency bound)")
+
+
+def dense_chunk(mk, points, sc, c: int):
+    """The dense layout of an MSM as window_sums_dense builds it, and its
+    first chunk of the full windows: (runs, chunk) for aadd_rows."""
+    m = sc.shape[-1]
+    B = 1 << (c - 1)
+    digits, signs = mk.signed_digits(sc, c)
+    W = digits.shape[0]
+    gidx, starts, counts = (t.to(torch.int32) for t in
+                            mk._sort_signed_bounds(digits, signs, m, B))
+    W_full = min(W, mk.scalar_bits // c)
+    R = mk.dense_depth(m, B, W * B, W_full * (B + 1))
+    runs = (mk.row_table(points, signed=True), gidx.reshape(-1), starts,
+            counts, m)
+    return runs, (0, R // 2, 0, W_full, B + 1)
+
+
+def check_aadd_rows(curve, g16, K, gen, rng):
+    """aadd_rows on the first dense chunk of a 2^20-point MSM (c = 15: the
+    full windows at the chunk depth dense_depth picks there), points of
+    msm_inputs (64 points, one point and scalar in lanes 0-63: P == Q at
+    level 0 and a bucket deeper than the chunk; infinity bases; zero
+    scalars): bit-exact against its plain version, run window by window (a
+    whole chunk of plain limb products does not fit), and against the
+    gathered form it replaced (MSMKernel.dense_level0_composed: row gather,
+    limb split, infinity mask, the aadd kernel); each form timed in a
+    replayed CUDA graph and between CUDA events (the level-0 device time of
+    one chunk, old form against new)."""
+    from libsnark_tpu_torch import probes
+    from libsnark_tpu_torch.ops import cuda_ec
+    from libsnark_tpu_torch.ops.msm import default_window_bits
+    m = 1 << 20
+    c = default_window_bits(m)
+    for ck, mk, group, ext in groups_of(curve, g16):
+        fk = mk.fk
+        FW = ext * fk.N
+        key = cuda_ec.counter_key("aadd_rows", fk)
+        points, sc = msm_inputs(curve, g16, ck, group, m, gen, rng)
+        runs, chunk = dense_chunk(mk, points, sc, c)
+        base, half, w_lo, Wn, nb = chunk
+        kern = lambda: cuda_ec.aadd_rows(fk, *runs, *chunk)
+        gathered = lambda: mk.dense_level0_composed(*runs, *chunk)
+        got = kern()
+        err = max_abs_err(got, gathered())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = [cuda_ec.aadd_rows_plain(fk, *runs, base, half, w, 1, nb)
+                 for w in range(w_lo, w_lo + Wn)]
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        err = max(err, max_abs_err(got, [torch.cat(a, dim=-1)
+                                         for a in zip(*plain)]))
+        del plain
+        ms = probes._graph_ms(kern, 3)
+        gathered_ms = probes._graph_ms(gathered, 3)
+        ev_ms = cuda_ms(kern, 3)
+        ev_gathered_ms = cuda_ms(gathered, 3)
+        L = half * Wn * nb
+        ct = runs[3][w_lo:w_lo + Wn, :nb].to(torch.int64)
+        live = int((ct - base).clamp(0, 2 * half).sum())
+        pairs = int((ct - base - half).clamp(0, half).sum())
+        # products: the lanes whose two depths are live run the formula
+        ops = pairs * PRODUCTS["aadd"] * (3 if ext == 2 else 1) * wide_mads(fk)
+        log(f"aadd_rows: {m}-point MSM, ext={ext}, N={fk.N}, c={c}: chunk "
+            f"depth {2 * half} x {Wn} windows x {nb} buckets = {L} lanes "
+            f"({live} of {2 * L} depths live, {pairs} lanes add two live "
+            "rows); gathered form (graph) "
+            f"{gathered_ms:.4f} ms; level 0 between CUDA events: gathered "
+            f"{ev_gathered_ms:.4f} ms, aadd_rows {ev_ms:.4f} ms "
+            f"({ev_ms / ev_gathered_ms:.3f} of before)")
+        K.add("aadd_rows", key, err, ms, pms, L * (20 * FW + 8), ops,
+              gathered_ms=gathered_ms, events_ms=ev_ms,
+              gathered_events_ms=ev_gathered_ms, lanes=L, live_lanes=pairs,
+              m=m, c=c)
+
+
 def planted_scalar_limbs(r: int, c: int, W: int, rng):
     """(16, 7) int32 scalar limbs on the card: 0, 1, r - 1, every window
     2^c - 1 (all 256 bits set), digit 0 in every odd / every even window,
@@ -780,7 +926,7 @@ def check_dense_window_sums(curve, g16, gen, rng):
     lanes = lambda S: tuple(a.movedim(0, -2) for a in S)       # (.., W, 1)
     for ck, mk, group, ext in groups_of(curve, g16):
         dense = MSMKernel(ck, mk.scalar_bits, strategy="dense")
-        key = cuda_ec.counter_key("aadd", mk.fk)
+        key = cuda_ec.counter_key("aadd_rows", mk.fk)
         points, sc = msm_inputs(curve, g16, ck, group, m, gen, rng)
         equal = sc.clone()
         equal[:, :4096] = sc[:, :1]
@@ -792,20 +938,24 @@ def check_dense_window_sums(curve, g16, gen, rng):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             if cuda_ec.LAUNCHES[key] != before:
-                raise AssertionError("aadd launched by the default strategy")
+                raise AssertionError("aadd_rows launched by the default "
+                                     "strategy")
             got = ck.to_affine(lanes(dense.window_sums(points, scalars, c)))
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            n_aadd = cuda_ec.LAUNCHES[key] - before
+            n_level0 = cuda_ec.LAUNCHES[key] - before
             live = ~want[2]
             same = torch.equal(got[2], want[2]) and all(
                 torch.equal(a[..., live], b[..., live])
                 for a, b in zip(got[:2], want[:2]))
-            if not same or n_aadd == 0:
+            if not same:
                 raise AssertionError(f"dense window sums differ from the "
                                      f"default strategy's ({label}, ext={ext})")
+            if n_level0 == 0:
+                raise AssertionError(f"the dense strategy launched no "
+                                     f"aadd_rows ({label}, ext={ext})")
             log(f"dense window sums == default: {m} points, ext={ext}, "
-                f"N={mk.fk.N}, c={c}, {label}: {n_aadd} aadd launches; "
+                f"N={mk.fk.N}, c={c}, {label}: {n_level0} aadd_rows launches; "
                 f"default {t1 - t0:.3f} s, dense {t2 - t1:.3f} s")
 
 
@@ -838,7 +988,9 @@ def main_path(curve, log2: int, paths: dict):
     fixed-base phase again with the per-window madd loop and with
     madd_windows (fixed_base_before_after), and the device time of a G1 and
     a G2 MSM by part. Returns the path's launches per kernel (the three
-    phases added up) and the launches of the fixed base's loop run."""
+    phases added up) and {run: launches} of the yardstick runs that count
+    the kernels the path replaced (the single madd, the public dbl and
+    aadd)."""
     from libsnark_tpu_torch.ops import launch_counts, reset_launch_counts
     from libsnark_tpu_torch.ops.msm import default_window_bits
     from libsnark_tpu_torch.profiling import PROFILER, start_profiling
@@ -906,8 +1058,16 @@ def main_path(curve, log2: int, paths: dict):
             strategy].prover(kp.pk, primary, aux, seed=9), paths)
         if timed != proof:
             raise AssertionError(f"the profiled proof ({strategy}) differs")
-    loop_counts = fixed_base_before_after(curve, g16,
-                                          kp.pk.H_query[0].shape[-1])
+    # the kernels the path no longer runs count where their forms still do
+    yardsticks = {
+        f"prove_dense_gathered_{curve.name}": dense_gathered_prove(
+            curve, systems["dense"], kp, primary, aux, proof),
+        f"fixed_base_loop_{curve.name}": {
+            k: n for k, n in fixed_base_before_after(
+                curve, g16, kp.pk.H_query[0].shape[-1]).items()
+            if k.startswith("madd_fp")},
+        f"window_table_loop_{curve.name}": window_table_before_after(curve,
+                                                                     g16)}
     gen = torch.Generator(device="cuda").manual_seed(77)
     c = default_window_bits(kp.pk.r1cs_dev.num_variables + 1)
     for which, q in (("g1", kp.pk.H_query), ("g2", kp.pk.B_query_g2)):
@@ -927,23 +1087,29 @@ def main_path(curve, log2: int, paths: dict):
                 f"{warp_efficiency(counts[order]):.3f} in length order "
                 f"({counts.numel()} segments, {int(counts.sum())} rows)")
 
-    aadd = [k for k in launch_counts() if k.startswith("aadd_")]
-    if any(phases[p].get(k) for k in aadd for p in ("keygen", "prove[segments]")):
-        raise AssertionError("aadd launched outside the dense strategy")
+    level0 = [k for k in launch_counts() if k.startswith("aadd_rows_")]
+    if any(phases[p].get(k) for k in level0
+           for p in ("keygen", "prove[segments]")):
+        raise AssertionError("aadd_rows launched outside the dense strategy")
     total = {}
     for counts in phases.values():
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
+    replaced = [k for k in total if k.startswith(("dbl_fp", "aadd_fp"))]
+    if replaced:
+        raise AssertionError(f"the public dbl / aadd launched on the "
+                             f"{curve.name} path: {replaced}")
     nq = g16.fq.N
     path = [f"mont_mul_n{nq}", f"mont_mul_n{g16.fr.N}"] + [
-        f"{k}_{f}_n{nq}" for k in ("dbl", "add", "madd_win", "aadd",
-                                   "bucket_reduce", "horner_combine")
+        f"{k}_{f}_n{nq}" for k in ("dbl_chain", "add", "madd_win",
+                                   "aadd_rows", "bucket_reduce",
+                                   "horner_combine")
         for f in ("fp", "fp2")]
     missing = [k for k in path if not total.get(k)]
     if missing:
         raise AssertionError(f"kernels not launched on the {curve.name} "
                              f"main path: {missing}")
-    return total, loop_counts
+    return total, yardsticks
 
 
 def fixed_base_parts(profiler) -> str:
@@ -1038,6 +1204,73 @@ def fixed_base_before_after(curve, g16, m: int) -> dict:
         f"time - bound {loss['loop']:.2f} -> {loss['windows']:.2f} ms "
         f"({loss['windows'] / loss['loop']:.3f} of before)")
     return counts["loop"]
+
+
+def window_table_before_after(curve, g16) -> dict:
+    """The keygen's window tables (c = 8, both groups) built once more with
+    their bases by the per-window dbl_n loop (the form before dbl_chain)
+    and by dbl_chain: equal tables; the device time of the bases (CUDA
+    events) of each form. Returns the loop's launch counts (the public
+    dbl's path)."""
+    from libsnark_tpu_torch.ops import launch_counts, reset_launch_counts
+    c = 8
+    W = -(-curve.r.bit_length() // c)
+    counts = {}
+    for ck, mk, group, _ in groups_of(curve, g16):
+        aff = ck.encode_points([group.one()], jacobian=False, device="cuda")
+        base = (aff[0], aff[1], mk.fk.one((1,), "cuda"))
+        tables, ms = {}, {}
+        for form in ("loop", "chain"):
+            if form == "loop":
+                mk.window_bases = mk.window_bases_loop
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            try:
+                tables[form] = mk.window_table(aff[:2], c, W)
+                if form == "loop":
+                    counts.update({k: v for k, v in launch_counts().items()
+                                   if v and k.startswith("dbl_fp")})
+                ms[form] = cuda_ms(lambda: mk.window_bases(base, c, W), 3)
+            finally:
+                mk.__dict__.pop("window_bases", None)
+        if max_abs_err(tables["loop"], tables["chain"]):
+            raise AssertionError("window table: dbl_chain and the dbl_n loop "
+                                 "give different tables")
+        log(f"  window table {curve.name} {ck.name}, c={c}, W={W}: equal "
+            f"tables; bases by the dbl_n loop {ms['loop']:.4f} ms, by "
+            f"dbl_chain {ms['chain']:.4f} ms of device time "
+            f"({ms['loop'] / ms['chain']:.2f}x)")
+    return counts
+
+
+def dense_gathered_prove(curve, g_dense, kp, primary, aux, proof) -> dict:
+    """One more dense prove with level 0 in the gathered form it had before
+    aadd_rows (MSMKernel.dense_level0_composed), under the device profiler
+    and with its peak device memory: the same proof. Returns its launch
+    counts of the public aadd (that kernel's path)."""
+    from libsnark_tpu_torch.ops import launch_counts
+    mks = (g_dense.msm_g1, g_dense.msm_g2)
+    for mk in mks:
+        mk.dense_level0 = mk.dense_level0_composed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out, rows, busy, wall, _, _, _ = profiled_rows(
+            lambda: g_dense.prover(kp.pk, primary, aux, seed=9))
+        counts = {k: v for k, v in launch_counts().items()
+                  if v and k.startswith("aadd_fp")}
+    finally:
+        for mk in mks:
+            mk.__dict__.pop("dense_level0", None)
+    if out != proof:
+        raise AssertionError("the dense proof with the gathered level 0 "
+                             "differs")
+    log(f"  prove_dense_gathered_{curve.name} (level 0 as row gather + limb "
+        f"split + aadd): wall {wall:.1f} ms, device busy {busy:.1f} ms, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        + ", ".join(f"{k} {r['launches']} launches {r['ms']:.3f} ms"
+                    for k, r in sorted(rows.items()) if k.startswith("aadd")))
+    return counts
 
 
 def kzg_batch_exp_before_after(kzg, n: int):
@@ -1195,8 +1428,11 @@ def kzg_path(curve, log2: int, small_log2=None, paths=None) -> dict:
     log("  launches " + json.dumps(counts))
     nq = kzg.fq.N
     path = [f"mont_mul_n{nq}", f"mont_mul_n{kzg.fr.N}"] + [
-        f"{k}_fp_n{nq}" for k in ("dbl", "add", "madd_win", "bucket_reduce",
-                                  "horner_combine")]
+        f"{k}_fp_n{nq}" for k in ("dbl_chain", "add", "madd_win",
+                                  "bucket_reduce", "horner_combine")]
+    if any(k.startswith("dbl_fp") for k in counts):
+        raise AssertionError(f"the public dbl launched on the {curve.name} "
+                             "KZG path")
     missing = [k for k in path if not counts.get(k)]
     if missing:
         raise AssertionError(f"kernels not launched on the {curve.name} KZG "
@@ -1249,6 +1485,7 @@ _KERNEL_NAME = re.compile(r"(?:^|[\s:]|_Z\d+)([a-z_]+)_kernel(?:<(\d+)(?:, (\d+)
                           r"(?:, \d+)*>|ILi(\d+)E(?:Li(\d+)E)?)")
 _FAMILY = {"mont_mul": "mont_mul", "dbl": "dbl", "add": "add", "madd": "madd",
            "madd_windows": "madd_win", "aadd": "aadd",
+           "aadd_rows": "aadd_rows", "dbl_chain": "dbl_chain",
            "bucket_reduce": "bucket_reduce", "horner": "horner_combine"}
 
 
@@ -1267,9 +1504,11 @@ def kernel_key(name: str):
 
 def unit_cost(key: str):
     """(bytes, wide multiply-adds) of one unit of a wrapper's work count:
-    a lane (mont_mul: one product; dbl: one doubling), a bucket_reduce
-    madd row (a packed row and its index), a horner_combine product, a
-    madd_win madd (a lane's windows after its first)."""
+    a lane (mont_mul: one product; dbl: one doubling; aadd_rows: an output
+    lane, two packed rows and their indices in, the products counted over
+    its live lanes: work_bound_ms), a bucket_reduce madd row
+    (a packed row and its index), a horner_combine product, a dbl_chain
+    doubling, a madd_win madd (a lane's windows after its first)."""
     fam, f, n = re.match(r"(.+?)_(?:(fp2?)_)?n(\d+)$", key).groups()
     N = int(n)
     wm = 2 * (N // 2) ** 2 + N // 2
@@ -1281,6 +1520,10 @@ def unit_cost(key: str):
         return 4 * FW + 4, PRODUCTS["madd"] * per * wm
     if fam == "horner_combine":      # throughput; latency: latency_bound_ms
         return 0, per * wm
+    if fam == "dbl_chain":           # the same
+        return 0, PRODUCTS["dbl"] * per * wm
+    if fam == "aadd_rows":
+        return 8 * FW + 8 + 12 * FW, PRODUCTS["aadd"] * per * wm
     if fam == "madd_win":
         # a lane reads its 16 scalar limbs and writes 3 elements over the
         # 31 madds of W = 32 windows (c = 8 on a 253- or 254-bit r, the
@@ -1292,11 +1535,13 @@ def unit_cost(key: str):
             PRODUCTS[fam] * per * wm)
 
 
-def work_bound_ms(key: str, work: int) -> float:
+def work_bound_ms(key: str, work: int, live: int = None) -> float:
     """Least device time of ``work`` units: every launch's bound is linear
-    in its work, so the sum over launches is that of the total."""
+    in its work, so the sum over launches is that of the total. live: the
+    units that run the products, where fewer do (aadd_rows: the lanes
+    whose two depths are live)."""
     nbytes, ops = unit_cost(key)
-    return bound_ms(nbytes * work, ops * work)[0]
+    return bound_ms(nbytes * work, ops * (work if live is None else live))[0]
 
 
 def latency_bound_ms(key: str, depth: int) -> float:
@@ -1378,16 +1623,21 @@ def profiled_rows(fn):
     """fn() under the device profiler, with the counts set to 0 just before:
     (result, {path kernel key: row}, busy ms, wall ms, the keys whose
     profiled kernels differ in number from the wrappers' launches, the
-    runtime's kernel launches the profiler kept no device record of)."""
+    runtime's kernel launches the profiler kept no device record of, the
+    device operations that are no hand-written kernel as (ms, launches,
+    name), largest first)."""
     from libsnark_tpu_torch.ops import (depth_counts, launch_counts,
-                                        reset_launch_counts, work_counts)
+                                        live_pair_counts, reset_launch_counts,
+                                        work_counts)
     reset_launch_counts()
     out, per, busy, wall, lost = device_profile(fn)
     launches, work, depth = launch_counts(), work_counts(), depth_counts()
-    rows = {}
+    live = live_pair_counts()
+    rows, others = {}, []
     for name, (n, ms) in per.items():
         key = kernel_key(name)
         if key is None:
+            others.append((ms, n, name))
             continue
         r = rows.setdefault(key, {"launches": launches[key], "profiled": 0,
                                   "ms": 0.0, "work": work[key]})
@@ -1395,14 +1645,15 @@ def profiled_rows(fn):
         r["ms"] += ms
     for key, r in rows.items():
         # horner_combine: the larger of its throughput and latency bounds
-        r["throughput_bound_ms"] = work_bound_ms(key, r["work"])
+        r["throughput_bound_ms"] = work_bound_ms(key, r["work"],
+                                                 live.get(key))
         r["latency_bound_ms"] = latency_bound_ms(key, depth.get(key, 0))
         r["bound_ms"] = max(r["throughput_bound_ms"], r["latency_bound_ms"])
     differ = {k: (r["profiled"], r["launches"]) for k, r in rows.items()
               if r["profiled"] != r["launches"]}
     differ.update({k: (0, n) for k, n in launches.items()
                    if n and k not in rows})
-    return out, rows, busy, wall, differ, lost
+    return out, rows, busy, wall, differ, lost, sorted(others, reverse=True)
 
 
 def path_timing(label: str, fn, paths: dict):
@@ -1420,12 +1671,12 @@ def path_timing(label: str, fn, paths: dict):
     device record; else it fails. A wrapper that counts a launch it did
     not make (the runtime sees no launch) or launches without counting
     still fails."""
-    out, rows, busy, wall, differ, lost = profiled_rows(fn)
+    out, rows, busy, wall, differ, lost, others = profiled_rows(fn)
     if differ:
         log(f"  path {label}: profiled / launched differ {differ}; runtime "
             f"kernel launches without a device record: {lost}; profiling "
             "the path once more")
-        out, rows, busy, wall, differ, lost = profiled_rows(fn)
+        out, rows, busy, wall, differ, lost, others = profiled_rows(fn)
     if differ:
         unrecorded = sum(n - p for p, n in differ.values())
         if lost is None or unrecorded > lost or any(
@@ -1439,7 +1690,9 @@ def path_timing(label: str, fn, paths: dict):
             "device record of; their device time is missing from the rows")
     kern = sum(r["ms"] for r in rows.values())
     paths[label] = {"kernels": rows, "busy_ms": busy, "wall_ms": wall,
-                    "unrecorded_launches": lost}
+                    "unrecorded_launches": lost,
+                    "other_ops": [{"name": name[:120], "launches": n, "ms": ms}
+                                  for ms, n, name in others[:5]]}
     log(f"  path {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
         f"(idle share {1 - busy / wall:.3f}), hand-written kernels "
         f"{kern:.1f} ms:")
@@ -1449,6 +1702,11 @@ def path_timing(label: str, fn, paths: dict):
             + (f" (latency {r['latency_bound_ms']:.3f}, throughput "
                f"{r['throughput_bound_ms']:.3g})" if r["latency_bound_ms"]
                else ""))
+    log(f"  path {label}: the five largest device operations that are no "
+        f"hand-written kernel (of {len(others)}, {sum(o[0] for o in others):.1f}"
+        " ms in all):")
+    for ms, n, name in others[:5]:
+        log(f"    {ms:.3f} ms, {n} launches: {name[:160]}")
     return out
 
 
@@ -1484,11 +1742,11 @@ def warp_efficiency(counts) -> float:
 
 
 def redesign_ranking(K, paths: dict):
-    """Rows 1-7 by device time - bound over the measured paths (keygen,
-    default and dense prove per curve, the KZG setup and the commit and
-    opening at full degree), each kernel's time and bound those of its
-    launches there (horner_combine: the larger of its throughput and
-    latency bounds)."""
+    """The path kernels by device time - bound over the measured paths
+    (keygen, default and dense prove per curve, the KZG setup and the
+    commit and opening at full degree), each kernel's time and bound those
+    of its launches there (horner_combine and dbl_chain: the larger of
+    their throughput and latency bounds)."""
     family = {}
     for label, p in paths.items():
         for key, r in p["kernels"].items():
@@ -1559,6 +1817,8 @@ def main(argv=None) -> int:
         check_mont_mul(g16.fr, g16.fq, K, gen)
         check_ec(g16.curve, g16, K, gen, rng)
         check_madd_windows(g16.curve, g16, K, gen, rng)
+        check_dbl_chain(g16.curve, g16, K, rng)
+        check_aadd_rows(g16.curve, g16, K, gen, rng)
         check_encode(g16.fr, f"{name} Fr")
         check_bucket_and_horner(g16.curve, g16, K, gen, rng)
         check_dense_window_sums(g16.curve, g16, gen, rng)
@@ -1567,16 +1827,17 @@ def main(argv=None) -> int:
     del systems
     paths = {}
     for name, log2 in curves.items():
-        counts, loop_counts = main_path(get_curve(name), log2, paths)
+        counts, yardsticks = main_path(get_curve(name), log2, paths)
         for key, n in counts.items():
             # Fr is 16 limbs on both curves: mont_mul_n16 keeps the count of
             # the alt_bn128 path, where Fq and Fr both run through it
             K.count(key, name, n)
-        # the single-launch madd runs where batch_exp ran it before
-        # madd_windows: the keygen's fixed base as the per-window loop
-        for key, n in loop_counts.items():
-            if key.startswith("madd_fp"):
-                K.count(key, f"fixed_base_loop_{name}", n)
+        # the single-launch madd, the public dbl and the public aadd run
+        # where the path ran them before madd_windows, dbl_chain and
+        # aadd_rows
+        for label, yard in yardsticks.items():
+            for key, n in yard.items():
+                K.count(key, label, n)
         log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
     for name, log2, small in (("bls12_377", args.kzg_log2, None),
                               ("alt_bn128", min(args.kzg_log2, 20), 12)):

@@ -37,6 +37,13 @@
 // lanes (below). It launches 1 block of 160 threads (256 for G2 at
 // NW = 12).
 //
+// dbl_chain: the bases 2^(c w) G, w < W, of a fixed-base window table (the
+// scan of libsnark_tpu/ops/msm.py:914-920, one Pallas dbl of c reps a
+// window; one single-lane dbl launch a window before this kernel): c (W -
+// 1) dependent doublings, so the bound is latency, 3 levels of dependent
+// products a doubling. One CTA runs the chain with horner_combine's slots
+// and hz_dbl, and stores each base as it is reached.
+//
 // Instantiated for NW = 8 and NW = 12 words.
 #include "ec.cuh"
 
@@ -145,6 +152,14 @@ struct HornerShape {
   static constexpr int PROD_LANES = 5 * HC<E>::C * GS;
   static constexpr int THREADS =
       PROD_LANES > 160 ? (PROD_LANES + 31) / 32 * 32 : 160;
+};
+
+// dbl_chain: dbl's widest level has 3 products, and 3 task warps
+template <int NW, int E>
+struct DblShape {
+  static constexpr int PROD_LANES = 3 * HC<E>::C * LaneGroup<NW>::GS;
+  static constexpr int THREADS =
+      PROD_LANES > 96 ? (PROD_LANES + 31) / 32 * 32 : 96;
 };
 
 template <int NW, int E>
@@ -499,6 +514,45 @@ horner_kernel(const int32_t* __restrict__ sx, const int32_t* __restrict__ sy,
       }
     }
 }
+// the bases of a window table: g_0 = P, g_(w+1) = 2^c g_w; g_w goes to
+// column w of the (E 2 NW, W) limb layout as soon as it is reached
+template <int NW, int E>
+__global__ void __launch_bounds__(DblShape<NW, E>::THREADS, 1)
+dbl_chain_kernel(const int32_t* __restrict__ px,
+                 const int32_t* __restrict__ py,
+                 const int32_t* __restrict__ pz, int W, int c, int32_t* ox,
+                 int32_t* oy, int32_t* oz, const __grid_constant__ Mod<NW> M) {
+  __shared__ HSlots<NW, E> S;
+  auto src = [&](int i) { return i == 0 ? px : i == 1 ? py : pz; };
+  auto dst = [&](int i) { return i == 0 ? ox : i == 1 ? oy : oz; };
+  Ln<NW> L;
+  L.j = threadIdx.x % Ln<NW>::LG;
+  L.pj = 0;
+#pragma unroll
+  for (int k = 0; k < NW; ++k)
+    if (k == L.j) L.pj = M.p[k];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    TASK(i) ST(AX + i, (l_gload<NW, E>(src(i), 1, 0, L)));
+  __syncthreads();
+  for (int w = 0; w < W; ++w) {
+    // lane j of warp i writes word j of coordinate i; the next hz_dbl
+    // writes the accumulator only after its first barrier
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      TASK(i) if (L.j < NW && (threadIdx.x & 31) < Ln<NW>::LG) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          uint32_t v = S[AX + i][e][L.j];
+          int32_t* o = dst(i) + (int64_t)(e * 2 * NW + 2 * L.j) * W + w;
+          o[0] = (int32_t)(v & 0xFFFFu);
+          o[W] = (int32_t)(v >> 16);
+        }
+      }
+    if (w + 1 < W)
+      for (int k = 0; k < c; ++k) hz_dbl<NW, E>(S, L, M);
+  }
+}
 #undef TASK
 #undef LD
 #undef RAW
@@ -567,6 +621,34 @@ extern "C" int lsn_horner(int nw, int ext, const void* sx, const void* sy,
   else if (nw == 12)
     (ext == 1 ? horner_launch<12, 1> : horner_launch<12, 2>)(
         sx, sy, sz, W, c, ox, oy, oz, M, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+template <int NW, int E>
+static void dbl_chain_launch(const void* px, const void* py, const void* pz,
+                             int W, int c, void* ox, void* oy, void* oz,
+                             const void* M, cudaStream_t s) {
+  dbl_chain_kernel<NW, E><<<1, DblShape<NW, E>::THREADS, 0, s>>>(
+      I32(px), I32(py), I32(pz), W, c, O32(ox), O32(oy), O32(oz),
+      *(const Mod<NW>*)M);
+}
+
+// p*: one Jacobian point, (2 ext nw, 1) limbs a coordinate; o*: (2 ext nw,
+// W) limbs, column w = 2^(c w) P
+extern "C" int lsn_dbl_chain(int nw, int ext, const void* px, const void* py,
+                             const void* pz, int W, int c, void* ox, void* oy,
+                             void* oz, const void* M, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (W < 1 || c < 0 || (ext != 1 && ext != 2))
+    return (int)cudaErrorInvalidValue;
+  if (nw == 8)
+    (ext == 1 ? dbl_chain_launch<8, 1> : dbl_chain_launch<8, 2>)(
+        px, py, pz, W, c, ox, oy, oz, M, s);
+  else if (nw == 12)
+    (ext == 1 ? dbl_chain_launch<12, 1> : dbl_chain_launch<12, 2>)(
+        px, py, pz, W, c, ox, oy, oz, M, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -10,12 +10,13 @@
 // multiply throughput; the kernels keep every coordinate in registers and
 // read and write each lane's limbs once. add, the suffix scan's and the
 // segment tree's kernel, is ordered for its register budget: the Z's
-// first, P loaded again only for the rare P == Q repair. madd_windows
-// (below) runs a whole fixed-base exponentiation a lane.
+// first, P loaded again only for the rare P == Q repair (aadd too).
+// madd_windows (below) runs a whole fixed-base exponentiation a lane, and
+// aadd_rows the dense MSM's level 0 straight from the packed row table.
 #include "ec.cuh"
 
 template <int NW, int E>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, Blocks<NW, E>::dbl)
 dbl_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
            const int32_t* __restrict__ z, int32_t* ox, int32_t* oy,
            int32_t* oz, int64_t L, int reps,
@@ -128,7 +129,6 @@ madd_windows_kernel(const uint4* __restrict__ rows,
                     const int32_t* __restrict__ scalars, int nl, int c, int W,
                     int32_t* ox, int32_t* oy, int32_t* oz, int64_t L,
                     const __grid_constant__ Mod<NW> M) {
-  constexpr int Q = E * NW / 2;           // 16-byte pieces of a row
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= L) return;
   const uint32_t mask = (1u << c) - 1;
@@ -146,15 +146,7 @@ madd_windows_kernel(const uint4* __restrict__ rows,
     uint32_t dig = buf & mask;
     buf >>= c;
     avail -= c;
-    const uint4* row = rows + ((int64_t)w << c | dig) * Q;
-    uint32_t v[4 * Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      uint4 p = __ldg(row + q);
-      v[4 * q] = p.x; v[4 * q + 1] = p.y; v[4 * q + 2] = p.z; v[4 * q + 3] = p.w;
-    }
-    row_point<NW, E>(v, X2, Y2);
-    return fe_is_zero<NW, E>(Y2);
+    return row_fetch<NW, E>(rows, (int64_t)w << c | dig, X2, Y2);
   };
   Jac<NW, E> acc;                         // infinity, as ck.zero: (1, 1, 0)
   acc.X = fe_one<NW, E>(M);
@@ -178,9 +170,10 @@ madd_windows_kernel(const uint4* __restrict__ rows,
 }
 
 // aadd: both operands affine limb-major (FW, L) arrays with byte masks
-// for infinity: 4 field loads and 3 stores per lane against 6 products.
+// for infinity: 4 field loads and 3 stores per lane against 6 products. A
+// lane with P == Q loads P again and doubles it (as add_kernel does).
 template <int NW, int E>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, Blocks<NW, E>::aadd)
 aadd_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
             const uint8_t* __restrict__ i1, const int32_t* __restrict__ x2,
             const int32_t* __restrict__ y2, const uint8_t* __restrict__ i2,
@@ -188,12 +181,74 @@ aadd_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
             const __grid_constant__ Mod<NW> M) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= L) return;
+  bool inf1 = i1[i] != 0, inf2 = i2[i] != 0;
   Fe<NW, E> X1 = fe_load<NW, E>(x1, L, i);
   Fe<NW, E> Y1 = fe_load<NW, E>(y1, L, i);
   Fe<NW, E> X2 = fe_load<NW, E>(x2, L, i);
   Fe<NW, E> Y2 = fe_load<NW, E>(y2, L, i);
-  jac_store<NW, E>(ox, oy, oz, L, i,
-                   ec_aadd<NW, E>(X1, Y1, i1[i] != 0, X2, Y2, i2[i] != 0, M));
+  Jac<NW, E> R;
+  if (inf1 || inf2)
+    R = ec_aadd_inf<NW, E>(X1, Y1, inf1, X2, Y2, inf2, M);
+  else if (!ec_aadd_finite<NW, E>(X1, Y1, X2, Y2, R, M))
+    R = ec_aadd_repair<NW, E>(fe_load_again<NW, E>(x1, L, i),
+                              fe_load_again<NW, E>(y1, L, i), M);
+  jac_store<NW, E>(ox, oy, oz, L, i, R);
+}
+
+// aadd_rows: level 0 of one chunk of the dense MSM's bucket tree
+// (ops/msm.py _dense_reduce; the JAX package's window_sums_dense,
+// libsnark_tpu/ops/msm.py:476-493, gathers the rows with jnp.take,
+// transposes them and calls the Pallas aadd) in one launch, straight from
+// the packed row table. Lane t = (r Wn + w) nb + b takes depths base + r
+// and base + r + half of bucket (w_lo + w, b), so the output is the (half,
+// Wn nb) batch of the gathered form's aadd(lo, hi). A depth's row is
+// gidx[(w_lo + w) m + clamp(start + depth, 0, m - 1)] of the signed row
+// table (2m rows: [x | y], then [x | -y]); it is infinity where its y words
+// are zero or depth >= count, and its words are read either way (a lane
+// whose operands are both infinity returns (x2, y2, 0) as the gathered form
+// does). Bound: the 6 products (18 base products for G2) against 2 rows,
+// 2 index words in and 3 field elements out a lane; the torch passes of
+// the gathered form (the row gather, the limb split, the infinity
+// reduction, the operands' contiguous copies) moved some 3x the kernel's
+// own bytes. One lane a thread: a form that walked the lanes over a
+// resident grid and staged the next lane's rows in shared memory with
+// cp.async ran slower at every width on an H100 (PERF.md). A lane
+// with P == Q reads its first row again for the repair.
+template <int NW, int E>
+__global__ void __launch_bounds__(128, Blocks<NW, E>::aadd)
+aadd_rows_kernel(const uint4* __restrict__ rows,
+                 const int32_t* __restrict__ gidx,
+                 const int32_t* __restrict__ starts,
+                 const int32_t* __restrict__ counts, int ncols, int m,
+                 int base, int half, int w_lo, int Wn, int nb, int32_t* ox,
+                 int32_t* oy, int32_t* oz, int64_t L,
+                 const __grid_constant__ Mod<NW> M) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;      // L < 2^31: checked
+  if (t >= L) return;
+  int span = Wn * nb;
+  int r = t / span;
+  int wb = t - r * span;
+  int w = wb / nb;
+  int64_t cell = (int64_t)(w_lo + w) * ncols + (wb - w * nb);
+  int st = __ldg(starts + cell), ct = __ldg(counts + cell);
+  const int32_t* g = gidx + (int64_t)(w_lo + w) * m;
+  int d1 = base + r, d2 = d1 + half;
+  auto row_of = [&](int d) -> int64_t {
+    int64_t pos = (int64_t)st + d;
+    return __ldg(g + (pos < 0 ? 0 : pos >= m ? m - 1 : pos));
+  };
+  int64_t g1 = row_of(d1), g2 = row_of(d2);
+  Fe<NW, E> X1, Y1, X2, Y2;
+  bool inf1 = row_fetch<NW, E>(rows, g1, X1, Y1) || d1 >= ct;
+  bool inf2 = row_fetch<NW, E>(rows, g2, X2, Y2) || d2 >= ct;
+  Jac<NW, E> R;
+  if (inf1 || inf2) {
+    R = ec_aadd_inf<NW, E>(X1, Y1, inf1, X2, Y2, inf2, M);
+  } else if (!ec_aadd_finite<NW, E>(X1, Y1, X2, Y2, R, M)) {
+    row_fetch_again<NW, E>(rows, g1, X1, Y1);
+    R = ec_aadd_repair<NW, E>(X1, Y1, M);
+  }
+  jac_store<NW, E>(ox, oy, oz, L, t, R);
 }
 
 static inline unsigned grid_for(long long L, int threads) {
@@ -269,4 +324,24 @@ extern "C" int lsn_ec_aadd(int nw, int ext, const void* x1, const void* y1,
                            long long L, const void* M, void* stream) {
   LAUNCH(aadd_kernel, I32(x1), I32(y1), U8(i1), I32(x2), I32(y2), U8(i2),
          O32(ox), O32(oy), O32(oz), L)
+}
+
+// rows: the signed (2m, 2 ext nw) packed row table, 16-byte aligned; gidx:
+// (W m) int32 signed row indices; starts / counts: (W, ncols) int32 bucket
+// runs; the chunk: depths base .. base + 2 half - 1 of windows w_lo ..
+// w_lo + Wn - 1, buckets 0 .. nb - 1; L = half Wn nb output lanes
+extern "C" int lsn_ec_aadd_rows(int nw, int ext, const void* rows,
+                                const void* gidx, const void* starts,
+                                const void* counts, int ncols, int m,
+                                int base, int half, int w_lo, int Wn, int nb,
+                                void* ox, void* oy, void* oz, long long L,
+                                const void* M, void* stream) {
+  if (m < 1 || half < 1 || Wn < 1 || nb < 1 || nb > ncols || w_lo < 0 ||
+      base < 0 || L != (long long)half * Wn * nb || L >= (1LL << 31) ||
+      (long long)base + 2LL * half >= (1LL << 31) ||
+      (uintptr_t)rows % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  LAUNCH(aadd_rows_kernel, (const uint4*)rows, I32(gidx), I32(starts),
+         I32(counts), ncols, m, base, half, w_lo, Wn, nb, O32(ox), O32(oy),
+         O32(oz), L)
 }

@@ -12,7 +12,8 @@
 #include "field.cuh"
 
 // __launch_bounds__ minimum blocks of 128 threads per SM of add_kernel,
-// madd_kernel, madd_windows_kernel and bucket_reduce_kernel: it sets
+// madd_kernel, madd_windows_kernel, bucket_reduce_kernel, aadd_kernel and
+// aadd_rows_kernel (one value, Blocks::aadd) and dbl_kernel: it sets
 // ptxas's register budget at 65536 / (128 blocks) per thread (4: 128
 // registers, 3: 168, 2 and 1: 255). G2 add and bucket_reduce take 1 (their
 // products are called functions and they sit at the 255 cap whatever the
@@ -23,8 +24,17 @@
 // limbs). madd and madd_windows take no budget below 255 registers (madd
 // 106 / 147, G2 192 / 255; madd_windows 102 / 145, G2 168 at 16 limbs),
 // except madd_windows for G2 at 24 limbs: at 3 blocks it spills 1.4 KB
-// and still ran faster than at 255 registers without spills. The sweep's
-// builds set them with -D.
+// and still ran faster than at 255 registers without spills.
+// aadd_kernel and aadd_rows_kernel share Blocks::aadd: G1 4 / 3 blocks at
+// 16 / 24 limbs (aadd 123 / 166 registers, aadd_rows 96 / 138, no spills;
+// no budget moved either's time), G2 1 at 16 limbs (188 / 164 registers,
+// no spills) and 3 at 24 limbs (168 registers: aadd_rows spills 1000 B and
+// ran 9.8 ms against 12.3 at 238 registers without spills on a 2^20-point
+// MSM's dense chunk; aadd spills 1220 B and ran 10 % slower than at 255
+// registers, but aadd_rows is the one on a path). dbl_kernel: G1 4 / 3
+// (88 / 128 registers), G2 1 (148 / 227; 4 blocks ran G2 at 16 limbs 5-7 %
+// faster with 140 B of spills, and the public dbl runs on no path). The
+// sweep's builds set them with -D.
 #ifndef LSN_ADD_BLOCKS_N16
 #define LSN_ADD_BLOCKS_N16 3
 #endif
@@ -58,6 +68,27 @@
 #ifndef LSN_BUCKET_BLOCKS_N24
 #define LSN_BUCKET_BLOCKS_N24 3
 #endif
+#ifndef LSN_AADD_BLOCKS_N16
+#define LSN_AADD_BLOCKS_N16 4
+#endif
+#ifndef LSN_AADD_BLOCKS_N24
+#define LSN_AADD_BLOCKS_N24 3
+#endif
+#ifndef LSN_AADD_BLOCKS_G2_N16
+#define LSN_AADD_BLOCKS_G2_N16 1
+#endif
+#ifndef LSN_AADD_BLOCKS_G2_N24
+#define LSN_AADD_BLOCKS_G2_N24 3
+#endif
+#ifndef LSN_DBL_BLOCKS_N16
+#define LSN_DBL_BLOCKS_N16 4
+#endif
+#ifndef LSN_DBL_BLOCKS_N24
+#define LSN_DBL_BLOCKS_N24 3
+#endif
+#ifndef LSN_DBL_BLOCKS_G2
+#define LSN_DBL_BLOCKS_G2 1
+#endif
 
 template <int NW, int E>
 struct Blocks {
@@ -71,6 +102,12 @@ struct Blocks {
              : (NW == 8 ? LSN_MADD_WIN_BLOCKS_N16 : LSN_MADD_WIN_BLOCKS_N24);
   static constexpr int bucket =
       E == 2 ? 1 : NW == 8 ? LSN_BUCKET_BLOCKS_N16 : LSN_BUCKET_BLOCKS_N24;
+  static constexpr int aadd =
+      E == 2 ? (NW == 8 ? LSN_AADD_BLOCKS_G2_N16 : LSN_AADD_BLOCKS_G2_N24)
+             : (NW == 8 ? LSN_AADD_BLOCKS_N16 : LSN_AADD_BLOCKS_N24);
+  static constexpr int dbl = E == 2    ? LSN_DBL_BLOCKS_G2
+                             : NW == 8 ? LSN_DBL_BLOCKS_N16
+                                       : LSN_DBL_BLOCKS_N24;
 };
 
 template <int NW, int E>
@@ -186,43 +223,59 @@ __device__ __forceinline__ Jac<NW, E> ec_add(const Jac<NW, E>& P,
   return R;
 }
 
-// mmadd-2007-bl: both affine (Z1 = Z2 = 1), six products. Infinity masks
-// in the order of _ec_aadd_flag (pallas_ec.py:195-203): i2 lifts P, then
-// i1 lifts Q, and both give (x2, y2, 0). P == Q doubles (x1, y1, one), as
-// the TPU wrapper's repair does; P == -Q falls out of the formula as
-// (rr^2, -rr^3, 0).
+// mmadd-2007-bl, both operands affine (Z1 = Z2 = 1): the infinity cases
+// first, in the order of _ec_aadd_flag (pallas_ec.py:195-203): i2 lifts P,
+// then i1 lifts Q, and both give (x2, y2, 0).
 template <int NW, int E>
-__device__ __forceinline__ Jac<NW, E> ec_aadd(const Fe<NW, E>& X1,
-                                              const Fe<NW, E>& Y1, bool i1,
-                                              const Fe<NW, E>& X2,
-                                              const Fe<NW, E>& Y2, bool i2,
-                                              const Mod<NW>& M) {
-  typedef Fe<NW, E> F;
+__device__ __forceinline__ Jac<NW, E> ec_aadd_inf(const Fe<NW, E>& X1,
+                                                  const Fe<NW, E>& Y1, bool i1,
+                                                  const Fe<NW, E>& X2,
+                                                  const Fe<NW, E>& Y2, bool i2,
+                                                  const Mod<NW>& M) {
   Jac<NW, E> R;
-  if (i1 || i2) {
-    R.X = i1 ? X2 : X1;
-    R.Y = i1 ? Y2 : Y1;
-    R.Z = (i1 && i2) ? fe_zero<NW, E>() : fe_one<NW, E>(M);
-    return R;
-  }
+  R.X = i1 ? X2 : X1;
+  R.Y = i1 ? Y2 : Y1;
+  R.Z = (i1 && i2) ? fe_zero<NW, E>() : fe_one<NW, E>(M);
+  return R;
+}
+
+// The formula for finite P and Q, six products. Returns false, with R
+// unset, if P == Q: the caller doubles (x1, y1, one), as the TPU wrapper's
+// repair does, from a second load of P (ec_aadd_repair), so that no value
+// of the formula is live across the doubling. P == -Q falls out of the
+// formula as (rr^2, -rr^3, 0).
+template <int NW, int E>
+__device__ __forceinline__ bool ec_aadd_finite(const Fe<NW, E>& X1,
+                                               const Fe<NW, E>& Y1,
+                                               const Fe<NW, E>& X2,
+                                               const Fe<NW, E>& Y2,
+                                               Jac<NW, E>& R,
+                                               const Mod<NW>& M) {
+  typedef Fe<NW, E> F;
   F H = fe_sub<NW, E>(X2, X1, M);
   F rr = fe_dbl<NW, E>(fe_sub<NW, E>(Y2, Y1, M), M);
-  if (fe_is_zero<NW, E>(H) && fe_is_zero<NW, E>(rr)) {
-    R.X = X1;
-    R.Y = Y1;
-    R.Z = fe_one<NW, E>(M);
-    return ec_dbl<NW, E>(R, M);
-  }
-  F HH = fe_sqr<NW, E>(H, M);
-  F I = fe_dbl<NW, E>(fe_dbl<NW, E>(HH, M), M);
+  if (fe_is_zero<NW, E>(H) && fe_is_zero<NW, E>(rr)) return false;
+  F I = fe_dbl<NW, E>(fe_dbl<NW, E>(fe_sqr<NW, E>(H, M), M), M);
   F J = fe_mul(H, I, M);
   F V = fe_mul(X1, I, M);
+  R.Z = fe_dbl<NW, E>(H, M);
   R.X = fe_sub<NW, E>(fe_sub<NW, E>(fe_sqr<NW, E>(rr, M), J, M),
                       fe_dbl<NW, E>(V, M), M);
   R.Y = fe_sub<NW, E>(fe_mul(rr, fe_sub<NW, E>(V, R.X, M), M),
                       fe_dbl<NW, E>(fe_mul(Y1, J, M), M), M);
-  R.Z = fe_dbl<NW, E>(H, M);
-  return R;
+  return true;
+}
+
+// the P == Q repair of aadd: dbl(x1, y1, one)
+template <int NW, int E>
+__device__ __forceinline__ Jac<NW, E> ec_aadd_repair(const Fe<NW, E>& X1,
+                                                     const Fe<NW, E>& Y1,
+                                                     const Mod<NW>& M) {
+  Jac<NW, E> P;
+  P.X = X1;
+  P.Y = Y1;
+  P.Z = fe_one<NW, E>(M);
+  return ec_dbl<NW, E>(P, M);
 }
 
 template <int NW, int E>
@@ -258,4 +311,36 @@ __device__ __forceinline__ void row_point(const uint32_t* w, Fe<NW, E>& X,
       X.c[c].w[k] = w[c * NW + k];
       Y.c[c].w[k] = w[(E + c) * NW + k];
     }
+}
+
+// row gi of a packed row table of Q = E NW / 2 16-byte pieces a row, read
+// through the read-only cache; returns whether it is infinity (y == 0)
+template <int NW, int E>
+__device__ __forceinline__ bool row_fetch(const uint4* __restrict__ rows,
+                                          int64_t gi, Fe<NW, E>& X,
+                                          Fe<NW, E>& Y) {
+  constexpr int Q = E * NW / 2;
+  const uint4* row = rows + gi * Q;
+  uint32_t v[4 * Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    uint4 p = __ldg(row + q);
+    v[4 * q] = p.x; v[4 * q + 1] = p.y; v[4 * q + 2] = p.z; v[4 * q + 3] = p.w;
+  }
+  row_point<NW, E>(v, X, Y);
+  return fe_is_zero<NW, E>(Y);
+}
+
+// the same row again, through volatile loads, for the rare P == Q repair:
+// the compiler cannot reuse the words loaded for the formula, so those die
+// at their last use there and not at the repair
+template <int NW, int E>
+__device__ __forceinline__ void row_fetch_again(const uint4* rows, int64_t gi,
+                                                Fe<NW, E>& X, Fe<NW, E>& Y) {
+  constexpr int Q = E * NW / 2;
+  const volatile uint32_t* row = (const volatile uint32_t*)(rows + gi * Q);
+  uint32_t v[4 * Q];
+#pragma unroll
+  for (int k = 0; k < 4 * Q; ++k) v[k] = row[k];
+  row_point<NW, E>(v, X, Y);
 }

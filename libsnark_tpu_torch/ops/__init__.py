@@ -4,7 +4,9 @@ Kernel wrappers (each counts its launches on the card and their work, per
 coordinate field and field width):
   cuda_fp.mont_mul                       csrc/fp.cu
   cuda_ec.dbl / add / madd / aadd        csrc/ec.cu
+  cuda_ec.madd_windows / aadd_rows       csrc/ec.cu
   cuda_bucket.bucket_reduce / horner     csrc/bucket.cu
+  cuda_bucket.dbl_chain                  csrc/bucket.cu
 The probe kernels (csrc/probe.cu, csrc/probe_layout.cu) count in
 ``libsnark_tpu_torch.probes``.
 """
@@ -30,12 +32,19 @@ def work_counts() -> dict:
 
 def depth_counts() -> dict:
     """Kernel name -> critical path of its launches since the last reset, in
-    dependent base-field products (horner_combine only)."""
+    dependent base-field products (horner_combine and dbl_chain only)."""
     return {k: int(v) for k, v in cuda_bucket.DEPTH.items()}
 
 
+def live_pair_counts() -> dict:
+    """Kernel name -> output lanes of its launches since the last reset that
+    ran the formula's products (aadd_rows only: both depths within their
+    bucket's count)."""
+    return {k: int(v) for k, v in cuda_ec.LIVE_PAIRS.items()}
+
+
 def reset_launch_counts():
-    """Zero the launch, work and depth counts."""
-    for c in _COUNTERS + _WORK + (cuda_bucket.DEPTH,):
+    """Zero the launch, work, depth and live-pair counts."""
+    for c in _COUNTERS + _WORK + (cuda_bucket.DEPTH, cuda_ec.LIVE_PAIRS):
         for k in c:
             c[k] = 0

@@ -30,6 +30,12 @@ at once, each on a group of 8 or 16 lanes (the lane-split Montgomery
 product of csrc/field.cuh, one word a lane), and the additions between the
 levels run one word a lane too.
 
+dbl_chain: the bases 2^(c w) G of a fixed-base window table (the JAX
+package's ``window_table`` scan, one Pallas dbl of c reps a window), c (W -
+1) dependent doublings in one launch of one block: horner_combine's lane
+form and doubling, each base stored as it is reached. Its bound is the
+chain's latency, 3 levels of dependent products a doubling (``DEPTH``).
+
 The plain versions run the same sequence of group operations with torch
 ops over plain field products, so kernel and plain results are equal
 limb for limb, Jacobian coordinates included.
@@ -45,13 +51,16 @@ from .cuda_ec import (add_plain, counter_key, counter_keys, dbl_plain,
                       ext_of, madd_plain)
 from .limbs import words_to_limbs
 
-LAUNCHES = dict.fromkeys(counter_keys(("bucket_reduce", "horner_combine")), 0)
+LAUNCHES = dict.fromkeys(counter_keys(("bucket_reduce", "horner_combine",
+                                       "dbl_chain")), 0)
 # the work of those launches: bucket_reduce madd rows (a device scalar, so
 # that counting never waits for the card), horner_combine products of the
-# coordinate field, (W - 1)(7 c + 16) for c doublings and one add a window
+# coordinate field, (W - 1)(7 c + 16) for c doublings and one add a window;
+# dbl_chain doublings, c (W - 1)
 WORK = dict.fromkeys(LAUNCHES, 0)
-# horner_combine's critical path in dependent base-field products,
-# (W - 1)(3 c + 5) a launch: dbl is 3 levels of independent products, add 5
+# the chains' critical path in dependent base-field products: dbl is 3
+# levels of independent products, add 5; horner_combine (W - 1)(3 c + 5) a
+# launch, dbl_chain 3 c (W - 1)
 DEPTH = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -171,3 +180,39 @@ def horner_combine(fk, S, c: int):
     WORK[key] += (W - 1) * (7 * c + 16)
     DEPTH[key] += (W - 1) * (3 * c + 5)
     return tuple(outs)
+
+
+def dbl_chain_plain(fk, P, c: int, W: int):
+    """The same bases with torch ops: c plain doublings a window."""
+    gs = [P]
+    for _ in range(W - 1):
+        gs.append(dbl_plain(fk, gs[-1], c))
+    return tuple(torch.cat([g[k] for g in gs], dim=-1) for k in range(3))
+
+
+def dbl_chain(fk, P, c: int, W: int):
+    """The bases of a fixed-base window table: P, 2^c P, ..., 2^(c (W - 1))
+    P, ONE launch on the card. P: one Jacobian point (batch (1,)); returns
+    Jacobian (X, Y, Z) with batch (W,), column w = 2^(c w) P."""
+    FW = ext_of(fk) * fk.N
+    lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
+    if (len(P) != 3 or any(a.shape != lead + (1,) or a.dtype != torch.int32
+                           for a in P) or W < 1 or c < 0):
+        raise ValueError(f"dbl_chain takes one Jacobian point (int32 "
+                         f"coordinates of shape {lead + (1,)}), W >= 1 and "
+                         "c >= 0")
+    if not P[0].is_cuda:
+        return dbl_chain_plain(fk, P, c, W)
+    flat = [a.reshape(FW, 1).contiguous() for a in P]
+    outs = [torch.empty((FW, W), dtype=torch.int32, device=P[0].device)
+            for _ in range(3)]
+    code = cuda_lib.lib("bucket").lsn_dbl_chain(
+        fk.nw, ext_of(fk), *[a.data_ptr() for a in flat], W, c,
+        *[o.data_ptr() for o in outs], ctypes.addressof(fk.mod),
+        cuda_lib.stream_ptr(outs[0]))
+    cuda_lib.check(code, "dbl_chain")
+    key = counter_key("dbl_chain", fk)
+    LAUNCHES[key] += 1
+    WORK[key] += c * (W - 1)
+    DEPTH[key] += 3 * c * (W - 1)
+    return tuple(o.reshape(lead + (W,)) for o in outs)

@@ -8,6 +8,11 @@ Replace the Pallas TPU kernels ``libsnark_tpu/ops/pallas_ec.py:_build_dbl``
 Pallas madd a window under a ``lax.scan``) in one launch: each thread keeps
 its lane's accumulator in registers across every window, takes its digits
 from the scalar limbs itself and reads one packed table row a window.
+``aadd_rows`` runs level 0 of one chunk of the dense MSM (the JAX
+package's ``window_sums_dense``: a row gather, a transpose and one Pallas
+aadd) in one launch: each thread finds its two rows through the bucket runs
+and reads them from the packed row table itself, so no gathered or
+limb-major copy of the rows is made.
 
 The kernels (csrc/ec.cu over csrc/ec.cuh) run one thread per lane. What
 bounds them on the card: the field products (aadd 6, dbl 7, madd 11, add
@@ -39,10 +44,15 @@ def counter_keys(kernels):
 
 
 LAUNCHES = dict.fromkeys(counter_keys(("dbl", "add", "madd", "aadd",
-                                       "madd_win")), 0)
+                                       "madd_win", "aadd_rows")), 0)
 # the work of those launches: lanes (dbl: lanes x doublings; madd_win: the
-# madds after each lane's first window, lanes x (windows - 1))
+# madds after each lane's first window, lanes x (windows - 1); aadd_rows:
+# output lanes, two rows each)
 WORK = dict.fromkeys(LAUNCHES, 0)
+# aadd_rows: the lanes whose two depths both lie within their bucket's
+# count, the ones that run the formula's products (a device scalar, so
+# that counting never waits for the card)
+LIVE_PAIRS = dict.fromkeys(counter_keys(("aadd_rows",)), 0)
 
 
 def ext_of(fk) -> int:
@@ -181,6 +191,43 @@ def madd_plain(fk, P, Q_aff, valid=None):
 
 def aadd_plain(fk, P_aff, Q_aff):
     return aadd_formula(fk.as_plain(), P_aff, Q_aff)
+
+
+def aadd_rows_composed(fk, aadd_fn, rows, gidx, starts, counts, m: int,
+                       base: int, half: int, w_lo: int, Wn: int, nb: int):
+    """Level 0 of one dense-MSM chunk as torch passes around one
+    ``aadd_fn``: the runs' rows at depths base .. base + 2 half - 1 gathered
+    into a (2 half, Wn, nb) layout, split into 16-bit limbs, the infinity
+    mask (y == 0 or depth >= count), then aadd_fn(lo, hi) on the two
+    halves. The form ``aadd_rows`` replaced on the card."""
+    FW = ext_of(fk) * fk.N
+    lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
+    R = 2 * half
+    dev = rows.device
+    st = starts[w_lo:w_lo + Wn, :nb].to(torch.int64)
+    ct = counts[w_lo:w_lo + Wn, :nb].to(torch.int64)
+    woff = (torch.arange(w_lo, w_lo + Wn, dtype=torch.int64, device=dev)
+            * m)[None, :, None]
+    depth = base + torch.arange(R, dtype=torch.int64, device=dev)[:, None, None]
+    pos = torch.clamp(st[None] + depth, 0, m - 1)            # (R, Wn, nb)
+    live = (depth < ct[None]).reshape(R, Wn * nb)
+    rg = gidx[(woff + pos).reshape(-1)].to(torch.int64)
+    gt = words_to_limbs(rows[rg].T)                           # (2FW, K)
+    qx = gt[:FW].reshape(lead + (R, Wn * nb))
+    qy = gt[FW:].reshape(lead + (R, Wn * nb))
+    qinf = (gt[FW:] == 0).all(dim=0).reshape(R, Wn * nb) | ~live
+    lo = (qx.narrow(-2, 0, half), qy.narrow(-2, 0, half), qinf[:half])
+    hi = (qx.narrow(-2, half, half), qy.narrow(-2, half, half), qinf[half:])
+    return aadd_fn(lo, hi)
+
+
+def aadd_rows_plain(fk, rows, gidx, starts, counts, m: int, base: int,
+                    half: int, w_lo: int, Wn: int, nb: int):
+    """``aadd_rows`` over plain products: the gathered form with
+    ``aadd_plain``."""
+    return aadd_rows_composed(fk, lambda P, Q: aadd_plain(fk, P, Q), rows,
+                              gidx, starts, counts, m, base, half, w_lo, Wn,
+                              nb)
 
 
 def window_digit(sc, c: int, w: int):
@@ -359,3 +406,69 @@ def madd_windows(fk, rows, scalars, c: int):
     LAUNCHES[key] += 1
     WORK[key] += m * max(0, W - 1)
     return tuple(outs)
+
+
+def aadd_rows(fk, rows, gidx, starts, counts, m: int, base: int, half: int,
+              w_lo: int, Wn: int, nb: int):
+    """Level 0 of one dense-MSM chunk in ONE launch on the card.
+
+    rows:   (2m, FW) int32 signed packed row table (``MSMKernel.row_table``
+            with signed=True: [x | y] rows, then [x | -y]; all zero for
+            infinity), 16-byte aligned
+    gidx:   (W m,) signed row indices idx + sign m, sorted per window
+    starts, counts: (W, ncols) bucket runs in gidx (per window)
+    m:      points; the chunk: depths base .. base + 2 half - 1 of the
+            buckets 0 .. nb - 1 of windows w_lo .. w_lo + Wn - 1
+
+    Output lane (r, w, b), r < half, is the affine sum of the rows at
+    depths base + r and base + r + half of bucket (w_lo + w, b), as
+    Jacobian (X, Y, Z) with batch (half, Wn nb): the limbs of
+    ``aadd_rows_composed`` (the row gather, the limb split, the infinity
+    mask and one ``aadd`` launch). A row is infinity where its y is zero or
+    its depth is at least the bucket's count."""
+    FW = ext_of(fk) * fk.N
+    if (rows.dim() != 2 or rows.shape != (2 * m, FW)
+            or rows.dtype != torch.int32):
+        raise ValueError(f"aadd_rows takes the (2m, {FW}) int32 signed row "
+                         "table")
+    if (gidx.dim() != 1 or m < 1 or gidx.numel() % m or starts.dim() != 2
+            or starts.shape != counts.shape
+            or starts.shape[0] != gidx.numel() // m
+            or any(t.is_floating_point() for t in (gidx, starts, counts))):
+        raise ValueError("aadd_rows takes (W m,) row indices and (W, ncols) "
+                         "integer bucket starts and counts")
+    if not (half >= 1 and base >= 0 and Wn >= 1 and w_lo >= 0
+            and w_lo + Wn <= starts.shape[0] and 1 <= nb <= starts.shape[1]):
+        raise ValueError(f"aadd_rows: chunk base={base}, half={half}, "
+                         f"windows [{w_lo}, {w_lo + Wn}), {nb} buckets is "
+                         f"outside the ({starts.shape[0]}, {starts.shape[1]}) "
+                         "bucket runs")
+    L = half * Wn * nb
+    if L >= 1 << 31 or base + 2 * half >= 1 << 31:
+        raise ValueError("aadd_rows: a chunk takes fewer than 2^31 lanes")
+    if not rows.is_cuda:
+        return aadd_rows_plain(fk, rows, gidx, starts, counts, m, base, half,
+                               w_lo, Wn, nb)
+    if any(t.device != rows.device for t in (gidx, starts, counts)):
+        raise ValueError("aadd_rows: rows, gidx, starts and counts on one "
+                         "device")
+    rows = rows.contiguous()
+    if rows.data_ptr() % 16:
+        raise ValueError("aadd_rows: the row table must be 16-byte aligned")
+    gidx, starts, counts = (t.to(torch.int32).contiguous()
+                            for t in (gidx, starts, counts))
+    lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
+    outs = [torch.empty((FW, L), dtype=torch.int32, device=rows.device)
+            for _ in range(3)]
+    code = cuda_lib.lib("ec").lsn_ec_aadd_rows(
+        fk.nw, ext_of(fk), rows.data_ptr(), gidx.data_ptr(),
+        starts.data_ptr(), counts.data_ptr(), starts.shape[1], m, base, half,
+        w_lo, Wn, nb, *[o.data_ptr() for o in outs], L,
+        ctypes.addressof(fk.mod), cuda_lib.stream_ptr(rows))
+    cuda_lib.check(code, "aadd_rows")
+    key = counter_key("aadd_rows", fk)
+    LAUNCHES[key] += 1
+    WORK[key] += L
+    LIVE_PAIRS[key] += (counts[w_lo:w_lo + Wn, :nb] - (base + half)).clamp(
+        0, half).sum(dtype=torch.int64)
+    return tuple(o.reshape(lead + (half, Wn * nb)) for o in outs)

@@ -54,12 +54,16 @@ _ARGTYPES = {
         "lsn_ec_aadd": [_I, _I] + [_VP] * 9 + [_LL, _VP, _VP],
         "lsn_ec_madd_windows": [_I, _I, _VP, _VP, _I, _I, _I, _VP, _VP, _VP,
                                 _LL, _VP, _VP],
+        "lsn_ec_aadd_rows": [_I, _I] + [_VP] * 4 + [_I] * 7 + [_VP] * 3
+            + [_LL, _VP, _VP],
     },
     "bucket": {
         "lsn_bucket_reduce": [_I, _I, _VP, _LL, _VP, _VP, _VP, _VP, _LL, _VP,
                               _VP, _VP, _VP, _VP],
         "lsn_horner": [_I, _I, _VP, _VP, _VP, _LL, _I, _VP, _VP, _VP, _VP,
                        _VP],
+        "lsn_dbl_chain": [_I, _I, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP, _VP,
+                          _VP],
     },
     "probe": {
         "lsn_probe_rate": [_I, _VP, _VP, _VP, _LL, _I, _VP],

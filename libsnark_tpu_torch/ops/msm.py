@@ -12,10 +12,11 @@ Variable-base MSM, signed-digit Pippenger:
      bounded length (one thread each, longest segments first, gathering its
      own rows from the packed row table); a pairwise add tree joins the
      segments of a bucket;
-     ``"dense"``: the runs are gathered into a dense (depth, window,
-     bucket) layout, level 0 is one ``aadd`` launch on pairs of affine
-     rows, the levels above are ``add`` launches (a log-depth tree), and
-     buckets deeper than the chunk depth take further chunks;
+     ``"dense"``: the runs are laid out dense (depth, window, bucket);
+     level 0 is one ``aadd_rows`` launch a chunk, which reads its pairs of
+     affine rows straight from the packed row table, the levels above are
+     ``add`` launches (a log-depth tree), and buckets deeper than the chunk
+     depth take further chunks;
   4. sum_j j*S_j per window = sum_{j>=1} T_j, with T the suffix sums (one
      Hillis-Steele point scan + a log-depth lane reduction, add kernel);
   5. ``horner_combine`` joins the windows in one launch.
@@ -30,8 +31,9 @@ with an a-coefficient. Both give the same affine sums; the Jacobian
 window sums differ.
 
 Fixed-base batch exp (libff batch_exp / get_window_table): device-built
-window tables via a point prefix scan, then one ``madd_windows`` launch
-that runs every window of every lane (ops/cuda_ec.py).
+window tables (the bases 2^(c w) G by one ``dbl_chain`` launch, then a
+point prefix scan), then one ``madd_windows`` launch that runs every window
+of every lane (ops/cuda_ec.py).
 
 Scalars are plain (non-Montgomery) (NL, m) int32 16-bit limb tensors.
 """
@@ -41,9 +43,10 @@ import math
 
 import torch
 
-from .cuda_bucket import bucket_reduce, horner_combine
-from .cuda_ec import ext_of, madd_windows, windows_scan
-from .limbs import LIMB_BITS, ints_to_limbs, limbs_to_words, words_to_limbs
+from .cuda_bucket import bucket_reduce, dbl_chain, horner_combine
+from .cuda_ec import (aadd_rows, aadd_rows_composed, ext_of, madd_windows,
+                      windows_scan)
+from .limbs import LIMB_BITS, ints_to_limbs, limbs_to_words
 
 
 def default_window_bits(m: int) -> int:
@@ -57,12 +60,15 @@ def default_window_bits(m: int) -> int:
 
 STRATEGIES = ("segments", "dense")
 
-# Dense strategy: bytes one chunk may hold on the card. A chunk of K lanes
-# holds the gathered rows, their limb-major copy, the operand copies of the
-# level-0 launch and its output: about 32 bytes per lane and coordinate
-# limb. The JAX package caps a chunk at 2^22 lanes for the TPU's memory;
-# 8 GiB of an 80 GB card allow 16M lanes for a 16-limb G1 and 2.8M for a
-# 24-limb G2. The cap changes the chunk count, never a result.
+# Dense strategy: bytes one chunk may hold on the card, counted at 32
+# bytes per lane and coordinate limb: what the gathered form of level 0
+# (``dense_level0_composed``: the gathered rows, their limb-major copy, the
+# operand copies of the aadd launch and its output) holds, so that both
+# forms run at the same depth. ``aadd_rows`` itself writes 6 bytes per
+# lane and limb, and the tree's first level copies and writes 9 more. The
+# JAX package caps a chunk at 2^22 lanes for the TPU's memory; 8 GiB of an
+# 80 GB card allow 16M lanes for a 16-limb G1 and 2.8M for a 24-limb G2.
+# The cap changes the chunk count, never a result.
 DENSE_CHUNK_BYTES = 8 << 30
 
 
@@ -330,41 +336,47 @@ class MSMKernel:
 
     def _dense_reduce(self, rows, gidx, starts, counts, m: int, w_lo: int,
                       w_hi: int, nb: int, R: int):
-        """Bucket sums of windows [w_lo, w_hi) over buckets [0, nb): runs
-        gathered R rows at a time into a (R, windows, buckets) layout --
+        """Bucket sums of windows [w_lo, w_hi) over buckets [0, nb): the
+        runs taken R rows at a time in a (R, windows, buckets) layout --
         depth leading, so that the halves of every tree level are
-        contiguous slabs -- level 0 by ``aadd`` on affine rows, the rest
-        by the ``add`` tree; a bucket deeper than R takes further chunks.
-        Returns Jacobian sums with batch shape (w_hi - w_lo, nb)."""
+        contiguous slabs -- level 0 by ``dense_level0`` on affine rows, the
+        rest by the ``add`` tree; a bucket deeper than R takes further
+        chunks. Returns Jacobian sums with batch shape (w_hi - w_lo, nb)."""
         ck, fk = self.ck, self.fk
-        FW = ext_of(fk) * fk.N
         lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
         Wn = w_hi - w_lo
-        dev = rows.device
-        st = starts[w_lo:w_hi, :nb]
         ct = counts[w_lo:w_hi, :nb]
         max_count = int(ct.max()) if ct.numel() else 0
-        woff = (torch.arange(w_lo, w_hi, dtype=torch.int64, device=dev)
-                * m)[None, :, None]
-        r_idx = torch.arange(R, dtype=torch.int64, device=dev)[:, None, None]
         half = R // 2
-        out = ck.zero((Wn, nb), dev)
+        out = ck.zero((Wn, nb), rows.device)
         for base in range(0, max_count, R):
-            depth = base + r_idx                              # (R, 1, 1)
-            pos = torch.clamp(st[None] + depth, 0, m - 1)     # (R, Wn, nb)
-            live = (depth < ct[None]).reshape(R, Wn * nb)
-            rg = gidx[(woff + pos).reshape(-1)]
-            gt = words_to_limbs(rows[rg].T)                   # (2FW, K)
-            qx = gt[:FW].reshape(lead + (R, Wn * nb))
-            qy = gt[FW:].reshape(lead + (R, Wn * nb))
-            qinf = (gt[FW:] == 0).all(dim=0).reshape(R, Wn * nb) | ~live
-            lo = (qx.narrow(-2, 0, half), qy.narrow(-2, 0, half), qinf[:half])
-            hi = (qx.narrow(-2, half, half), qy.narrow(-2, half, half),
-                  qinf[half:])
-            P = self._tree_reduce_points(ck.aadd(lo, hi), axis=-2)
+            P = self._tree_reduce_points(self.dense_level0(
+                rows, gidx, starts, counts, m, base, half, w_lo, Wn, nb),
+                axis=-2)
             out = ck.add(out, _tree_map(
                 lambda a: a.reshape(lead + (Wn, nb)), P))
         return out
+
+    def dense_level0(self, rows, gidx, starts, counts, m: int, base: int,
+                     half: int, w_lo: int, Wn: int, nb: int):
+        """Level 0 of one chunk: lane (r, w, b) adds the affine rows at
+        depths base + r and base + r + half of bucket (w_lo + w, b); batch
+        (half, Wn nb). ONE ``aadd_rows`` launch on the card; a curve with
+        an a-coefficient takes ``dense_level0_composed``."""
+        if self.ck.mul_by_a is not None:
+            return self.dense_level0_composed(rows, gidx, starts, counts, m,
+                                              base, half, w_lo, Wn, nb)
+        return aadd_rows(self.fk, rows, gidx, starts, counts, m, base, half,
+                         w_lo, Wn, nb)
+
+    def dense_level0_composed(self, rows, gidx, starts, counts, m: int,
+                              base: int, half: int, w_lo: int, Wn: int,
+                              nb: int):
+        """The same level as a row gather, a limb split, the infinity mask
+        and one ``aadd`` launch: the form ``aadd_rows`` replaced, kept as
+        its yardstick."""
+        return aadd_rows_composed(self.fk, self.ck.aadd, rows, gidx, starts,
+                                  counts, m, base, half, w_lo, Wn, nb)
 
     def window_sums_dense(self, points_aff, scalars, c: int):
         """Window sums through the dense bucket layout (the port of the JAX
@@ -380,7 +392,8 @@ class MSMKernel:
         B = 1 << (c - 1)
         digits, signs = self.signed_digits(scalars, c)         # (W, m)
         W = digits.shape[0]
-        gidx, starts, counts = self._sort_signed_bounds(digits, signs, m, B)
+        gidx, starts, counts = (t.to(torch.int32) for t in
+                                self._sort_signed_bounds(digits, signs, m, B))
         gidx = gidx.reshape(-1)
         rows = self.row_table(points_aff, signed=True)          # (2m, FW)
         dev = rows.device
@@ -431,16 +444,11 @@ class MSMKernel:
         ck = self.ck
         g = (base_aff[0], base_aff[1],
              self.fk.one((1,), base_aff[0].device))
-        gs = []
-        for w in range(num_windows):
-            gs.append(g)
-            if w + 1 < num_windows:
-                g = ck.dbl_n(g, c)
-        # (.., 1) per window -> (.., W, 1) -> lanes j = 0 .. 2^c - 1
+        gs = self.window_bases(g, c, num_windows)         # batch (W,)
+        # (.., W) -> (.., W, 1) -> lanes j = 0 .. 2^c - 1
         L = 1 << c
-        rep = tuple(torch.stack([gw[k] for gw in gs], dim=-2)
-                    .expand(gs[0][k].shape[:-1] + (num_windows, L))
-                    .contiguous() for k in range(3))
+        rep = tuple(a.unsqueeze(-1).expand(a.shape + (L,)).contiguous()
+                    for a in gs)
         X, Y, Z = rep
         Z = Z.clone()
         Z[..., 0] = 0                       # lane 0 = infinity
@@ -454,6 +462,25 @@ class MSMKernel:
                 return torch.cat([pad, a[..., :L - s]], dim=-1)
             T = ck.add(T, tuple(sh(a) for a in T))
         return T
+
+    def window_bases(self, base_j, c: int, num_windows: int):
+        """g_w = 2^(c w) base for w < num_windows, Jacobian with batch
+        (num_windows,): ONE ``dbl_chain`` launch on the card. base_j: one
+        Jacobian point (batch (1,)). A curve with an a-coefficient takes
+        ``window_bases_loop``."""
+        if self.ck.mul_by_a is not None:
+            return self.window_bases_loop(base_j, c, num_windows)
+        return dbl_chain(self.fk, base_j, c, num_windows)
+
+    def window_bases_loop(self, base_j, c: int, num_windows: int):
+        """The same bases as one ``dbl_n`` launch a window (one lane in one
+        thread on the card): the form ``dbl_chain`` replaced, kept as its
+        yardstick."""
+        g, gs = base_j, [base_j]
+        for _ in range(num_windows - 1):
+            g = self.ck.dbl_n(g, c)
+            gs.append(g)
+        return tuple(torch.cat([gw[k] for gw in gs], dim=-1) for k in range(3))
 
     def fixed_base_rows(self, table_aff):
         """The packed row table of an affine window table (batch (W, 2^c)):

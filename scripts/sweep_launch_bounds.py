@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time add, madd, madd_win and bucket_reduce of the PyTorch/CUDA port under
-each register budget and form of the field product, on one NVIDIA card.
+"""Time add, madd, madd_win, bucket_reduce, aadd, aadd_rows and dbl of the
+PyTorch/CUDA port under each register budget and form of the field
+product, on one NVIDIA card.
 
 Builds csrc/ec.cu and csrc/bucket.cu once per variant of ``VARIANTS``
 (nvcc, one process per library, all started together, into
@@ -8,14 +9,16 @@ libsnark_tpu_torch/build/sweep/), against the built-in values: ``blocks
 k`` sets every __launch_bounds__ minimum of ec.cuh that a -D sets
 (LSN_ADD_BLOCKS_N16/_N24, LSN_MADD_BLOCKS_N16/_N24/_G2,
 LSN_MADD_WIN_BLOCKS_N16/_N24/_G2_N16/_G2_N24,
-LSN_BUCKET_BLOCKS_N16/_N24) to k, i.e. a budget of 65536 / (128 k)
+LSN_BUCKET_BLOCKS_N16/_N24, LSN_AADD_BLOCKS_N16/_N24/_G2_N16/_G2_N24,
+LSN_DBL_BLOCKS_N16/_N24/_G2) to k, i.e. a budget of 65536 / (128 k)
 registers a thread; ``product unrolled at 16 limbs`` / ``product
 unrolled`` run the carry-chain product of field.cuh with its rounds
 unrolled at 16 limbs / at every width instead of in its loop of two
 rounds (LSN_CHAIN_ROLL_NW).
 
 For each variant it prints ptxas's registers, stack frame and spills of
-add_kernel, madd_kernel, madd_windows_kernel and bucket_reduce_kernel,
+add_kernel, madd_kernel, madd_windows_kernel, bucket_reduce_kernel,
+aadd_kernel, aadd_rows_kernel and dbl_kernel,
 then the device time (mean of several launches: replayed in a CUDA graph
 for the group ops, between CUDA events for bucket_reduce) of G1 and G2
 add at 2^16 lanes (the kernel check's shape) and at 294,930 lanes (one
@@ -23,7 +26,10 @@ suffix-scan launch of a 2^20-point MSM), of madd at 2^16 lanes, of
 madd_win (the windowed fixed-base madd) at 2^20 lanes on the keygen's
 table (c = 8, 32 windows), and of bucket_reduce on the length-ordered
 segments of a 2^16-point MSM (c = 11) and of a 2^20-point MSM (c = 15,
-the path's shape), for alt_bn128 (16 limbs) and BLS12-377 (24 limbs).
+the path's shape), of aadd and dbl at 2^16 lanes (the kernel check's
+shape) and of aadd_rows on the first dense chunk of a 2^20-point MSM
+(c = 15, the dense prove's level 0), for alt_bn128 (16 limbs) and
+BLS12-377 (24 limbs).
 Points are 64 distinct ones spread over the lanes (a madd's work does not
 depend on which point it adds). Every variant's results are held
 bit-exact against the built-in one. Last, one JSON line with every time
@@ -32,6 +38,8 @@ and the card's name and power limit.
     python3 scripts/sweep_launch_bounds.py                 # needs one card
     python3 scripts/sweep_launch_bounds.py --variants "blocks 3"
     python3 scripts/sweep_launch_bounds.py --kernels madd madd_win
+    python3 scripts/sweep_launch_bounds.py --kernels aadd aadd_rows dbl \
+        --variants "blocks 1" "blocks 2" "blocks 3" "blocks 4"
 """
 from __future__ import annotations
 
@@ -55,8 +63,12 @@ _BLOCKS = ("LSN_ADD_BLOCKS_N16", "LSN_ADD_BLOCKS_N24", "LSN_MADD_BLOCKS_N16",
            "LSN_MADD_WIN_BLOCKS_N16", "LSN_MADD_WIN_BLOCKS_N24",
            "LSN_MADD_WIN_BLOCKS_G2_N16", "LSN_MADD_WIN_BLOCKS_G2_N24",
            "LSN_BUCKET_BLOCKS_N16",
-           "LSN_BUCKET_BLOCKS_N24")
-KERNELS = ("add", "madd", "madd_win", "bucket_reduce")
+           "LSN_BUCKET_BLOCKS_N24", "LSN_AADD_BLOCKS_N16",
+           "LSN_AADD_BLOCKS_N24", "LSN_AADD_BLOCKS_G2_N16",
+           "LSN_AADD_BLOCKS_G2_N24", "LSN_DBL_BLOCKS_N16",
+           "LSN_DBL_BLOCKS_N24", "LSN_DBL_BLOCKS_G2")
+KERNELS = ("add", "madd", "madd_win", "bucket_reduce", "aadd", "aadd_rows",
+           "dbl")
 # variant -> its -D flags
 VARIANTS = {f"blocks {k}": [f"-D{m}={k}" for m in _BLOCKS] for k in (1, 2, 3, 4)}
 VARIANTS.update({"product unrolled at 16 limbs": ["-DLSN_CHAIN_ROLL_NW=12"],
@@ -114,7 +126,8 @@ def cases(kernels=KERNELS, seed=5):
     from libsnark_tpu_torch import get_curve
     from libsnark_tpu_torch.ops import cuda_bucket, cuda_ec
     from libsnark_tpu_torch.proof_systems.base import PairingSystem
-    from chip_smoke import SCAN_LANES, ec_inputs, msm_inputs, rand_field
+    from chip_smoke import (SCAN_LANES, dense_chunk, ec_inputs, msm_inputs,
+                            rand_field)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rng = random.Random(seed)
     out = []
@@ -125,15 +138,30 @@ def cases(kernels=KERNELS, seed=5):
             fk = ck.fk
             tag = f"{'G2' if hasattr(fk, 'fp') else 'G1'} N={fk.N}"
             for L in (1 << 16, SCAN_LANES):
-                P, Q, _, Qa, valid = ec_inputs(ps.curve, ck, group, L, gen,
-                                               rng)
+                P, Q, Pa, Qa, valid = ec_inputs(ps.curve, ck, group, L, gen,
+                                                rng)
                 if "add" in kernels:
                     out.append((f"add {tag} {L} lanes",
                                 lambda fk=fk, P=P, Q=Q: cuda_ec.add(fk, P, Q)))
-                if "madd" in kernels and L == 1 << 16:
+                if L != 1 << 16:
+                    continue
+                if "madd" in kernels:
                     out.append((f"madd {tag} {L} lanes",
                                 lambda fk=fk, P=P, Qa=Qa, v=valid:
                                 cuda_ec.madd(fk, P, Qa, v)))
+                if "aadd" in kernels:
+                    out.append((f"aadd {tag} {L} lanes",
+                                lambda fk=fk, Pa=Pa, Qa=Qa:
+                                cuda_ec.aadd(fk, Pa, Qa)))
+                if "dbl" in kernels:
+                    out.append((f"dbl {tag} {L} lanes",
+                                lambda fk=fk, P=P: cuda_ec.dbl(fk, P)))
+            if "aadd_rows" in kernels:
+                pts, sc = msm_inputs(ps.curve, ps, ck, group, 1 << 20, gen, rng)
+                runs, chunk = dense_chunk(mk, pts, sc, 15)
+                out.append((f"aadd_rows {tag} {1 << 20} points c=15",
+                            lambda fk=fk, runs=runs, chunk=chunk:
+                            cuda_ec.aadd_rows(fk, *runs, *chunk)))
             if "madd_win" in kernels:
                 _, rows = ps._window_table_affine(ck, mk, group.one(), 8)
                 sc = rand_field(ps.fr, (1 << 20,), gen)
@@ -181,7 +209,8 @@ def main(argv=None) -> int:
         for line in cuda_lib.ptxas_summary({s: log for s, (_, log)
                                             in libs.items()}):
             if any(f" {k}_kernel<" in line for k in
-                   ("add", "madd", "madd_windows", "bucket_reduce")):
+                   ("add", "madd", "madd_windows", "bucket_reduce", "aadd",
+                    "aadd_rows", "dbl")):
                 print(f"  [{name}] {line}", flush=True)
     timed = cases(args.kernels)
     want = {label: fn() for label, fn in timed}
@@ -197,8 +226,9 @@ def main(argv=None) -> int:
             # the group ops in a replayed CUDA graph: at 2^16 lanes the
             # wrapper called in a loop takes longer on the host than the
             # kernel on the card
-            ms = (probes._graph_ms(fn, args.reps) if label.startswith("add")
-                  or label.startswith("madd") else cuda_ms(fn, args.reps))
+            graph = ("add", "madd", "madd_win", "aadd", "dbl")
+            ms = (probes._graph_ms(fn, args.reps)
+                  if label.split()[0] in graph else cuda_ms(fn, args.reps))
             table.setdefault(label, {})[name] = ms
             print(f"  [{name}] {label}: {ms:.4f} ms", flush=True)
         cuda_lib._libs.update(builtin)

@@ -280,9 +280,9 @@ def test_bucket_reduce_deep_and_wide_on_card(system, group_name):
 @pytest.mark.parametrize("group_name", ["G1", "G2"])
 def test_dense_window_sums_equal_default_on_card(system, group_name,
                                                  monkeypatch):
-    """The dense strategy (aadd level 0, add tree, chunk loop forced by a
-    shallow depth and sixteen equal scalars) gives the default strategy's
-    window sums as affine points."""
+    """The dense strategy (aadd_rows level 0, add tree, chunk loop forced by
+    a shallow depth and sixteen equal scalars) gives the default strategy's
+    window sums as affine points; the public aadd never launches."""
     ck, mk = _group(system, group_name)
     group = getattr(system.curve, group_name)
     r = system.curve.r
@@ -299,18 +299,97 @@ def test_dense_window_sums_equal_default_on_card(system, group_name,
     sc = system.scalars_to_dev(scalars)
     c = 7
     dense = MSMKernel(ck, mk.scalar_bits, strategy="dense")
-    key = cuda_ec.counter_key("aadd", mk.fk)
-    before = cuda_ec.LAUNCHES[key]
+    key = cuda_ec.counter_key("aadd_rows", mk.fk)
+    aadd = cuda_ec.counter_key("aadd", mk.fk)
+    before, aadd_before = cuda_ec.LAUNCHES[key], cuda_ec.LAUNCHES[aadd]
     lanes = lambda S: tuple(a.movedim(0, -2) for a in S)   # (.., W, 1)
     want = ck.to_affine(lanes(mk.window_sums(aff, sc, c)))
     assert cuda_ec.LAUNCHES[key] == before
     monkeypatch.setattr(dense, "dense_depth", lambda *a: 4)  # chunk loop
     got = ck.to_affine(lanes(dense.window_sums_dense(aff, sc, c)))
     assert cuda_ec.LAUNCHES[key] > before
+    assert cuda_ec.LAUNCHES[aadd] == aadd_before
     assert torch.equal(got[2], want[2])
     live = ~want[2]
     for a, b in zip(got[:2], want[:2]):
         assert torch.equal(a[..., live], b[..., live])
+
+
+@pytest.mark.parametrize("group_name", ["G1", "G2"])
+def test_aadd_rows_matches_plain_and_gathered_form_on_card(system,
+                                                           group_name):
+    """aadd_rows on the dense layout of a 2^12-point MSM at c = 8 whose
+    first 40 scalars are equal (a 40-deep bucket in every window), with a
+    point and its negation and a point twice at one scalar, two places
+    apart in their runs (P == -Q, P == Q at chunk depth 4), and infinity
+    bases: the full windows at depths 0-3 and 4-7 (a second chunk) and 0-47
+    (one chunk past every count but the deep bucket's), and the partial top
+    window; bit-exact against the plain version and the gathered form with
+    the aadd kernel (MSMKernel.dense_level0_composed), one launch a call."""
+    ck, mk = _group(system, group_name)
+    group = getattr(system.curve, group_name)
+    r = system.curve.r
+    m, c = 1 << 12, 8
+    rng = random.Random(23)
+    G = group.one()
+    base = [G * rng.randrange(1, r) for _ in range(64)]
+    pts = [base[rng.randrange(64)] for _ in range(m)]
+    scalars = [rng.randrange(1, r) for _ in range(m)]
+    for i in range(40):
+        scalars[i] = scalars[0]
+    scalars[101] = scalars[102] = scalars[100]
+    scalars[104] = scalars[105] = scalars[103]
+    pts[102], pts[105] = pts[100], -pts[103]
+    for i in range(200, 208):
+        pts[i] = group.zero()
+    aff = ck.encode_points(pts, jacobian=False)
+    sc = system.scalars_to_dev(scalars)
+    B = 1 << (c - 1)
+    digits, signs = mk.signed_digits(sc, c)
+    gidx, starts, counts = (t.to(torch.int32) for t in
+                            mk._sort_signed_bounds(digits, signs, m, B))
+    runs = (mk.row_table(aff, signed=True), gidx.reshape(-1), starts, counts,
+            m)
+    W_full = mk.scalar_bits // c
+    nb_top = min(B + 1, (1 << (mk.scalar_bits - c * W_full)) + 2)
+    key = cuda_ec.counter_key("aadd_rows", mk.fk)
+    for chunk in ((0, 2, 0, W_full, B + 1), (4, 2, 0, W_full, B + 1),
+                  (0, 24, 0, W_full, B + 1), (0, 2, W_full, 1, nb_top)):
+        before = cuda_ec.LAUNCHES[key]
+        got = cuda_ec.aadd_rows(mk.fk, *runs, *chunk)
+        assert cuda_ec.LAUNCHES[key] == before + 1
+        for want in (cuda_ec.aadd_rows_plain(mk.fk, *runs, *chunk),
+                     mk.dense_level0_composed(*runs, *chunk)):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), chunk
+
+
+@pytest.mark.parametrize("group_name", ["G1", "G2"])
+def test_dbl_chain_matches_plain_on_card(system, group_name):
+    """dbl_chain at the keygen's W = 32, c = 8, at c = 4 and at c = 0 (every
+    base is the point): bit-exact against its plain version and the
+    per-window dbl_n loop; window_table launches it once and no dbl."""
+    ck, mk = _group(system, group_name)
+    group = getattr(system.curve, group_name)
+    fk = mk.fk
+    P = ck.encode_points([group.one() * 12345])
+    key = cuda_bucket.counter_key("dbl_chain", fk)
+    for c, W in ((8, 32), (4, 3), (0, 2)):
+        before = cuda_bucket.LAUNCHES[key]
+        got = cuda_bucket.dbl_chain(fk, P, c, W)
+        assert cuda_bucket.LAUNCHES[key] == before + 1
+        for want in (cuda_bucket.dbl_chain_plain(fk, P, c, W),
+                     mk.window_bases_loop(P, c, W)):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (c, W)
+    dbl = cuda_ec.counter_key("dbl", fk)
+    before, dbl_before = cuda_bucket.LAUNCHES[key], cuda_ec.LAUNCHES[dbl]
+    aff = ck.encode_points([group.one()], jacobian=False)
+    T = mk.window_table(aff[:2], 8, 32)
+    assert cuda_bucket.LAUNCHES[key] == before + 1
+    assert cuda_ec.LAUNCHES[dbl] == dbl_before
+    assert ck.decode_points(tuple(a[..., 5, 3:4] for a in T), group) == [
+        group.one() * (3 << 40)]
 
 
 def _planted_scalar_ints(r, c, W, m, seed):
