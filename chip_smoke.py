@@ -7,12 +7,17 @@
    process per source, both field widths in each) and prints ptxas's
    registers, stack frames and spills per kernel and width.
 3. Runs the probes, each exact against its plain version: the 32-bit
-   operation rates and the Montgomery-product bodies at 16 and 24 limbs,
-   with the instructions of each kernel's main loop (cuobjdump -sass); and
+   operation rates (each with its bound from the instructions its step
+   needs, and beside it the time of the instructions a step of its main
+   loop holds, cuobjdump -sass, IMAD.WIDE counted as one lane instruction
+   and as two; mad_wide's loop must be one IMAD.WIDE.U32 a step and
+   nothing else) and the Montgomery-product bodies at 16 and 24
+   limbs, with the instructions of each kernel's main loop; and
    the eleven layout and row-copy kernels in every case of
    probes.layout_cases (the TPU scripts' shapes, odd offsets, shifts
    outside [0, axis), tiles with no word above 7, trip counts 1..6), with
-   where each kernel's data went (shared, local memory, barriers), an
+   where each kernel's data went (shared, local memory, barriers, 16-byte
+   accesses; cond_kernel must move 16-byte pieces), an
    empty kernel's time as the launch floor, and the row-copy rates at the
    row widths bucket_reduce gathers beside one index_select; and the latency
    of one dependent product (one thread, one lane group).
@@ -43,6 +48,8 @@
    aadd kernel), each timed in a replayed CUDA graph and between CUDA
    events; host encoding of 2^20 values, the
    Python Montgomery form against FpKernel.encode (mont_mul on the card);
+   ints_to_limbs and limbs_to_ints of 2^20 values at 16 and 24 limbs
+   through the native codec against their Python forms;
    and the dense strategy's window sums against the default strategy's on
    a 2^16-point MSM, with random scalars and with 4096 all-equal scalars
    (the chunk loop). Times each (CUDA events).
@@ -66,7 +73,13 @@
    dense prove, and that dense prove once more with its level 0 in the
    gathered form (the yardstick: its device time, peak memory and the
    public aadd's launches); the five largest device operations of each
-   profiled path that are no hand-written kernel; the keygen's window
+   profiled path that are no hand-written kernel; over BLS12-377 one more
+   default prove under torch.profiler with each torch call labelled by the
+   port functions on its Python stack (PortCallers), the device time of
+   torch's own operations grouped by the function of the port that issued
+   them (caller_split); four more default proves with the prove's limbs
+   packed by the Python form and by the native codec in turns, each
+   proof equal (prove_encode_in_turns); the keygen's window
    tables once more with their bases by the per-window dbl_n loop and by
    dbl_chain (equal tables; the public dbl's launches); the device time of
    a 2^20-point G1 and G2 MSM split into
@@ -87,7 +100,8 @@
    the long SRS; the commitment of 2^16 coefficients under the dense MSM
    strategy must equal the default strategy's. Over alt_bn128 also the
    batched two-point opening and the BDFG21 opening of a few polynomials
-   of degree 2^12 - 1, each accepted and rejected after tampering. Every
+   of degree 2^12 - 1, each accepted and rejected after tampering; the
+   2^22 commit and opening once more under caller_split. Every
    G1 kernel of the path must have launched in it, and the public dbl
    never. Over BLS12-377 the
    setup runs under the profiler, the random polynomial is committed and
@@ -132,6 +146,7 @@ import sys
 import time
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 # H100 SXM peaks. Memory: 3.35 TB/s HBM3 (NVIDIA data sheet). The data
 # sheet lists no integer rate. INT32_LANE_OPS_PER_S is one 32-bit integer
@@ -140,17 +155,31 @@ import torch
 # mul.lo and mad.lo at 94-96 % of it on an NVIDIA H100 80GB HBM3 at 700 W.
 # INT32_OPS_PER_S, the peak that the kernels' operation bounds use, is half
 # of that: a 32x32->64-bit multiply-add (IMAD.WIDE.U32, what the field
-# products are made of) writes two registers and is taken as two such
-# instructions. The probe can neither confirm nor raise it: the compiler
-# puts at least one add beside every IMAD.WIDE.U32, and its mad.wide chain
-# (one IMAD.WIDE.U32, one IADD3 and half an IADD3.X per step) runs at
-# 5.5e12 to 5.8e12 steps per second (this script measures it again and
-# prints it), so the bound stands on the optimistic side of the measurement.
+# products are made of) takes two issue slots. Measured: the mad_wide
+# probe, whose main loop is one IMAD.WIDE.U32 a step with its 64-bit
+# addend inside and nothing else (checked below), runs at 7.73e12 to
+# 7.78e12 steps per second (0.92-0.93 of this constant), and one row of the
+# carry-chain product (mad_cc, IMAD.WIDE.U32.X) at 8.25e12 to 8.32e12, on an
+# NVIDIA H100 80GB HBM3 at 700 W (scripts/probe_h100.py; this script
+# measures both again and prints them).
 MEM_BYTES_PER_S = 3.35e12
 INT32_LANE_OPS_PER_S = 67e12 / 4
 INT32_OPS_PER_S = INT32_LANE_OPS_PER_S / 2
 # an f32 multiply (67 TFLOP/s counts a fused multiply-add as two)
 F32_MUL_PER_S = 67e12 / 2
+# lane instructions an IMAD.WIDE takes under INT32_OPS_PER_S
+WIDE_SLOTS = INT32_LANE_OPS_PER_S / INT32_OPS_PER_S
+# the instructions one step of each rate probe needs, whatever else the
+# toolchain puts beside them: its bound (add64: two steps in one IADD3 and
+# one IADD3.X, a three-input add taking two addends at once)
+RATE_STEP = {"mul_lo": {"IMAD": 1}, "mad_lo": {"IMAD": 1},
+             "mad_hi": {"IMAD.HI.U32": 1},
+             "mad_wide": {"IMAD.WIDE.U32": 1},
+             "add64": {"IADD3": 0.5, "IADD3.X": 0.5},
+             "shift_and": {"SHF.R.U32.HI": 1, "LOP3.LUT": 1},
+             "mul_f32": {"FMUL": 1},
+             "mad_wide_split": {"IMAD.WIDE.U32": 1},
+             "mad_cc": {"IMAD.WIDE.U32.X": 1}}
 # base-field products a lane (aadd_rows: an output lane; dbl_chain: a doubling)
 PRODUCTS = {"aadd": 6, "dbl": 7, "madd": 11, "add": 16, "aadd_rows": 6,
             "dbl_chain": 7}
@@ -222,6 +251,16 @@ SOURCE.update({name: "libsnark_tpu_torch/csrc/probe_layout.cu"
 
 def log(*a):
     print(*a, flush=True)
+
+
+def rate_bound_ms(per_step: dict, steps: int, wide: float) -> float:
+    """Least time of ``steps`` steps of a rate probe of ``per_step``
+    instructions (opcode -> count) a step: each at the lane rate (an f32
+    one at the f32 rate), an IMAD.WIDE as ``wide`` of them."""
+    lane = sum(n * (wide if opc.startswith("IMAD.WIDE") else 1)
+               for opc, n in per_step.items() if not opc.startswith("F"))
+    f32 = sum(n for opc, n in per_step.items() if opc.startswith("F"))
+    return steps * (lane / INT32_LANE_OPS_PER_S + f32 / F32_MUL_PER_S) * 1e3
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S):
@@ -353,9 +392,14 @@ def check_layout(K):
         K.add(r["name"], f"probe_layout_{r['name']}", 0 if r["exact"] else 1,
               r["ms"], r["plain_ms"], r["bytes"], 0,
               library_ms=r["library_ms"], launch_floor_ms=r["floor_ms"])
-    log("probe: where each layout kernel's data went (cuobjdump -sass)")
+    log("probe: where each layout kernel's data went (cuobjdump -sass; "
+        ".128: 16-byte accesses)")
     for key, ops in probes.sass_memory_ops().items():
         log(f"    {key}: " + ", ".join(f"{n} {opc}" for opc, n in ops.items()))
+        if key == "probe_layout_cond" and not (ops.get("LDG.128")
+                                               and ops.get("STG.128")):
+            raise AssertionError("cond_kernel has no 16-byte loads and "
+                                 f"stores: {ops}")
     log("probe: row_copy over 2^20 rows at bucket_reduce's row widths "
         "(segments of R rows at random offsets; torch: one index_select)")
     rates = []
@@ -379,17 +423,44 @@ def check_probes(K, fqs):
     from libsnark_tpu_torch import probes
     for k in probes.LAUNCHES:
         probes.LAUNCHES[k] = 0
-    log("probe: 32-bit operation rates (8 chains x 270336 threads x 4096 steps)")
+    loops = probes.sass_loops()
+    steps_of = {k: probes.loop_counts(loop, control=False)
+                for k, loop in loops.items()}
+    if not probes.single_wide_mad_loop(steps_of["probe_rate_mad_wide"]):
+        raise AssertionError(
+            "the mad_wide loop is not one IMAD.WIDE.U32 a step and nothing "
+            f"else: {steps_of['probe_rate_mad_wide']}")
+    per_pass = probes.CHAINS * probes.RATE_UNROLL
+    log("probe: 32-bit operation rates (8 chains x 270336 threads x 4096 "
+        "steps); bound: the instructions a step needs (RATE_STEP) at the "
+        "lane rate, an IMAD.WIDE at INT32_OPS_PER_S; beside it the "
+        "instructions a step of the main loop holds (its control left out) "
+        "at the lane rate, IMAD.WIDE as one instruction and as two")
     for r in probes.measure_rates():
-        per_s = (F32_MUL_PER_S if r["op"] == "mul_f32"
-                 else INT32_LANE_OPS_PER_S)
         key = f"probe_rate_{r['op']}"
+        listing = {opc: n / per_pass for opc, n in steps_of[key].items()}
+        b = rate_bound_ms(RATE_STEP[r["op"]], r["steps"], WIDE_SLOTS)
+        one, two = (rate_bound_ms(listing, r["steps"], w)
+                    for w in (1, WIDE_SLOTS))
         K.add("probe_rate", key, 0 if r["exact"] else 1, r["ms"],
-              r["plain_ms"], 12 * r["steps"] / r["K"], r["steps"], per_s)
-        log(f"    {r['op']}: {r['gsteps_per_s']:.1f} G steps/s")
-        if r["op"] == "mad_wide":
-            log(f"    mad.wide step measured {r['gsteps_per_s'] / 1e3:.3f}e12/s; "
-                f"the bounds use INT32_OPS_PER_S = {INT32_OPS_PER_S:.4g}")
+              r["plain_ms"], 12 * r["steps"] / r["K"],
+              b * 1e-3 * INT32_LANE_OPS_PER_S, INT32_LANE_OPS_PER_S,
+              gsteps_per_s=r["gsteps_per_s"], step_needs=RATE_STEP[r["op"]],
+              step_listing=listing, listing_ms_wide_as_one=one,
+              listing_ms_wide_as_two=two)
+        log(f"    {r['op']}: {r['gsteps_per_s']:.1f} G steps/s; bound "
+            f"{b:.4f} ms ({b / r['ms']:.1%}) from "
+            + " + ".join(f"{n:g} {opc}" for opc, n in RATE_STEP[r["op"]].items())
+            + f" a step; the listing's {sum(listing.values()):.3f} "
+            "instructions a step ("
+            + ", ".join(f"{n:g} {opc}" for opc, n in listing.items())
+            + f") at the lane rate {one:.4f} ms (IMAD.WIDE as one: "
+            f"{one / r['ms']:.1%}), {two:.4f} ms (as two: {two / r['ms']:.1%})")
+        if r["op"] in ("mad_wide", "mad_cc"):
+            log(f"    {r['op']}: one wide multiply-add a step, measured "
+                f"{r['gsteps_per_s'] / 1e3:.4f}e12/s = "
+                f"{r['gsteps_per_s'] * 1e9 / INT32_OPS_PER_S:.3f} x "
+                f"INT32_OPS_PER_S ({INT32_OPS_PER_S:.4g})")
     log("probe: Montgomery-product bodies (2^20 lanes x 64 chained products)")
     for r in probes.measure_cios(fqs):
         key = f"probe_cios_{r['variant']}_n{r['N']}"
@@ -414,10 +485,10 @@ def check_probes(K, fqs):
             raise AssertionError(f"probe kernel not launched: {key}")
         K.count(key, "probe", n)
     log("probe: instructions in each kernel's main loop (cuobjdump -sass)")
-    for key, loop in probes.sass_loops().items():
-        log(f"    {key}: {sum(loop.values())} instructions: "
-            + (", ".join(f"{n} {opc}" for opc, n in loop.items())
-               or "no loop"))
+    for key, loop in loops.items():
+        log(f"    {key}: {len(loop)} instructions: "
+            + (", ".join(f"{n} {opc}" for opc, n in
+                         probes.loop_counts(loop).items()) or "no loop"))
 
 
 def check_mont_mul(fr, fq, K, gen):
@@ -759,6 +830,63 @@ def check_encode(fk, label: str):
         + " / ".join(f"{t:.3f}" for t in times["card"]) + " s: equal limbs")
 
 
+def check_limb_codec():
+    """ints_to_limbs and limbs_to_ints of 2^20 seeded values at 16 and 24
+    limbs through the native codec against their Python forms: equal
+    limbs and ints; host wall time of each, in turns."""
+    from libsnark_tpu_torch.ops import limbs
+    for N in (16, 24):
+        xs = seeded_coeffs(1 << (16 * N), 1 << 20, 51)
+        times = {k: [] for k in ("enc_py", "enc", "dec_py", "dec")}
+        out = {}
+        for form in ("py", "codec", "codec", "py"):
+            enc, dec = ((limbs._ints_to_limbs_py, limbs._limbs_to_ints_py)
+                        if form == "py" else
+                        (limbs.ints_to_limbs, limbs.limbs_to_ints))
+            suffix = "_py" if form == "py" else ""
+            t0 = time.perf_counter()
+            arr = enc(xs, N)
+            t1 = time.perf_counter()
+            back = dec(arr)
+            t2 = time.perf_counter()
+            times["enc" + suffix].append(t1 - t0)
+            times["dec" + suffix].append(t2 - t1)
+            out[form] = arr
+            if back != xs:
+                raise AssertionError(f"limbs_to_ints ({form}, N={N}) does not "
+                                     "give back the values")
+        if not (out["py"] == out["codec"]).all():
+            raise AssertionError(f"the codec's limbs differ from the Python "
+                                 f"form's at N={N}")
+        fmt = lambda k: " / ".join(f"{t:.3f}" for t in times[k])
+        log(f"limb codec N={N}, 2^20 values (host s, in turns): "
+            f"ints_to_limbs Python form {fmt('enc_py')}, codec {fmt('enc')}; "
+            f"limbs_to_ints Python form {fmt('dec_py')}, codec {fmt('dec')}: "
+            "equal")
+
+
+def prove_encode_in_turns(g16, kp, primary, aux, proof, label: str):
+    """Four more default proves, their limbs packed by the Python form of
+    ints_to_limbs and by the native codec in turns (Python, codec, codec,
+    Python): each proof equal to the path's; the prove's host encoding
+    (its prove_encode phase) under each."""
+    from unittest import mock
+    from libsnark_tpu_torch.ops import fp, limbs
+    times = {"python": [], "codec": []}
+    for form in ("python", "codec", "codec", "python"):
+        enc = (limbs._ints_to_limbs_py if form == "python"
+               else limbs.ints_to_limbs)
+        t = {}
+        with mock.patch.object(fp, "ints_to_limbs", enc):
+            if g16.prover(kp.pk, primary, aux, seed=9, timings=t) != proof:
+                raise AssertionError(f"the proof with the {form} limb "
+                                     "packing differs")
+        times[form].append(t["prove_encode"])
+    log(f"  prove_encode {label} in turns (s): Python form "
+        + " / ".join(f"{x:.3f}" for x in times["python"]) + ", codec "
+        + " / ".join(f"{x:.3f}" for x in times["codec"]))
+
+
 def msm_inputs(curve, g16, ck, group, m, gen, rng):
     """64 distinct points spread over m lanes: lanes 0..63 one point with
     one scalar (P == Q inside a bucket), 64..71 infinity, 72..79 zero
@@ -1058,6 +1186,11 @@ def main_path(curve, log2: int, paths: dict):
             strategy].prover(kp.pk, primary, aux, seed=9), paths)
         if timed != proof:
             raise AssertionError(f"the profiled proof ({strategy}) differs")
+    if curve.name == "bls12_377":
+        if caller_split(f"prove_{curve.name}", lambda: g16.prover(
+                kp.pk, primary, aux, seed=9), paths) != proof:
+            raise AssertionError("the proof under PortCallers differs")
+    prove_encode_in_turns(g16, kp, primary, aux, proof, curve.name)
     # the kernels the path no longer runs count where their forms still do
     yardsticks = {
         f"prove_dense_gathered_{curve.name}": dense_gathered_prove(
@@ -1439,9 +1572,15 @@ def kzg_path(curve, log2: int, small_log2=None, paths=None) -> dict:
                              f"path: {missing}")
     if paths is not None:
         z = rng.randrange(r)
-        path_timing(f"kzg_{curve.name}", lambda: (
+        timed = path_timing(f"kzg_{curve.name}", lambda: (
             kzg.commit(srs, coeffs),
             kzg.create_evaluation_witness(srs, coeffs, z)), paths)
+        if caller_split(f"kzg_{curve.name}", lambda: (
+                kzg.commit(srs, coeffs),
+                kzg.create_evaluation_witness(srs, coeffs, z)),
+                paths) != timed:
+            raise AssertionError("the commitment or witness under "
+                                 "PortCallers differs")
         kzg_batch_exp_before_after(kzg, n)
 
     t0 = time.perf_counter()
@@ -1691,6 +1830,7 @@ def path_timing(label: str, fn, paths: dict):
     kern = sum(r["ms"] for r in rows.values())
     paths[label] = {"kernels": rows, "busy_ms": busy, "wall_ms": wall,
                     "unrecorded_launches": lost,
+                    "other_ms": sum(o[0] for o in others),
                     "other_ops": [{"name": name[:120], "launches": n, "ms": ms}
                                   for ms, n, name in others[:5]]}
     log(f"  path {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
@@ -1707,6 +1847,97 @@ def path_timing(label: str, fn, paths: dict):
         " ms in all):")
     for ms, n, name in others[:5]:
         log(f"    {ms:.3f} ms, {n} launches: {name[:160]}")
+    return out
+
+
+_PORT_FILE = re.compile(r"libsnark_tpu_torch/(.+\.py)$")
+PORT_LABEL = "port: "
+PORT_DEPTH = 3          # port functions a PortCallers label names
+CALLER_TOP = 10         # callers caller_split prints
+
+
+class PortCallers(TorchFunctionMode):
+    """While active, runs every torch call made under a function of the
+    port inside a torch.profiler.record_function range named after the
+    innermost PORT_DEPTH functions of the port on the Python stack
+    (PORT_LABEL + "ops/cuda_fp.py:normalize < ops/fp.py:add < ..."), so
+    that a profile can charge each device operation to the port function
+    that issued it. (torch.profiler's own with_stack records no Python
+    frame with the card machine's torch 2.11: empty stacks and no Python
+    function events.) Calls that torch makes inside a call run outside the
+    mode, so each operation carries one label."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        frames, f = [], sys._getframe(1)
+        while f is not None and len(frames) < PORT_DEPTH:
+            m = _PORT_FILE.search(f.f_code.co_filename)
+            key = m and f"{m.group(1)}:{f.f_code.co_name}"
+            if key and key not in frames:
+                frames.append(key)
+            f = f.f_back
+        if not frames:
+            return func(*args, **kwargs)
+        with torch.profiler.record_function(PORT_LABEL + " < ".join(frames)):
+            return func(*args, **kwargs)
+
+
+def port_callers(event) -> list:
+    """The port functions a PortCallers label above a profiler event
+    names, innermost first ([] without one)."""
+    parent = event.cpu_parent
+    while parent is not None:
+        if parent.name.startswith(PORT_LABEL):
+            return parent.name[len(PORT_LABEL):].split(" < ")
+        parent = parent.cpu_parent
+    return []
+
+
+def caller_split(label: str, fn, paths: dict):
+    """fn() under torch.profiler (CPU and CUDA activity) and PortCallers:
+    the device time of every operation that is no hand-written kernel
+    (torch's own kernels, copies), grouped by the innermost function of
+    the port above the operator that launched it, with the two port
+    functions above that one. Prints the CALLER_TOP largest beside the same
+    operations' device time in the path's own profile (paths[label],
+    path_timing); returns fn()."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with PortCallers():
+            out = fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    split = {}
+    for e in events:
+        # operators only: the profiler's own records may share an
+        # operator's id and carry its kernels too
+        if e.device_type != torch.autograd.DeviceType.CPU \
+                or "::" not in e.name or not e.kernels:
+            continue
+        ks = [k for k in e.kernels if kernel_key(k.name) is None]
+        if not ks:
+            continue
+        callers = port_callers(e) or ["(no port function)"]
+        row = split.setdefault(callers[0], [0.0, 0, {}])
+        ms = sum(k.duration for k in ks) / 1e3
+        row[0] += ms
+        row[1] += len(ks)
+        outer = " < ".join(callers[1:]) or "-"
+        row[2][outer] = row[2].get(outer, 0.0) + ms
+    attributed = sum(r[0] for r in split.values())
+    log(f"  {label}: torch's own device operations by the port function that "
+        f"issued them (torch.profiler, PortCallers; wall {wall:.0f} ms under "
+        f"them; {attributed:.1f} ms in all, {paths[label]['other_ms']:.1f} in "
+        f"the path's own profile), the {CALLER_TOP} largest:")
+    for key, (ms, n, outer) in sorted(split.items(),
+                                      key=lambda kv: -kv[1][0])[:CALLER_TOP]:
+        log(f"    {ms:.3f} ms, {n} launches: {key} (called from "
+            + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+                outer.items(), key=lambda kv: -kv[1])[:3]) + ")")
     return out
 
 
@@ -1823,6 +2054,7 @@ def main(argv=None) -> int:
         check_bucket_and_horner(g16.curve, g16, K, gen, rng)
         check_dense_window_sums(g16.curve, g16, gen, rng)
         log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
+    check_limb_codec()
     small_cross_check(get_curve("alt_bn128"))
     del systems
     paths = {}

@@ -1,22 +1,37 @@
 // Two measurement kernels for the card (no part of the proving path):
 //
 // rate_kernel: the card's counterpart of the TPU probe
-// scripts/probe_vpu_ops.py:49. Every thread runs CHAINS independent
-// dependent-chains of K steps of one 32-bit operation, so the pipes stay
-// full and the time of a launch is steps / rate. The operations are the
-// ones the field code is made of: mul.lo, mad.lo, mad.hi, the 32x32->64
-// multiply-add CIOS is built from (mad.wide), a 64-bit add (add.cc + addc),
-// shift+and, and an f32 multiply as the yardstick against the data sheet.
-// The mad.wide step is w = lo(w) * y + w, written as the PTX instruction
-// itself, with the register pair it replaces as its 64-bit addend. ptxas
-// (CUDA 12.9, sm_90a) still does not make it one instruction: it emits
-// IMAD.WIDE.U32 with a zero addend and adds the old pair with IADD3 and
-// IADD3.X (probes.sass_loops prints the loop), and the Montgomery bodies
-// below get adds beside their wide multiplies in the same way. So this row
-// is the rate of a wide multiply-add as the toolchain builds it, not of
-// the bare instruction.
-// Bound: the instruction rate of the named operation; it moves 12 bytes per
-// chain whatever K is.
+// scripts/probe_vpu_ops.py:49. Every thread runs CHAINS chains of K
+// dependent steps of one 32-bit operation, so the pipes stay full and the
+// time of a launch is steps / rate. The operations are the ones the field
+// code is made of: mul.lo, mad.lo, mad.hi, the 32x32->64 multiply-add
+// (three forms, below), a 64-bit add (add.cc + addc), shift+and, and an f32
+// multiply as the yardstick against the data sheet.
+//
+// The wide multiply-add is the instruction every product bound rests on,
+// so the probe has to issue it and nothing else. Written as PTX mad.wide,
+// ptxas (sm_90a) does not make it one instruction: it emits IMAD.WIDE.U32
+// with a zero addend and adds the old pair with IADD3 and IADD3.X, whatever
+// chain the multiplicand comes from (the chain's own low word, a
+// neighbour's, rotations over 2, 4 and 8 chains were tried). Written as
+// the carry-chain pair mad.lo.cc + madc.hi inside one asm statement on a
+// 64-bit register, the form field.cuh's product is made of, it becomes one
+// IMAD.WIDE.U32 with the 64-bit addend inside. So:
+//  - mad_wide: w[c] = lo(w[c ^ 1]) * y[c] + w[c], chains in pairs updated
+//    in order (the even chain reads its partner's old value, the odd one
+//    the new), in the carry-chain form: one IMAD.WIDE.U32 a step and no add
+//    (probes.single_wide_mad_loop checks the listing). Of the recurrences
+//    tried in that form, the pairs ran fastest on an H100.
+//  - mad_wide_split: w[c] = lo(w[c]) * y[c] + w[c] as PTX mad.wide, the
+//    body this probe had before and what C code gets from the toolchain
+//    (one IMAD.WIDE.U32, one IADD3 and half an IADD3.X a step).
+//  - mad_cc: one row of field.cuh's product, w[c] += x[c] * y[c] + carry
+//    over the CHAINS pairs as one mad.lo.cc / madc.hi.cc carry chain a step
+//    (x, y fixed, the carry out of the last pair dropped): IMAD.WIDE.U32
+//    and IMAD.WIDE.U32.X with the carries in predicates.
+// Bound: the instructions of a step in the main loop's machine code
+// (probes.sass_loops), at the lane rate; it moves 12 bytes per chain
+// whatever K is.
 //
 // cios_kernel: the counterpart of scripts/probe_cios.py:98. K chained
 // Montgomery products x <- x * b per lane in four bodies: CIOS (variant
@@ -37,7 +52,38 @@
 
 #define CHAINS 8
 
-enum RateOp { MUL_LO = 0, MAD_LO, MAD_HI, MAD_WIDE, ADD64, SHIFT_AND, MUL_F32 };
+enum RateOp { MUL_LO = 0, MAD_LO, MAD_HI, MAD_WIDE, ADD64, SHIFT_AND, MUL_F32,
+              MAD_WIDE_SPLIT, MAD_CC };
+
+// w += m * y (mod 2^64) as the carry-chain pair on one 64-bit register: one
+// IMAD.WIDE.U32 with w as its addend
+__device__ __forceinline__ void mad_wide_cc(uint64_t& w, uint32_t m,
+                                            uint32_t y) {
+  asm("{ .reg .u32 l, h; mov.b64 {l, h}, %0;"
+      " mad.lo.cc.u32 l, %1, %2, l; madc.hi.u32 h, %1, %2, h;"
+      " mov.b64 %0, {l, h}; }"
+      : "+l"(w) : "r"(m), "r"(y));
+}
+
+// w[c] += x[c] y[c] + carry, c = 0 .. CHAINS - 1, as one carry chain (the
+// flag lives between the volatile statements, as in field.cuh)
+__device__ __forceinline__ void mad_cc_row(uint64_t* w, const uint32_t* x,
+                                           const uint32_t* y) {
+  asm volatile("{ .reg .u32 l, h; mov.b64 {l, h}, %0;"
+               " mad.lo.cc.u32 l, %1, %2, l; madc.hi.cc.u32 h, %1, %2, h;"
+               " mov.b64 %0, {l, h}; }"
+               : "+l"(w[0]) : "r"(x[0]), "r"(y[0]));
+#pragma unroll
+  for (int c = 1; c < CHAINS - 1; ++c)
+    asm volatile("{ .reg .u32 l, h; mov.b64 {l, h}, %0;"
+                 " madc.lo.cc.u32 l, %1, %2, l; madc.hi.cc.u32 h, %1, %2, h;"
+                 " mov.b64 %0, {l, h}; }"
+                 : "+l"(w[c]) : "r"(x[c]), "r"(y[c]));
+  asm volatile("{ .reg .u32 l, h; mov.b64 {l, h}, %0;"
+               " madc.lo.cc.u32 l, %1, %2, l; madc.hi.u32 h, %1, %2, h;"
+               " mov.b64 %0, {l, h}; }"
+               : "+l"(w[CHAINS - 1]) : "r"(x[CHAINS - 1]), "r"(y[CHAINS - 1]));
+}
 
 // a, b, out: CHAINS x T words (chain c of thread t at c*T + t). The 64-bit
 // ops run on w (high word zero at the start) and return lo ^ hi.
@@ -55,14 +101,16 @@ rate_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
     y[c] = b[c * T + t];
     w[c] = x[c];
   }
-#pragma unroll 4
+#pragma unroll 4                 // probes.RATE_UNROLL: steps of a chain a pass
   for (int k = 0; k < K; ++k) {
+    if (OP == MAD_CC) mad_cc_row(w, x, y);
 #pragma unroll
     for (int c = 0; c < CHAINS; ++c) {
       if (OP == MUL_LO) x[c] = x[c] * y[c];
       if (OP == MAD_LO) x[c] = x[c] * y[c] + y[c];
       if (OP == MAD_HI) x[c] = __umulhi(x[c], y[c]) + y[c];
-      if (OP == MAD_WIDE)
+      if (OP == MAD_WIDE) mad_wide_cc(w[c], (uint32_t)w[c ^ 1], y[c]);
+      if (OP == MAD_WIDE_SPLIT)
         asm("mad.wide.u32 %0, %1, %2, %0;"
             : "+l"(w[c]) : "r"((uint32_t)w[c]), "r"(y[c]));
       if (OP == ADD64) w[c] = w[c] + (((uint64_t)y[c] << 32) | y[c]);
@@ -73,7 +121,7 @@ rate_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
   }
 #pragma unroll
   for (int c = 0; c < CHAINS; ++c) {
-    if (OP == MAD_WIDE || OP == ADD64)
+    if (OP == MAD_WIDE || OP == ADD64 || OP == MAD_WIDE_SPLIT || OP == MAD_CC)
       x[c] = (uint32_t)w[c] ^ (uint32_t)(w[c] >> 32);
     out[c * T + t] = x[c];
   }
@@ -97,6 +145,8 @@ extern "C" int lsn_probe_rate(int op, const void* a, const void* b, void* out,
     RATE_CASE(ADD64)
     RATE_CASE(SHIFT_AND)
     RATE_CASE(MUL_F32)
+    RATE_CASE(MAD_WIDE_SPLIT)
+    RATE_CASE(MAD_CC)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RATE_CASE

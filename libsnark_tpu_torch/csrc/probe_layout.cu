@@ -187,20 +187,80 @@ roll_middle_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
     dst[(int64_t)r * L] = v[(r - sh + ROLL_R) % ROLL_R];
 }
 
-// ---- row 17: out = x + 1 if any word of the tile is > 7, else x. One
-// block owns the whole tile: one block-wide vote, then a branch that is
-// uniform over the block.
-__global__ void __launch_bounds__(256)
+// ---- row 17: out = x + 1 (mod 2^32) if any word of the tile is > 7,
+// else x. One block owns the tile, so the vote is one __syncthreads_or
+// and the branch is uniform. The bound is the launch (16 KB at 3.35 TB/s
+// is 5 ns), so the kernel crosses memory once and keeps every load of a
+// thread in flight together: each thread issues all the loads of its
+// words before it uses one, keeps the words in registers, takes the vote
+// and stores from registers. Words move as 16-byte pieces (LDG.E.128 /
+// STG.E.128) where both arrays are 16-byte aligned, else one word a load,
+// so that any view works; either way neighbouring threads take
+// neighbouring pieces. The registers hold the first COND_HELD words (the
+// TPU script's (16, 128) tile is 2048: two pieces a thread), rounded down
+// to whole pieces, and one more word a thread (the 1-3 words past the last
+// whole piece). Only a tile larger than that is read twice, past those
+// words: once in a loop to vote and once to store.
+#define COND_THREADS 256
+#define COND_PIECES 4                        // 4-word pieces held a thread
+#define COND_HELD (COND_THREADS * COND_PIECES * 4)
+__global__ void __launch_bounds__(COND_THREADS)
 cond_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-            int n) {
-  int mine = 0;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) mine |= x[j] > 7u;
-  int any = __syncthreads_or(mine);
-  if (any) {
-    for (int j = threadIdx.x; j < n; j += blockDim.x) out[j] = x[j] + 1u;
+            uint32_t n, int vec) {
+  const uint32_t t = threadIdx.x;
+  uint32_t held = min(n, (uint32_t)COND_HELD);
+  if (vec) held &= ~3u;
+  uint32_t v[COND_PIECES][4] = {};
+  if (vec) {
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+#pragma unroll
+    for (int u = 0; u < COND_PIECES; ++u) {
+      uint32_t i = u * COND_THREADS + t;
+      if (4 * i < held) {
+        uint4 q = __ldg(xv + i);
+        v[u][0] = q.x; v[u][1] = q.y; v[u][2] = q.z; v[u][3] = q.w;
+      }
+    }
   } else {
-    for (int j = threadIdx.x; j < n; j += blockDim.x) out[j] = x[j];
+#pragma unroll
+    for (int u = 0; u < COND_PIECES; ++u)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        uint32_t j = (4 * u + k) * COND_THREADS + t;
+        if (j < held) v[u][k] = __ldg(x + j);
+      }
   }
+  const uint32_t j1 = held + t;              // the thread's word past them
+  const uint32_t w1 = j1 < n ? __ldg(x + j1) : 0u;
+  int mine = w1 > 7u;
+#pragma unroll
+  for (int u = 0; u < COND_PIECES; ++u)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mine |= v[u][k] > 7u;    // unloaded: 0
+  for (uint32_t j = held + COND_THREADS + t; j < n; j += COND_THREADS)
+    mine |= __ldg(x + j) > 7u;
+  const uint32_t inc = __syncthreads_or(mine) ? 1u : 0u;
+  if (vec) {
+    uint4* ov = reinterpret_cast<uint4*>(out);
+#pragma unroll
+    for (int u = 0; u < COND_PIECES; ++u) {
+      uint32_t i = u * COND_THREADS + t;
+      if (4 * i < held)
+        ov[i] = make_uint4(v[u][0] + inc, v[u][1] + inc, v[u][2] + inc,
+                           v[u][3] + inc);
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < COND_PIECES; ++u)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        uint32_t j = (4 * u + k) * COND_THREADS + t;
+        if (j < held) out[j] = v[u][k] + inc;
+      }
+  }
+  if (j1 < n) out[j1] = w1 + inc;
+  for (uint32_t j = held + COND_THREADS + t; j < n; j += COND_THREADS)
+    out[j] = x[j] + inc;
 }
 
 // ---- row 18: out[i, :] = x[i, s : s + W] for x (rows, total), s in
@@ -369,7 +429,9 @@ extern "C" int lsn_layout_roll_middle(const void* x, void* out, int A, int L,
 
 extern "C" int lsn_layout_cond(const void* x, void* out, int n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  cond_kernel<<<1, 256, 0, (cudaStream_t)stream>>>(U32(x), O32(out), n);
+  int vec = ((uintptr_t)x | (uintptr_t)out) % 16 == 0;
+  cond_kernel<<<1, COND_THREADS, 0, (cudaStream_t)stream>>>(
+      U32(x), O32(out), (uint32_t)n, vec);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,8 @@ On the host the limbs are numpy uint32 (the JAX package's dtype); on the
 torch side they are ``torch.int32``, which holds the same bits for values
 below 2^16 (torch's uint32 has partial operator coverage).
 
+``ints_to_limbs`` / ``limbs_to_ints`` convert on the host through the
+native codec (``libsnark_tpu_torch/native``, built with g++ at first use).
 ``limbs_to_words`` / ``words_to_limbs`` convert to and from the CUDA
 kernels' register layout, 32-bit words (two limbs each) carried as int32
 bit patterns: the packed row table that ``bucket_reduce`` gathers.
@@ -20,6 +22,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..native import limbcodec
 
 LIMB_BITS = 16
 LIMB_MASK = (1 << LIMB_BITS) - 1
@@ -32,10 +36,18 @@ def int_to_limbs(x: int, n: int) -> np.ndarray:
 
 
 def ints_to_limbs(xs, n: int) -> np.ndarray:
-    """Iterable of non-negative ints < 2^(16 n) -> (n, len(xs)) uint32.
+    """Iterable of non-negative ints < 2^(16 n) (Python or numpy integers)
+    -> (n, len(xs)) uint32, through the native codec (``native``; built at
+    first use, raises if it cannot be). OverflowError for a negative int or
+    one of 2^(16 n) or more."""
+    xs = xs if isinstance(xs, (list, tuple)) else list(xs)
+    buf = limbcodec().encode(xs, n)
+    return np.frombuffer(buf, dtype=np.uint32).reshape(n, len(xs)).copy()
 
-    Goes through ``int.to_bytes`` and one numpy view, so 2^20 ints take
-    well under a second."""
+
+def _ints_to_limbs_py(xs, n: int) -> np.ndarray:
+    """The Python form of ``ints_to_limbs`` (``int.to_bytes`` per element
+    and one numpy view), kept as the codec's reference."""
     xs = list(xs)
     if not xs:
         return np.zeros((n, 0), dtype=np.uint32)
@@ -52,7 +64,16 @@ def limbs_to_int(a) -> int:
 
 
 def limbs_to_ints(a) -> list:
-    """(n, B) limb array -> list of B ints."""
+    """(n, B) limb array -> list of B ints (the low 16 bits of each limb),
+    through the native codec."""
+    a = np.ascontiguousarray(np.asarray(a), dtype=np.uint32)
+    n, b = a.shape
+    return limbcodec().decode(a, n, b)
+
+
+def _limbs_to_ints_py(a) -> list:
+    """The Python form of ``limbs_to_ints``, kept as the codec's
+    reference."""
     a = np.asarray(a)
     n, b = a.shape
     raw = np.ascontiguousarray(a.T.astype("<u2")).tobytes()

@@ -3,14 +3,19 @@ product bodies (csrc/probe.cu), and the layout and row-copy probes
 (csrc/probe_layout.cu). No part of the proving path.
 
 ``rate_chain`` replaces the TPU probe ``scripts/probe_vpu_ops.py:49``: every
-thread runs 8 independent chains of K dependent steps of one operation
-(``RATE_OPS``), so a launch takes steps / rate. ``cios_chain`` replaces
-``scripts/probe_cios.py:98``: K chained Montgomery products x <- x * b per
-lane in five bodies (``CIOS_VARIANTS``), at every built field width; the
-fifth splits each product over a group of lanes (``mont_mul_lanes_plain``
-models it word by word). ``measure_product_latency`` runs the chains over
-one element: the latency of one dependent product, the yardstick of
-``horner_combine``'s bound.
+thread runs 8 chains of K dependent steps of one operation (``RATE_OPS``),
+so a launch takes steps / rate. Three of them are the 32x32->64-bit
+multiply-add the field products are made of: ``mad_wide`` (one
+IMAD.WIDE.U32 a step, its 64-bit addend inside; ``single_wide_mad_loop``
+checks the machine code), ``mad_wide_split`` (PTX mad.wide, which the
+toolchain splits into a multiply and adds) and ``mad_cc`` (one row of the
+carry-chain product: the 8 chains are one 512-bit accumulator).
+``cios_chain`` replaces ``scripts/probe_cios.py:98``: K chained Montgomery
+products x <- x * b per lane in five bodies (``CIOS_VARIANTS``), at every
+built field width; the fifth splits each product over a group of lanes
+(``mont_mul_lanes_plain`` models it word by word).
+``measure_product_latency`` runs the chains over one element: the latency
+of one dependent product, the yardstick of ``horner_combine``'s bound.
 
 Beside each stands its plain PyTorch version (int64 arithmetic masked to
 32 bits; the plain Montgomery product), taken for CPU tensors and used to
@@ -32,12 +37,15 @@ gathers; ``launch_floor_ms`` times an empty kernel launched and replayed the
 same way, the least time any of them can take.
 
 ``sass_loops`` reads the machine code of the built probe kernels
-(``cuobjdump -sass``) and counts the instructions of each kernel's main
-loop, so that a rate can be read as the rate of an instruction: a step that
-compiles to one instruction runs at that instruction's rate, one that
-compiles to three does not. ``sass_memory_ops`` counts, per layout kernel,
-the instructions that say where its data went (global, shared, local
-memory, shuffles, votes, barriers).
+(``cuobjdump -sass``) and lists the instructions of each kernel's main
+loop, each tagged as the loop's own control or not, so that a rate can be
+read as the rate of an instruction: a step that compiles to one
+instruction runs at that instruction's rate, one that compiles to three
+does not. Without the loop's own control (its branches, compares and
+counter steps) the counts are what a rate kernel's ``RATE_UNROLL`` x 8
+steps compiled to. ``sass_memory_ops`` counts,
+per layout kernel, the instructions that say where its data went (global,
+shared, local memory, shuffles, votes, barriers; 16-byte accesses apart).
 """
 from __future__ import annotations
 
@@ -54,9 +62,10 @@ from .ops import cuda_lib
 from .ops.cuda_fp import mont_mul_plain
 from .ops.limbs import limbs_to_words, words_to_limbs
 
-CHAINS = 8                       # independent chains per thread (probe.cu)
+CHAINS = 8                       # chains per thread (probe.cu)
+RATE_UNROLL = 4                  # steps of a chain a pass of the main loop
 RATE_OPS = ("mul_lo", "mad_lo", "mad_hi", "mad_wide", "add64", "shift_and",
-            "mul_f32")           # in the order of enum RateOp
+            "mul_f32", "mad_wide_split", "mad_cc")  # order of enum RateOp
 # CIOS; separated operand scanning; field.cuh's carry chain with its rounds
 # unrolled and in a loop of two rounds; field.cuh's lane-split product
 CIOS_VARIANTS = ("cios", "sos", "chain", "chain_rolled", "lanes")
@@ -85,9 +94,19 @@ def _mul_hi(x, y):
     return xh * yh + (mid >> 16)
 
 
+def _mad64(m, y, lo, hi):
+    """(lo, hi) + m y mod 2^64 on int64 tensors of 32-bit halves."""
+    s = ((m * y) & _M32) + lo
+    return s & _M32, (_mul_hi(m, y) + hi + (s >> 32)) & _M32
+
+
 def rate_chain_plain(op: str, a: torch.Tensor, b: torch.Tensor, K: int):
     """K steps of the chain ``op`` on every element, as int32 bit patterns
-    (mul_f32: float32 in, float32 out)."""
+    (mul_f32: float32 in, float32 out). The 64-bit ops start from w = a
+    (high half 0) and return lo(w) ^ hi(w). mad_wide: w[c] = lo(w[c ^ 1])
+    b[c] + w[c], pairs in order (the even chain reads its partner's old w,
+    the odd one the new); mad_wide_split: w = lo(w) b + w; mad_cc: w[c] +=
+    a[c] b[c] + carry over the chains in order, the last carry dropped."""
     if op == "mul_f32":
         x = a.clone()
         for _ in range(K):
@@ -96,24 +115,43 @@ def rate_chain_plain(op: str, a: torch.Tensor, b: torch.Tensor, K: int):
     x = a.to(torch.int64) & _M32
     y = b.to(torch.int64) & _M32
     hi = torch.zeros_like(x)
-    for _ in range(K):
-        if op == "mul_lo":
-            x = (x * y) & _M32
-        elif op == "mad_lo":
-            x = (x * y + y) & _M32
-        elif op == "mad_hi":
-            x = (_mul_hi(x, y) + y) & _M32
-        elif op == "mad_wide":
-            lo = ((x * y) & _M32) + x             # w = lo(w) * y + w
-            x, hi = lo & _M32, (_mul_hi(x, y) + hi + (lo >> 32)) & _M32
-        elif op == "add64":
-            lo = x + y
-            x, hi = lo & _M32, (hi + y + (lo >> 32)) & _M32
-        elif op == "shift_and":
-            x = ((x >> 1) & y) ^ y
-        else:
-            raise ValueError(f"unknown rate op {op!r}; available: {RATE_OPS}")
-    if op in ("mad_wide", "add64"):
+    if op == "mad_wide":
+        lo_e, hi_e, y_e = x[0::2], hi[0::2], y[0::2]
+        lo_o, hi_o, y_o = x[1::2], hi[1::2], y[1::2]
+        for _ in range(K):
+            lo_e, hi_e = _mad64(lo_o, y_e, lo_e, hi_e)
+            lo_o, hi_o = _mad64(lo_e, y_o, lo_o, hi_o)
+        x = torch.stack([lo_e, lo_o], 1).reshape(x.shape)
+        hi = torch.stack([hi_e, hi_o], 1).reshape(x.shape)
+    elif op == "mad_cc":                # the products are loop-invariant
+        plo, phi = ((x * y) & _M32).unbind(0), _mul_hi(x, y).unbind(0)
+        lo, his = list(x.unbind(0)), list(hi.unbind(0))
+        for _ in range(K):
+            carry = 0
+            for c in range(x.shape[0]):
+                s = plo[c] + lo[c] + carry
+                h = phi[c] + his[c] + (s >> 32)
+                lo[c], his[c], carry = s & _M32, h & _M32, h >> 32
+        x, hi = torch.stack(lo), torch.stack(his)
+    else:
+        for _ in range(K):
+            if op == "mul_lo":
+                x = (x * y) & _M32
+            elif op == "mad_lo":
+                x = (x * y + y) & _M32
+            elif op == "mad_hi":
+                x = (_mul_hi(x, y) + y) & _M32
+            elif op == "mad_wide_split":
+                x, hi = _mad64(x, y, x, hi)
+            elif op == "add64":
+                lo = x + y
+                x, hi = lo & _M32, (hi + y + (lo >> 32)) & _M32
+            elif op == "shift_and":
+                x = ((x >> 1) & y) ^ y
+            else:
+                raise ValueError(f"unknown rate op {op!r}; available: "
+                                 f"{RATE_OPS}")
+    if op in ("mad_wide", "add64", "mad_wide_split", "mad_cc"):
         x = x ^ hi
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
@@ -421,7 +459,10 @@ def cond_plain(x):
 
 def cond_add_one(x):
     """x + 1 (mod 2^32) if any word of the tile is > 7 (unsigned), else x:
-    one block, one block-wide vote, one uniform branch."""
+    one block, one block-wide vote, one uniform branch. The kernel loads
+    each word once into registers (16-byte pieces where both arrays are
+    16-byte aligned, else words) and stores from them; only a tile of more
+    than 4096 + 256 words is read twice past those."""
     x = _words(x, 2, "cond_add_one")
     if not x.is_cuda:
         return cond_plain(x)
@@ -586,11 +627,24 @@ def layout_cases(device, seed: int = 11) -> list:
     one[15, 127] = 8
     high = low.clone()
     high[7, 5] = -1                     # 0xFFFFFFFF: above 7 as unsigned
-    for v, label in ((x, "arange: some word > 7"),
-                     (low, "no word above 7"),
-                     (one, "only the last word above 7"),
-                     (high, "one word with the top bit set")):
-        case("cond", f"(16,128) {label}", lambda v=v: cond_add_one(v),
+    # a view 4 bytes off 16-byte alignment (the kernel's word path); a tile
+    # of 1651 words, 3 past the last whole 16-byte piece; one of more words
+    # than the registers hold
+    buf = ar(16 * 128 + 1) % 8
+    shifted = buf[1:].view(16, 128)
+    shifted[3, 3] = 9
+    odd = low[:13, :127].contiguous()
+    odd[12, 126] = 8
+    big = rnd(9, 700) % 8
+    big[8, 699] = 8
+    for v, label in ((x, "(16,128) arange: some word > 7"),
+                     (low, "(16,128) no word above 7"),
+                     (one, "(16,128) only the last word above 7"),
+                     (high, "(16,128) one word with the top bit set"),
+                     (shifted, "(16,128) view 4 bytes off 16-byte alignment"),
+                     (odd, "(13,127) only the last word above 7"),
+                     (big, "(9,700) only the last word above 7")):
+        case("cond", label, lambda v=v: cond_add_one(v),
              lambda v=v: cond_plain(v), None, 2 * v.numel())
 
     x = ar(32, 1024)
@@ -890,9 +944,15 @@ def _kernel_label(mangled: str):
     return None
 
 
-def main_loop(sass: str) -> dict:
-    """Opcode counts of the longest loop (a backward branch and everything
-    between it and its target) of one function's ``cuobjdump -sass`` text."""
+_REG = r"\bU?R\d+\b"
+
+
+def main_loop(sass: str) -> list:
+    """(opcode, is loop control) of each instruction of the longest loop
+    (a backward branch and everything between it and its target) of one
+    function's ``cuobjdump -sass`` text. The loop's own control is its
+    branches, its compares, and its counter steps: an add of an immediate
+    into itself of a register that a compare of the loop reads."""
     ins = [(int(m.group(1), 16), m.group(2), m.group(3)) for m in re.finditer(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[0-9T]+\s+)?([A-Z][A-Z0-9_.]*)"
         r"([^;]*);", sass)]
@@ -902,11 +962,36 @@ def main_loop(sass: str) -> dict:
         if m and int(m.group(1), 16) <= addr and \
                 addr - int(m.group(1), 16) > best[1] - best[0]:
             best = (int(m.group(1), 16), addr)
+    loop = [(opc, rest) for addr, opc, rest in ins
+            if best[0] <= addr <= best[1] and best[1] > 0]
+    counters = {r for opc, rest in loop if opc.startswith("ISETP")
+                for r in re.findall(_REG, rest)}
+
+    def control(opc, rest):
+        if opc.startswith(("BRA", "ISETP")):
+            return True
+        ops = [o.strip() for o in rest.split(",")]
+        return opc.split(".")[0] in ("IADD3", "UIADD3", "VIADD") \
+            and len(ops) >= 3 and ops[0] == ops[1] and ops[0] in counters \
+            and re.fullmatch(r"-?0x[0-9a-f]+", ops[2]) is not None
+    return [(opc, control(opc, rest)) for opc, rest in loop]
+
+
+def loop_counts(loop: list, control: bool = True) -> dict:
+    """Opcode counts of a ``main_loop``, most frequent first; control=False
+    leaves out the loop's own control."""
     counts: dict = {}
-    for addr, opc, _ in ins:
-        if best[0] <= addr <= best[1] and best[1] > 0:
+    for opc, is_control in loop:
+        if control or not is_control:
             counts[opc] = counts.get(opc, 0) + 1
     return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def single_wide_mad_loop(steps: dict) -> bool:
+    """Whether a rate kernel's main loop, its control left out
+    (``loop_counts(loop, control=False)``), is one IMAD.WIDE.U32 a step and
+    nothing else: CHAINS x RATE_UNROLL of them, no add beside them."""
+    return steps == {"IMAD.WIDE.U32": CHAINS * RATE_UNROLL}
 
 
 def _sass_functions(dump_to=None):
@@ -927,20 +1012,22 @@ def _sass_functions(dump_to=None):
 
 
 def sass_loops(dump_to=None) -> dict:
-    """Kernel name (the launch-counter key) -> opcode counts of its main
-    loop, from the built probe libraries ({} for a kernel without a loop).
-    Needs the CUDA toolkit."""
-    return {label: main_loop(part)
-            for label, part in _sass_functions(dump_to)}
+    """Kernel name (the launch-counter key) -> its ``main_loop``, from the
+    built probe libraries ([] for a kernel without a loop). Needs the CUDA
+    toolkit."""
+    return {label: main_loop(part) for label, part in _sass_functions(dump_to)}
 
 
 def memory_ops(sass: str) -> dict:
-    """Counts of the ``MEMORY_OPS`` opcodes in one function's listing."""
+    """Counts of the ``MEMORY_OPS`` opcodes in one function's listing; a
+    16-byte access counts under its opcode and ".128" (LDG.128)."""
     counts: dict = {}
     for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]+\s+)?"
-                         r"([A-Z][A-Z0-9_]*)[^;]*;", sass):
+                         r"([A-Z][A-Z0-9_]*)([A-Z0-9_.]*)[^;]*;", sass):
         if m.group(1) in MEMORY_OPS:
-            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+            key = m.group(1) + (".128" if ".128." in m.group(2) + "."
+                                else "")
+            counts[key] = counts.get(key, 0) + 1
     return counts
 
 

@@ -90,7 +90,8 @@ def main(argv=None) -> int:
     for r in latency:
         print(f"{r['N']:<6} {r['variant']:<13} {str(r['exact']):<6} "
               f"{r['latency_us']:13.4f}", flush=True)
-    loops = probes.sass_loops(dump_to=args.sass)
+    loops = {key: probes.loop_counts(loop) for key, loop in
+             probes.sass_loops(dump_to=args.sass).items()}
     print("main loop of each kernel (cuobjdump -sass):")
     for key, loop in loops.items():
         print(f"  {key}: {sum(loop.values())} instructions: "

@@ -454,14 +454,23 @@ def test_reshape_forms_match_plain_on_card(system):
 
 
 def test_probe_kernels_match_plain_on_card(system):
-    """The rate chains, and the three Montgomery bodies of the CIOS probe
-    (CIOS, operand scanning, the carry chain that is fp_mul) against the
-    plain product at both widths."""
+    """The rate chains (the three wide multiply-add forms among them, and
+    mad_wide's main loop one IMAD.WIDE.U32 a step with no add beside it),
+    and the Montgomery bodies of the CIOS probe (CIOS, operand scanning,
+    the carry chain that is fp_mul) against the plain product at both
+    widths."""
     gen = torch.Generator(device="cuda").manual_seed(3)
+    assert {"mad_wide", "mad_wide_split", "mad_cc"} <= set(probes.RATE_OPS)
     for op in probes.RATE_OPS:
         a, b = probes._rate_inputs(op, 1000, gen)
+        before = probes.LAUNCHES[f"probe_rate_{op}"]
         assert torch.equal(probes.rate_chain(op, a, b, 37),
                            probes.rate_chain_plain(op, a, b, 37)), op
+        assert probes.LAUNCHES[f"probe_rate_{op}"] == before + 1
+    steps = {k: probes.loop_counts(loop, control=False)
+             for k, loop in probes.sass_loops().items()}
+    assert probes.single_wide_mad_loop(steps["probe_rate_mad_wide"]), steps
+    assert not probes.single_wide_mad_loop(steps["probe_rate_mad_wide_split"])
     for fk in (system.fr, system.fq):
         a = fk.encode(_ints(fk.p, 512, 9))
         b = fk.encode(_ints(fk.p, 512, 10)[::-1])
@@ -487,6 +496,31 @@ def test_layout_kernels_match_plain_on_card(system):
             assert torch.equal(lib(), want), (name, label)
         seen.add(name)
     assert seen == set(probes.LAYOUT_PROBES)
+
+
+def test_cond_kernel_paths_match_plain_on_card(system):
+    """cond_add_one against its plain version where the kernel's paths
+    part: 16-byte pieces (both arrays aligned) or words (a view 4 bytes
+    off), a tile of one word, 1-3 words past the last whole piece, more
+    words than the registers hold (4096 and one more a thread) so that the
+    last ones go through its loop; every word at most 7, or one word above
+    7 (its top bit set) at the start, the middle or the end."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for n in (1, 3, 5, 2047, 2048, 4095, 4096, 4099, 4352, 4353, 4356,
+              10001):
+        low = torch.randint(0, 8, (n + 1,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        for off in (0, 1):                       # aligned; 4 bytes off
+            for where in (None, 0, n // 2, n - 1):
+                buf = low.clone()
+                if where is not None:
+                    buf[off + where] = -(1 << 31) + 8        # 0x80000008
+                x = buf[off:off + n].view(1, n)
+                assert (x.data_ptr() % 16 == 0) == (off == 0)
+                before = probes.LAUNCHES["probe_layout_cond"]
+                got = probes.cond_add_one(x)
+                assert probes.LAUNCHES["probe_layout_cond"] == before + 1
+                assert torch.equal(got, probes.cond_plain(x)), (n, off, where)
 
 
 def test_graph_timing_counts_the_kernels_that_ran(system):

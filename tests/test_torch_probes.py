@@ -24,6 +24,9 @@ from libsnark_tpu_torch.ops.fp import FpKernel
 M32 = 0xFFFFFFFF
 
 
+M64 = (1 << 64) - 1
+
+
 def _step(op, x, hi, y):
     """One step of a chain on Python ints (x, hi: the 64-bit ops' halves)."""
     if op == "mul_lo":
@@ -32,15 +35,44 @@ def _step(op, x, hi, y):
         return (x * y + y) & M32, 0
     if op == "mad_hi":
         return (((x * y) >> 32) + y) & M32, 0
-    if op == "mad_wide":
-        w = (x * y + ((hi << 32) | x)) & ((1 << 64) - 1)   # w = lo(w)*y + w
+    if op == "mad_wide_split":
+        w = (x * y + ((hi << 32) | x)) & M64   # w = lo(w)*y + w
         return w & M32, w >> 32
     if op == "add64":
-        w = (((hi << 32) | x) + ((y << 32) | y)) & ((1 << 64) - 1)
+        w = (((hi << 32) | x) + ((y << 32) | y)) & M64
         return w & M32, w >> 32
     if op == "shift_and":
         return ((x >> 1) & y) ^ y, 0
     raise AssertionError(op)
+
+
+def _thread(op, xs, ys, K):
+    """The CHAINS final values of one thread, on Python ints. mad_wide:
+    w[c] = lo(w[c ^ 1]) y[c] + w[c], chains in order (an even chain reads
+    its partner's old w, an odd one the new). mad_cc: the chains are the
+    64-bit limbs of one 512-bit number that gains sum_c x[c] y[c] 2^(64 c)
+    a step (the carry out of the top dropped), so K steps add K times that
+    product: a closed form the kernel's step-by-step carry chain must
+    meet."""
+    if op == "mad_wide":
+        w = list(xs)
+        for _ in range(K):
+            for c in range(len(w)):
+                w[c] = ((w[c ^ 1] & M32) * ys[c] + w[c]) & M64
+        return [(v & M32) ^ (v >> 32) for v in w]
+    if op == "mad_cc":
+        acc = sum(x << (64 * c) for c, x in enumerate(xs))
+        step = sum((x * y) << (64 * c) for c, (x, y) in enumerate(zip(xs, ys)))
+        acc = (acc + K * step) % (1 << (64 * len(xs)))
+        w = [(acc >> (64 * c)) & M64 for c in range(len(xs))]
+        return [(v & M32) ^ (v >> 32) for v in w]
+    out = []
+    for x, y in zip(xs, ys):
+        hi = 0
+        for _ in range(K):
+            x, hi = _step(op, x, hi, y)
+        out.append(x ^ hi if op in ("mad_wide_split", "add64") else x)
+    return out
 
 
 def _bits(v):
@@ -49,6 +81,9 @@ def _bits(v):
 
 @pytest.mark.parametrize("op", [o for o in probes.RATE_OPS if o != "mul_f32"])
 def test_rate_chain_plain_matches_python_ints(op):
+    """Every integer chain, the three wide multiply-add forms among them
+    (mad_wide's pairs, mad_wide_split's own low word, mad_cc's carry chain
+    over the 8 chains), against Python integers."""
     rng = random.Random(1)
     T, K = 5, 9
     edge = [0, 1, M32, 1 << 31, 0xFFFF0001]
@@ -56,15 +91,13 @@ def test_rate_chain_plain_matches_python_ints(op):
           for _ in range(probes.CHAINS)]
     ys = [[rng.choice(edge + [rng.getrandbits(32)]) for _ in range(T)]
           for _ in range(probes.CHAINS)]
-    want = []
-    for xr, yr in zip(xs, ys):
-        row = []
-        for x, y in zip(xr, yr):
-            hi = 0
-            for _ in range(K):
-                x, hi = _step(op, x, hi, y)
-            row.append(_bits(x ^ hi if op in ("mad_wide", "add64") else x))
-        want.append(row)
+    if op == "mad_cc":                  # carries that ripple through all 8
+        for c in range(probes.CHAINS):
+            xs[c][0], ys[c][0] = M32, M32
+    cols = [_thread(op, [r[t] for r in xs], [r[t] for r in ys], K)
+            for t in range(T)]
+    want = [[_bits(cols[t][c]) for t in range(T)]
+            for c in range(probes.CHAINS)]
     a = torch.tensor([[_bits(v) for v in r] for r in xs], dtype=torch.int32)
     b = torch.tensor([[_bits(v) for v in r] for r in ys], dtype=torch.int32)
     got = probes.rate_chain(op, a, b, K)          # CPU tensors: plain version
@@ -129,12 +162,58 @@ def test_main_loop_counts_the_longest_backward_branch():
         /*0070*/                   EXIT ;
         /*0080*/                   BRA 0x80;
     """
-    assert probes.main_loop(sass) == {"IMAD.WIDE.U32": 2, "IADD3": 1, "BRA": 1}
-    assert probes.main_loop("/*0000*/ EXIT ;") == {}
+    assert probes.loop_counts(probes.main_loop(sass)) == \
+        {"IMAD.WIDE.U32": 2, "IADD3": 1, "BRA": 1}
+    assert probes.main_loop("/*0000*/ EXIT ;") == []
     assert probes._kernel_label("_Z11rate_kernelILi3EEvPKjS1_Pjli") \
         == "probe_rate_mad_wide"
+    assert probes._kernel_label("_Z11rate_kernelILi7EEvPKjS1_Pjli") \
+        == "probe_rate_mad_wide_split"
+    assert probes._kernel_label("_Z11rate_kernelILi8EEvPKjS1_Pjli") \
+        == "probe_rate_mad_cc"
     assert probes._kernel_label("_Z11cios_kernelILi12ELi1EEvPKiS1_Pili") \
         == "probe_cios_sos_n24"
+
+
+def _wide_loop(extra: str) -> str:
+    """A main loop of CHAINS x RATE_UNROLL IMAD.WIDE.U32 steps with the
+    loop's own counter step (a uniform register), compare and branch, as
+    ptxas lays out mad_wide, and ``extra`` inside."""
+    n = probes.CHAINS * probes.RATE_UNROLL
+    lines = [f"/*{0x500 + 16 * i:04x}*/  IMAD.WIDE.U32 R{2 * i}, R40, R41, "
+             f"R{2 * i} ;" for i in range(n)]
+    lines += [f"/*{0x500 + 16 * n:04x}*/  UIADD3 UR4, UR4, -0x4, URZ ;",
+              f"/*{0x510 + 16 * n:04x}*/  {extra}",
+              f"/*{0x520 + 16 * n:04x}*/  ISETP.NE.AND P0, PT, RZ, UR4, PT ;",
+              f"/*{0x530 + 16 * n:04x}*/  @P0 BRA 0x500 ;",
+              f"/*{0x540 + 16 * n:04x}*/  EXIT ;"]
+    return "\n".join(lines)
+
+
+@pytest.mark.parametrize("extra,one_a_step", [
+    ("NOP ;", False),
+    ("IADD3 R0, P0, R32, R0, RZ ;", False),
+    ("IADD3.X R1, R33, R1, RZ, P0, !PT ;", False),
+    ("IADD3 R2, R2, 0x1, RZ ;", False),     # an immediate into a chain
+    ("VIADD R44, R44, 0xfffffffc ;", False),  # a counter no compare reads
+    ("UIADD3 UR4, UR4, 0x4, URZ ;", True),  # a second step of the counter
+    ("BRA 0x500 ;", True)])
+def test_single_wide_mad_loop_check(extra, one_a_step):
+    """The check chip_smoke.py holds mad_wide's listing to: one
+    IMAD.WIDE.U32 a step and nothing else once the loop's own control (its
+    branches, compares and the steps of the register its compare reads) is
+    left out; any other add beside it fails, an add of an immediate to a
+    chain's register among them."""
+    loop = probes.main_loop(_wide_loop(extra))
+    full = probes.loop_counts(loop)
+    steps = probes.loop_counts(loop, control=False)
+    assert full["IMAD.WIDE.U32"] == probes.CHAINS * probes.RATE_UNROLL
+    assert full["UIADD3"] >= 1 and full["ISETP.NE.AND"] == 1
+    assert "UIADD3" not in steps and "ISETP.NE.AND" not in steps
+    assert probes.single_wide_mad_loop(steps) is one_a_step
+    fewer = _wide_loop(extra).replace("IMAD.WIDE.U32 R0,", "IMAD.U32 R0,", 1)
+    assert not probes.single_wide_mad_loop(
+        probes.loop_counts(probes.main_loop(fewer), control=False))
 
 
 # ------------------------------------------------------------ layout probes
@@ -305,6 +384,23 @@ def test_cond_plain_matches_numpy(label):
     assert (want != x).any() == (label != "no word above 7")
 
 
+@pytest.mark.parametrize("shape,where", [
+    ((1, 1), None), ((1, 1), (0, 0)), ((13, 127), (12, 126)),
+    ((1, 4099), (0, 4098)), ((9, 700), (8, 699)), ((9, 700), None),
+    ((1, 4355), (0, 4354)), ((3, 1), (1, 0))])
+def test_cond_plain_at_the_kernels_splits(shape, where):
+    """The sizes where the kernel's paths part: one word; a tile that is no
+    multiple of 4 words (1651: 3 words past the last 16-byte piece); more
+    words than its registers hold (4096, and 256 more a word a thread), so
+    that the last ones are read in its loop. ``where``: the one word above
+    7, with its top bit set (else every word is 7 or less)."""
+    x = _rnd(30 + shape[1], *shape) % 8
+    if where is not None:
+        x[where] = 0x80000008
+    want = x + np.uint32(1) if where is not None else x
+    np.testing.assert_array_equal(_n(probes.cond_add_one(_t(x))), want)
+
+
 @pytest.mark.parametrize("s", [40, 0, 41, 3, 896, 895])
 def test_window_copy_plain_matches_numpy(s):
     """s counts words; odd offsets (not 16-byte aligned) give the same
@@ -400,6 +496,15 @@ def test_layout_kernel_labels_and_memory_ops():
         /*0050*/                   STG.E desc[UR4][R6.64], R5 ;
     """
     assert probes.memory_ops(sass) == {"LDG": 1, "STL": 1, "LDL": 1, "BAR": 1,
+                                       "STG": 1}
+    wide = """
+        /*0000*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0010*/             @P0   LDG.E.128.CONSTANT R8, desc[UR4][R2.64+0x1000] ;
+        /*0020*/                   LDG.E.CONSTANT R12, desc[UR4][R2.64] ;
+        /*0030*/                   STG.E.128 desc[UR4][R6.64], R4 ;
+        /*0040*/                   STG.E desc[UR4][R6.64], R12 ;
+    """
+    assert probes.memory_ops(wide) == {"LDG.128": 2, "LDG": 1, "STG.128": 1,
                                        "STG": 1}
 
 

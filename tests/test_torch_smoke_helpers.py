@@ -1,0 +1,65 @@
+"""Helpers of chip_smoke.py that run without a card: the rate probes'
+bounds from the instructions a step needs or a listing holds, and the labels that charge
+each torch operation to the port function that issued it (behind its
+split of torch's own device operations by caller)."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import chip_smoke
+from libsnark_tpu_torch import get_curve, probes
+from libsnark_tpu_torch.ops.fp import FpKernel
+
+
+def test_rate_bound_counts_each_step_instruction_at_the_lane_rate():
+    steps = 1000 * probes.CHAINS * probes.RATE_UNROLL
+    lane = chip_smoke.INT32_LANE_OPS_PER_S
+    wide = {"IMAD.WIDE.U32": 1}
+    one = chip_smoke.rate_bound_ms(wide, steps, 1)
+    assert one == pytest.approx(steps / lane * 1e3)
+    assert chip_smoke.rate_bound_ms(wide, steps, 2) == pytest.approx(2 * one)
+    # the tables' convention: a wide multiply-add at INT32_OPS_PER_S
+    assert chip_smoke.rate_bound_ms(wide, steps, chip_smoke.WIDE_SLOTS) \
+        == pytest.approx(steps / chip_smoke.INT32_OPS_PER_S * 1e3)
+    split = {"IMAD.WIDE.U32": 1, "IADD3": 1, "IADD3.X": 0.5}
+    assert chip_smoke.rate_bound_ms(split, steps, 1) == pytest.approx(2.5 * one)
+    assert chip_smoke.rate_bound_ms({"FMUL": 1}, steps, 2) == \
+        pytest.approx(steps / chip_smoke.F32_MUL_PER_S * 1e3)
+
+
+@pytest.mark.parametrize("op,lane_slots", [
+    ("mul_lo", 1), ("mad_lo", 1), ("mad_hi", 1), ("add64", 1),
+    ("shift_and", 2), ("mad_wide", 2), ("mad_wide_split", 2), ("mad_cc", 2),
+    ("mul_f32", 0)])
+def test_rate_bound_is_what_each_step_needs(op, lane_slots):
+    """Each rate probe's bound counts the instructions its step needs, not
+    the moves a listing may hold beside them: one lane instruction for the
+    32-bit multiplies and the 64-bit add, two for shift-and, one IMAD.WIDE
+    at WIDE_SLOTS for the three wide multiply-add forms, the f32 rate for
+    mul_f32."""
+    assert set(chip_smoke.RATE_STEP) == set(probes.RATE_OPS)
+    steps = 1 << 20
+    got = chip_smoke.rate_bound_ms(chip_smoke.RATE_STEP[op], steps,
+                                   chip_smoke.WIDE_SLOTS)
+    want = (steps / chip_smoke.F32_MUL_PER_S if op == "mul_f32"
+            else lane_slots * steps / chip_smoke.INT32_LANE_OPS_PER_S)
+    assert got == pytest.approx(want * 1e3)
+
+
+def test_port_callers_label_each_operation_with_the_port_functions():
+    """Under PortCallers every operator of a field add sits below one label
+    naming the port's innermost function above it (the carry
+    normalisation) and the functions that called it; an operator issued
+    outside the port carries none."""
+    from torch.profiler import ProfilerActivity, profile
+    fk = FpKernel(get_curve("alt_bn128").fq_params, device="cpu")
+    a, b = fk.encode([1, 2, 3]), fk.encode([4, 5, 6])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with chip_smoke.PortCallers():
+            fk.add(a, b)
+            torch.ones(3) + 1
+    ops = [e for e in prof.events() if e.name.startswith("aten::")]
+    chains = {tuple(chip_smoke.port_callers(e)) for e in ops}
+    assert ("ops/cuda_fp.py:normalize", "ops/fp.py:add") in chains
+    assert all(len(c) <= 3 for c in chains)
+    assert () in chains                   # the add outside the port
