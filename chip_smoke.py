@@ -53,8 +53,12 @@
    and the dense strategy's window sums against the default strategy's on
    a 2^16-point MSM, with random scalars and with 4096 all-equal scalars
    (the chunk loop). Times each (CUDA events).
-5. Cross-checks a 20-constraint seeded Groth16 proof made on the card with
-   the same proof made by the plain versions on the CPU.
+5. Cross-checks a 20-constraint seeded proof made on the card with the
+   same proof made by the plain versions on the CPU, for Groth16, BCTV14,
+   GM17, DFGK14, BACS (19 gates and an output: 20 constraints) and TBCS (8
+   gates: 19 constraints); the CPU proofs run in worker processes, all at
+   once, beside the card's. Each card proof must verify; BCTV14's, GM17's
+   and DFGK14's with one point moved must not.
 6. Runs seeded Groth16 generator -> prover -> verifier through the entry
    points: over alt_bn128 and over BLS12-377, both at 2^20 constraints
    (generate_r1cs_example(r, 2^k - 3, 2), generator(seed=5) on the device
@@ -89,6 +93,17 @@
    loop (before madd_windows) and with madd_windows: equal points, the
    parts of the phase and the madd family's device time (CUDA events
    around each call) - bound of each.
+6b. Runs BCTV14, GM17 and DFGK14 over alt_bn128 through their entry
+   points, each witness map on a domain of 2^20: BCTV14 on
+   generate_r1cs_example(r, 2^20 - 3, 2) (QAP), GM17 on
+   generate_r1cs_example(r, 2^19 - 3, 2) (SAP, 2n + 2k + 1 = 2^20 - 1 rows),
+   DFGK14 on generate_uscs_example(r, 2^20, 2) (SSP). Each: a seeded keygen
+   (device fixed-base path) under torch.profiler with its phases, one
+   prove with its phases and one more under the profiler (the proofs must
+   be equal), peak device memory, verify accepted and a wrong input
+   rejected; mont_mul, dbl_chain, madd_win, add, bucket_reduce and
+   horner_combine (G1 and G2) must each have launched on the path. Then
+   BACS and TBCS round trips at 2^12 gates.
 7. Runs KZG10 through its entry points: over BLS12-377 at degree 2^22 - 1
    and over alt_bn128 at 2^20 - 1: setup(seed=3) on the device, then for a
    seeded random polynomial commit, create_evaluation_witness,
@@ -115,7 +130,8 @@
 Prints the kernel table as one JSON line, the card line, and last the
 line {"ok": true, "device": {...}}. Each row of the table names in "path"
 the run its "launches" were counted in: the alt_bn128 or the bls12_377
-Groth16 path (keygen + both proves), "fixed_base_loop_<curve>" (the
+Groth16 path (keygen + both proves), "<system>_alt_bn128" (the BCTV14,
+GM17 and DFGK14 paths: keygen + prove), "fixed_base_loop_<curve>" (the
 single-launch madd: the keygen's fixed base as the per-window loop),
 "window_table_loop_<curve>" (the public dbl: the keygen's window tables
 with their bases by the per-window dbl_n loop),
@@ -129,16 +145,21 @@ row's launches in every path that ran it, the KZG paths (kzg_bls12_377,
 kzg_alt_bn128: setup + commit + opening) among them; "path_ms" and
 "path_bound_ms" the device time and bound of its launches in each
 profiled path (keygen_<curve>, prove_<curve>, prove_dense_<curve>,
-kzg_setup_bls12_377, kzg_bls12_377). Any failed check raises: exit
+keygen_<system>_alt_bn128, prove_<system>_alt_bn128, kzg_setup_bls12_377,
+kzg_bls12_377). Any failed check raises: exit
 code 1.
 
     python3 chip_smoke.py                     # needs one CUDA card
-    python3 chip_smoke.py --log2 14 --bn-log2 12 --kzg-log2 14   # small sizes
+    python3 chip_smoke.py --log2 14 --bn-log2 12 --systems-log2 14 --kzg-log2 14
+                                              # small sizes
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import dataclasses
 import json
+import multiprocessing
 import random
 import re
 import subprocess
@@ -1089,22 +1110,118 @@ def check_dense_window_sums(curve, g16, gen, rng):
 
 # ------------------------------------------------------------- end to end
 
-def small_cross_check(curve):
-    """20 constraints: proof on the card == proof from the plain versions
-    on the CPU, and it verifies."""
+def small_systems(r: int):
+    """The 20-constraint cross-check of each pairing system: (label, class,
+    the circuit's generator, keygen, prover, verifier, corrupt (a proof
+    with one point moved, or None))."""
+    from libsnark_tpu_torch.proof_systems.bacs_ppzksnark import BACSPpzksnark
+    from libsnark_tpu_torch.proof_systems.bctv14 import BCTV14
+    from libsnark_tpu_torch.proof_systems.dfgk14 import DFGK14
+    from libsnark_tpu_torch.proof_systems.gm17 import GM17
     from libsnark_tpu_torch.proof_systems.groth16 import Groth16
-    from libsnark_tpu_torch.relations.examples import generate_r1cs_example
-    proofs = []
-    for device in ("cuda", "cpu"):
-        cs, primary, aux = generate_r1cs_example(curve.r, 20, 2)
-        g = Groth16(curve, device=device)
-        kp = g.generator(cs, seed=5)
-        proofs.append(g.prover(kp.pk, primary, aux, seed=9))
-        if not g.verifier_strong_IC(kp.vk, primary, proofs[-1]):
-            raise AssertionError(f"20-constraint proof ({device}) rejected")
-    if proofs[0] != proofs[1]:
-        raise AssertionError("card proof != CPU plain proof (20 constraints)")
-    log("20-constraint seeded proof: card == CPU plain, verifies")
+    from libsnark_tpu_torch.proof_systems.tbcs_ppzksnark import TBCSPpzksnark
+    from libsnark_tpu_torch.relations import examples as ex
+
+    def moved(field):
+        def corrupt(proof, one):
+            return dataclasses.replace(proof, **{field: getattr(
+                proof, field) + one})
+        return corrupt
+
+    r1cs = lambda: ex.generate_r1cs_example(r, 20, 2)
+    plain = (lambda ps, c: ps.generator(c, seed=5),
+             lambda ps, kp, p, a: ps.prover(kp.pk, p, a, seed=9),
+             lambda ps, kp, p, proof: ps.verifier_strong_IC(kp.vk, p, proof))
+    return (
+        ("Groth16", Groth16, r1cs) + plain + (None,),
+        ("BCTV14", BCTV14, r1cs) + plain + (moved("g_H"),),
+        ("GM17", GM17, r1cs) + plain + (moved("C"),),
+        ("DFGK14", DFGK14, lambda: ex.generate_uscs_example(r, 20, 2))
+        + plain + (moved("H_g1"),),
+        # 19 gates and one output constraint: 20 constraints
+        ("BACS", BACSPpzksnark, lambda: ex.generate_bacs_example(r, 19, 2),
+         lambda ps, c: ps.bacs_generator(c, seed=5),
+         lambda ps, kp, p, a: ps.bacs_prover(kp.pk, p, a, seed=9),
+         lambda ps, kp, p, proof: ps.verifier_strong_IC(kp.vk, p, proof),
+         None),
+        # 8 gates: 8 + 10 wires + 1 output = 19 constraints (2g + 3 is odd)
+        ("TBCS", TBCSPpzksnark, lambda: ex.generate_tbcs_example(8, 2),
+         lambda ps, c: ps.tbcs_generator(c, seed=5),
+         lambda ps, kp, p, a: ps.tbcs_prover(kp.pk, p, a, seed=9),
+         lambda ps, kp, p, proof: ps.tbcs_verifier_strong_IC(kp.vk, p, proof),
+         None))
+
+
+def proof_coords(x):
+    """A proof's points (G1, G2, knowledge commitments, dataclasses of
+    them) as plain integer coordinates, None for infinity: what a worker
+    process can hand back."""
+    if dataclasses.is_dataclass(x):
+        return tuple(proof_coords(getattr(x, f.name))
+                     for f in dataclasses.fields(x))
+    if hasattr(x, "g") and hasattr(x, "h"):              # KnowledgeCommitment
+        return (proof_coords(x.g), proof_coords(x.h))
+    if x.is_zero():
+        return None
+    if hasattr(x.x, "c0"):
+        return ((int(x.x.c0), int(x.x.c1)), (int(x.y.c0), int(x.y.c1)))
+    return (int(x.x), int(x.y))
+
+
+def cpu_proof(label: str, curve_name: str):
+    """small_systems' 20-constraint proof of ``label``, made by the plain
+    versions on the CPU (one thread; run in a worker process), as integer
+    coordinates. The keys come from the host fixed-base path (the same
+    affine points as the device path)."""
+    from libsnark_tpu_torch import get_curve
+    torch.set_num_threads(1)
+    curve = get_curve(curve_name)
+    for name, cls, make, keygen, prove, _, _ in small_systems(curve.r):
+        if name == label:
+            circuit, primary, aux = make()
+            ps = cls(curve, device="cpu")
+            ps.host_keygen = True
+            return proof_coords(prove(ps, keygen(ps, circuit), primary, aux))
+    raise KeyError(label)
+
+
+def small_cross_check(curve):
+    """About 20 constraints, for Groth16, BCTV14, GM17, DFGK14, BACS and
+    TBCS: the proof on the card (keygen on the device fixed-base path) ==
+    the proof made by the plain versions on the CPU (cpu_proof, one worker
+    process each, all at once beside the card's work), and it verifies;
+    for BCTV14, GM17 and DFGK14 a proof with one point moved is
+    rejected."""
+    systems = small_systems(curve.r)
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=len(systems),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu = {label: pool.submit(cpu_proof, label, curve.name)
+               for label, *_ in systems}
+        for label, cls, make, keygen, prove, verify, corrupt in systems:
+            t1 = time.perf_counter()
+            circuit, primary, aux = make()
+            ps = cls(curve)                                # device="cuda"
+            kp = keygen(ps, circuit)
+            proof = prove(ps, kp, primary, aux)
+            if not verify(ps, kp, primary, proof):
+                raise AssertionError(f"{label}: 20-constraint card proof "
+                                     "rejected")
+            rejected = corrupt is not None and not verify(
+                ps, kp, primary, corrupt(proof, curve.G1.one()))
+            if corrupt is not None and not rejected:
+                raise AssertionError(f"{label}: a corrupted 20-constraint "
+                                     "proof was accepted")
+            t_card = time.perf_counter() - t1
+            if proof_coords(proof) != cpu[label].result():
+                raise AssertionError(f"{label}: card proof != CPU plain "
+                                     "proof (20 constraints)")
+            log(f"20-constraint seeded {label} proof: card == CPU plain, "
+                "verifies" + (", corrupted proof rejected" if rejected
+                              else "")
+                + f" (card side {t_card:.1f} s, elapsed "
+                  f"{time.perf_counter() - t0:.1f} s)")
 
 
 def main_path(curve, log2: int, paths: dict):
@@ -1119,10 +1236,11 @@ def main_path(curve, log2: int, paths: dict):
     phases added up) and {run: launches} of the yardstick runs that count
     the kernels the path replaced (the single madd, the public dbl and
     aadd)."""
-    from libsnark_tpu_torch.ops import launch_counts, reset_launch_counts
+    from libsnark_tpu_torch.ops import launch_counts
     from libsnark_tpu_torch.ops.msm import default_window_bits
     from libsnark_tpu_torch.profiling import PROFILER, start_profiling
     from libsnark_tpu_torch.proof_systems.groth16 import Groth16
+    from libsnark_tpu_torch.reductions.r1cs_to_qap import qap_domain
     from libsnark_tpu_torch.relations.examples import generate_r1cs_example
     n = (1 << log2) - 3
     t0 = time.perf_counter()
@@ -1134,20 +1252,7 @@ def main_path(curve, log2: int, paths: dict):
     phases, proofs = {}, {}
 
     def run(label, fn):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        timings = {}
-        t0 = time.perf_counter()
-        out = fn(timings)
-        wall = time.perf_counter() - t0
-        phases[label] = {k: v for k, v in launch_counts().items() if v}
-        log(f"  {label} {wall:.3f} s: "
-            + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()))
-        log(f"  {label}: peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
-            + json.dumps(phases[label]))
-        return out
+        return timed_phase(phases, label, fn)
 
     g16 = systems["segments"]
     # a system of its own for each profiled try: a second try of the same
@@ -1159,7 +1264,7 @@ def main_path(curve, log2: int, paths: dict):
     PROFILER.enabled = False
     log("  keygen_fixed_base by part (s, port profiler blocks): "
         + fixed_base_parts(PROFILER))
-    log(f"  domain m = {g16._domain(cs.num_constraints, cs.num_inputs).m}")
+    log(f"  domain m = {g16.domain_for(qap_domain, cs).m}")
     for strategy, g in systems.items():
         proofs[strategy] = run(f"prove[{strategy}]", lambda t: g.prover(
             kp.pk, primary, aux, seed=9, timings=t))
@@ -1243,6 +1348,179 @@ def main_path(curve, log2: int, paths: dict):
         raise AssertionError(f"kernels not launched on the {curve.name} "
                              f"main path: {missing}")
     return total, yardsticks
+
+
+def timed_phase(phases: dict, label: str, fn):
+    """fn(timings) with the counts set to 0 just before and read just after
+    (phases[label]); logs its wall time, its phases, the peak device memory
+    and the launches."""
+    from libsnark_tpu_torch.ops import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    timings = {}
+    t0 = time.perf_counter()
+    out = fn(timings)
+    wall = time.perf_counter() - t0
+    phases[label] = {k: v for k, v in launch_counts().items() if v}
+    log(f"  {label} {wall:.3f} s: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()))
+    log(f"  {label}: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        + json.dumps(phases[label]))
+    return out
+
+
+def make_circuit(conn, kind: str, r: int, n: int):
+    """generate_r1cs_example(r, n, 2) ("r1cs") or generate_uscs_example(r,
+    n, 2) ("uscs") in a worker process: sends (circuit, host seconds) on
+    ``conn``, which blocks until the parent reads it."""
+    from libsnark_tpu_torch.relations import examples as ex
+    make = ex.generate_uscs_example if kind == "uscs" else \
+        ex.generate_r1cs_example
+    t0 = time.perf_counter()
+    out = make(r, n, 2)
+    conn.send((out, time.perf_counter() - t0))
+    conn.close()
+
+
+def systems_circuits(r: int, log2: int) -> dict:
+    """The circuits of proof_systems_path, each made in a worker process
+    of its own while the earlier paths run: {system: (process, the pipe's
+    read end)}. A circuit crosses to this process only when
+    receive_circuit reads it (a background receiver would unpickle it
+    under the interpreter lock in the middle of another path)."""
+    ctx = multiprocessing.get_context("spawn")
+    out = {}
+    for name, kind, n in (("bctv14", "r1cs", (1 << log2) - 3),
+                          ("gm17", "r1cs", (1 << (log2 - 1)) - 3),
+                          ("dfgk14", "uscs", 1 << log2)):
+        recv, send = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=make_circuit, args=(send, kind, r, n),
+                           daemon=True)
+        proc.start()
+        send.close()
+        out[name] = (proc, recv)
+    return out
+
+
+def receive_circuit(entry):
+    """((cs, primary, aux), host seconds) from systems_circuits' worker;
+    the worker has ended when this returns."""
+    proc, recv = entry
+    try:
+        return recv.recv()
+    finally:
+        recv.close()
+        proc.join()
+
+
+def stop_workers(circuits: dict):
+    """End the circuit workers that were never read (a failed run)."""
+    for proc, recv in circuits.values():
+        recv.close()
+        if proc.is_alive():
+            proc.terminate()
+        proc.join()
+
+
+def proof_systems_path(curve, log2: int, paths: dict,
+                       circuits: dict) -> dict:
+    """BCTV14, GM17 and DFGK14 through their entry points, each with its
+    witness map on a domain of 2^log2: BCTV14 on generate_r1cs_example(r,
+    2^log2 - 3, 2) (QAP, n + k + 1 = 2^log2), GM17 on
+    generate_r1cs_example(r, 2^(log2-1) - 3, 2) (SAP, 2n + 2k + 1 =
+    2^log2 - 1) and DFGK14 on generate_uscs_example(r, 2^log2, 2) (SSP),
+    each circuit from ``circuits`` (systems_circuits). For each: a seeded keygen under the device profiler
+    (paths["keygen_<system>_<curve>"]) with its phases, one prove (default
+    strategy) with its phases, one more under the profiler
+    (paths["prove_<system>_<curve>"]), equal proofs, verify accepted and a
+    wrong input rejected; every path kernel must have launched. Then BACS
+    and TBCS round trips at 2^12 gates. Returns {"<system>_<curve>":
+    launches per kernel (keygen and prove added up)}."""
+    from libsnark_tpu_torch.proof_systems.bacs_ppzksnark import BACSPpzksnark
+    from libsnark_tpu_torch.proof_systems.bctv14 import BCTV14
+    from libsnark_tpu_torch.proof_systems.dfgk14 import DFGK14
+    from libsnark_tpu_torch.proof_systems.gm17 import GM17
+    from libsnark_tpu_torch.proof_systems.tbcs_ppzksnark import TBCSPpzksnark
+    from libsnark_tpu_torch.reductions.r1cs_to_qap import qap_domain
+    from libsnark_tpu_torch.reductions.r1cs_to_sap import sap_domain
+    from libsnark_tpu_torch.reductions.uscs_to_ssp import ssp_domain
+    from libsnark_tpu_torch.relations import examples as ex
+    r = curve.r
+    specs = (
+        ("bctv14", BCTV14, qap_domain, "r1cs_dev",
+         f"generate_r1cs_example(r, 2^{log2} - 3, 2)"),
+        ("gm17", GM17, sap_domain, "sap_dev",
+         f"generate_r1cs_example(r, 2^{log2 - 1} - 3, 2)"),
+        ("dfgk14", DFGK14, ssp_domain, "ssp_dev",
+         f"generate_uscs_example(r, 2^{log2}, 2)"))
+    out = {}
+    for name, cls, domain_fn, dev_field, what in specs:
+        label = f"{name}_{curve.name}"
+        t0 = time.perf_counter()
+        (cs, primary, aux), made = receive_circuit(circuits[name])
+        log(f"{name} path {curve.name}: {what}: {made:.2f} s (host, a "
+            f"worker process), {time.perf_counter() - t0:.2f} s to receive")
+        phases = {}
+        # a fresh system for each profiled try: a second try of one system
+        # would find its window tables built
+        kp = timed_phase(phases, "keygen", lambda t: path_timing(
+            f"keygen_{label}", lambda: cls(curve).generator(
+                cs, seed=5, timings=t), paths))
+        ps = cls(curve)                                    # device="cuda"
+        domain = ps.domain_for(domain_fn, getattr(kp.pk, dev_field))
+        log(f"  domain {type(domain).__name__}, m = {domain.m}")
+        proof = timed_phase(phases, "prove", lambda t: ps.prover(
+            kp.pk, primary, aux, seed=9, timings=t))
+        if path_timing(f"prove_{label}", lambda: ps.prover(
+                kp.pk, primary, aux, seed=9), paths) != proof:
+            raise AssertionError(f"{name}: the profiled proof differs")
+        t0 = time.perf_counter()
+        ok = ps.verifier_strong_IC(kp.vk, primary, proof)
+        bad = [(primary[0] + 1) % r] + primary[1:]
+        rej = not ps.verifier_strong_IC(kp.vk, bad, proof)
+        log(f"  proofs equal; verify {time.perf_counter() - t0:.2f} s "
+            f"(host, two calls): accepted={ok} wrong-input-rejected={rej}")
+        if not (ok and rej):
+            raise AssertionError(f"{name} verification checks failed")
+        total = {}
+        for counts in phases.values():
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        nq = ps.fq.N
+        need = [f"mont_mul_n{nq}", f"mont_mul_n{ps.fr.N}"] + [
+            f"{k}_{f}_n{nq}" for k in ("dbl_chain", "add", "madd_win",
+                                       "bucket_reduce", "horner_combine")
+            for f in ("fp", "fp2")]
+        missing = [k for k in need if not total.get(k)]
+        replaced = [k for k in total if k.startswith(("dbl_fp", "aadd_fp"))]
+        if missing or replaced:
+            raise AssertionError(f"{label}: kernels not launched {missing}, "
+                                 f"public dbl / aadd launched {replaced}")
+        out[label] = total
+        del cs, kp, ps, domain
+        torch.cuda.empty_cache()
+
+    gates = 1 << 12
+    for name, cls in (("BACS", BACSPpzksnark), ("TBCS", TBCSPpzksnark)):
+        t0 = time.perf_counter()
+        ps = cls(curve)
+        if name == "BACS":
+            circuit, primary, aux = ex.generate_bacs_example(r, gates, 2)
+            kp = ps.bacs_generator(circuit, seed=5)
+            proof = ps.bacs_prover(kp.pk, primary, aux, seed=9)
+            ok = ps.verifier_strong_IC(kp.vk, primary, proof)
+        else:
+            circuit, primary, aux = ex.generate_tbcs_example(gates, 2)
+            kp = ps.tbcs_generator(circuit, seed=5)
+            proof = ps.tbcs_prover(kp.pk, primary, aux, seed=9)
+            ok = ps.tbcs_verifier_strong_IC(kp.vk, primary, proof)
+        log(f"{name} {curve.name}, {gates} gates: keygen, prove, verify "
+            f"{time.perf_counter() - t0:.2f} s: accepted={ok}")
+        if not ok:
+            raise AssertionError(f"{name} round trip rejected")
+    return out
 
 
 def fixed_base_parts(profiler) -> str:
@@ -2012,8 +2290,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2", type=int, default=20,
                     help="BLS12-377 circuit: 2^log2 - 3 constraints (20)")
-    ap.add_argument("--bn-log2", type=int, default=20,
-                    help="alt_bn128 circuit: 2^k - 3 constraints (20)")
+    ap.add_argument("--bn-log2", type=int, default=18,
+                    help="alt_bn128 Groth16 circuit: 2^k - 3 constraints "
+                         "(18: the run's time limit leaves 2^20 to "
+                         "BLS12-377 and to the proof-systems path)")
+    ap.add_argument("--systems-log2", type=int, default=20,
+                    help="BCTV14, GM17 and DFGK14 over alt_bn128: witness "
+                         "map on a domain of 2^k (20)")
     ap.add_argument("--kzg-log2", type=int, default=22,
                     help="KZG10 over BLS12-377: degree 2^k - 1 (22); over "
                          "alt_bn128 the degree is 2^min(k, 20) - 1")
@@ -2058,19 +2341,30 @@ def main(argv=None) -> int:
     small_cross_check(get_curve("alt_bn128"))
     del systems
     paths = {}
-    for name, log2 in curves.items():
-        counts, yardsticks = main_path(get_curve(name), log2, paths)
-        for key, n in counts.items():
-            # Fr is 16 limbs on both curves: mont_mul_n16 keeps the count of
-            # the alt_bn128 path, where Fq and Fr both run through it
-            K.count(key, name, n)
-        # the single-launch madd, the public dbl and the public aadd run
-        # where the path ran them before madd_windows, dbl_chain and
-        # aadd_rows
-        for label, yard in yardsticks.items():
-            for key, n in yard.items():
+    # the proof-systems path's circuits are made beside the Groth16 paths
+    circuits = systems_circuits(get_curve("alt_bn128").r, args.systems_log2)
+    try:
+        for name, log2 in curves.items():
+            counts, yardsticks = main_path(get_curve(name), log2, paths)
+            for key, n in counts.items():
+                # Fr is 16 limbs on both curves: mont_mul_n16 keeps the count
+                # of the alt_bn128 path, where Fq and Fr both run through it
+                K.count(key, name, n)
+            # the single-launch madd, the public dbl and the public aadd run
+            # where the path ran them before madd_windows, dbl_chain and
+            # aadd_rows
+            for label, yard in yardsticks.items():
+                for key, n in yard.items():
+                    K.count(key, label, n)
+            log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
+        for label, counts in proof_systems_path(
+                get_curve("alt_bn128"), args.systems_log2, paths,
+                circuits).items():
+            for key, n in counts.items():
                 K.count(key, label, n)
-        log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
+    finally:
+        stop_workers(circuits)
+    log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
     for name, log2, small in (("bls12_377", args.kzg_log2, None),
                               ("alt_bn128", min(args.kzg_log2, 20), 12)):
         measured = paths if name == "bls12_377" else None

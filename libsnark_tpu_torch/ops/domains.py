@@ -216,6 +216,13 @@ def add_scaled_z(fk, domain, out, coeff_m):
     return out
 
 
+def sub_constant_term(fk, out, d_m):
+    """out with the device scalar d_m ((N, 1) Montgomery limbs) subtracted
+    from coefficient 0, as a new tensor: out and its views are not
+    written."""
+    return torch.cat([fk.sub(out[..., :1], d_m), out[..., 1:]], dim=-1)
+
+
 @functools.lru_cache(maxsize=None)
 def _domain_shape(min_size: int, two_adicity: int, force_pow_2: bool):
     """(log1, log2) with log2 < 0 meaning a basic radix-2 domain of size

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import random
 import secrets
+import time
 from typing import Optional
 
 import torch
@@ -21,6 +22,25 @@ from ..ops.fp2 import Fp2Kernel
 from ..ops.limbs import ints_to_limbs
 from ..ops.msm import MSMKernel
 from ..profiling import enter_block
+
+
+class PhaseClock:
+    """Wall time per phase, each ended by a device synchronize; inert when
+    the caller passes no dict."""
+
+    def __init__(self, out: Optional[dict], device):
+        self.out = out
+        self.device = device
+        self.t = time.perf_counter()
+
+    def lap(self, name: str):
+        if self.out is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.out[name] = now - self.t
+        self.t = now
 
 
 class PairingSystem:
@@ -52,6 +72,21 @@ class PairingSystem:
         self.msm_g2 = MSMKernel(self.g2, sbits, strategy=msm_strategy)
         self.scalar_limbs = -(-sbits // 16)
         self._fixed_tables = {}
+        self._domains = {}
+
+    # mirrors the reference's force_pow_2_domain option
+    force_pow_2 = False
+
+    def domain_for(self, domain_fn, sizes):
+        """domain_fn(fr, fr_params, sizes, force_pow_2) (qap_domain,
+        sap_domain, ssp_domain: they read sizes.num_constraints and
+        sizes.num_inputs), kept with its device tables."""
+        key = (domain_fn.__name__, sizes.num_constraints, sizes.num_inputs,
+               self.force_pow_2)
+        if key not in self._domains:
+            self._domains[key] = domain_fn(self.fr, self.curve.fr_params,
+                                           sizes, self.force_pow_2)
+        return self._domains[key]
 
     # -- randomness -------------------------------------------------------
     def _rng(self, seed: Optional[int]):

@@ -19,16 +19,12 @@ from __future__ import annotations
 import dataclasses
 import random
 import secrets
-import time
 from typing import Optional
 
-import torch
-
-from .base import PairingSystem
+from .base import PairingSystem, PhaseClock
 from ..ops.msm import default_window_bits
-from ..ops.domains import get_evaluation_domain
 from ..reductions.r1cs_to_qap import (
-    qap_instance_map_with_evaluation, qap_witness_map)
+    qap_domain, qap_instance_map_with_evaluation, qap_witness_map)
 
 
 @dataclasses.dataclass
@@ -45,6 +41,11 @@ class Groth16ProvingKey:
     L_query: tuple          # device affine G1, len nv - num_inputs
     r1cs_dev: object
 
+    def size_summary(self):
+        nv = self.r1cs_dev.num_variables
+        return dict(A=nv + 1, B=nv + 1, H=self.H_query[0].shape[-1],
+                    L=self.L_query[0].shape[-1])
+
 
 @dataclasses.dataclass
 class Groth16VerificationKey:
@@ -53,6 +54,16 @@ class Groth16VerificationKey:
     gamma_g2: object
     delta_g2: object
     gamma_ABC: list          # host G1 points, len num_inputs + 1
+
+
+@dataclasses.dataclass
+class Groth16ProcessedVK:
+    """Online-verification state (r1cs_gg_ppzksnark_processed_verification_key,
+    tcc:605-621): e(alpha, beta) and the G2 Miller-loop embeddings."""
+    alpha_beta_gt: object
+    gamma_g2_precomp: object
+    delta_g2_precomp: object
+    gamma_ABC: list
 
 
 @dataclasses.dataclass
@@ -71,46 +82,11 @@ class Groth16Proof:
         return (self.g_A, self.g_B, self.g_C) == (o.g_A, o.g_B, o.g_C)
 
 
-class _PhaseClock:
-    """Wall time per phase, each ended by a device synchronize; inert when
-    the caller passes no dict."""
-
-    def __init__(self, out: Optional[dict], device):
-        self.out = out
-        self.device = device
-        self.t = time.perf_counter()
-
-    def lap(self, name: str):
-        if self.out is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.out[name] = now - self.t
-        self.t = now
-
-
 class Groth16(PairingSystem):
     """Groth16 over a named curve; holds the device kernel bundle.
 
     Queries are device affine tensors padded to power-of-two buckets; pad
     lanes are infinity points / zero scalars."""
-
-    # mirrors the reference's force_pow_2_domain option
-    force_pow_2 = False
-
-    def __init__(self, curve, device="cuda", msm_strategy="segments"):
-        super().__init__(curve, device, msm_strategy)
-        self._domains = {}
-
-    def _domain(self, num_constraints: int, num_inputs: int):
-        """The QAP domain (qap_domain), kept with its device tables."""
-        key = (num_constraints, num_inputs, self.force_pow_2)
-        if key not in self._domains:
-            self._domains[key] = get_evaluation_domain(
-                self.fr, self.curve.fr_params,
-                num_constraints + num_inputs + 1, self.force_pow_2)
-        return self._domains[key]
 
     # -- generator ----------------------------------------------------------------
     def generator(self, cs, seed: Optional[int] = None,
@@ -125,10 +101,10 @@ class Groth16(PairingSystem):
 
     def generator_from_secrets(self, cs, t, alpha, beta, gamma, delta,
                                timings: Optional[dict] = None):
-        clock = _PhaseClock(timings, self.device)
+        clock = PhaseClock(timings, self.device)
         curve, r = self.curve, self.curve.r
         cs.swap_AB_if_beneficial()
-        domain = self._domain(cs.num_constraints, cs.num_inputs)
+        domain = self.domain_for(qap_domain, cs)
         qap = qap_instance_map_with_evaluation(cs, domain, t)
         m, nv, k = qap.degree, qap.num_variables, qap.num_inputs
 
@@ -167,7 +143,7 @@ class Groth16(PairingSystem):
                seed: Optional[int] = None, timings: Optional[dict] = None):
         """Prove. timings: optional dict that receives wall seconds per
         phase (each phase ends with a device synchronize)."""
-        clock = _PhaseClock(timings, self.device)
+        clock = PhaseClock(timings, self.device)
         curve, r = self.curve, self.curve.r
         if seed is None:
             rnd_r = secrets.randbelow(r)
@@ -177,7 +153,7 @@ class Groth16(PairingSystem):
             rnd_r, rnd_s = rng.randrange(r), rng.randrange(r)
 
         dev = pk.r1cs_dev
-        domain = self._domain(dev.num_constraints, dev.num_inputs)
+        domain = self.domain_for(qap_domain, dev)
         full = [1] + [v % r for v in primary] + [v % r for v in auxiliary]
         assignment_mont = self.fr.encode(full)
         msm_c = default_window_bits(dev.num_variables + 1)
@@ -239,3 +215,47 @@ class Groth16(PairingSystem):
             (-acc, vk.gamma_g2),
             (-proof.g_C, vk.delta_g2),
         ])
+
+    # -- processed vk + online verifiers -----------------------------------------
+    # (r1cs_gg_ppzksnark_verifier_process_vk / online_verifier_*_IC,
+    # tcc:605-745: the e(alpha, beta) pairing and the G2 Miller-loop
+    # embeddings leave the per-proof work)
+    def verifier_process_vk(self, vk):
+        eng = self.curve.pairing_engine
+        return Groth16ProcessedVK(
+            alpha_beta_gt=self.curve.pairing(vk.alpha_g1, vk.beta_g2),
+            gamma_g2_precomp=eng.embed_g2(vk.gamma_g2),
+            delta_g2_precomp=eng.embed_g2(vk.delta_g2),
+            gamma_ABC=vk.gamma_ABC)
+
+    def online_verifier_strong_IC(self, pvk, primary: list, proof) -> bool:
+        if len(primary) + 1 != len(pvk.gamma_ABC):
+            return False
+        return self.online_verifier_weak_IC(pvk, primary, proof)
+
+    def online_verifier_weak_IC(self, pvk, primary: list, proof) -> bool:
+        r = self.curve.r
+        eng = self.curve.pairing_engine
+        if len(primary) + 1 > len(pvk.gamma_ABC):
+            return False
+        if not (proof.g_A.is_well_formed() and proof.g_B.is_well_formed()
+                and proof.g_C.is_well_formed()):
+            return False
+        acc = pvk.gamma_ABC[0]
+        for i, x in enumerate(primary):
+            acc = acc + pvk.gamma_ABC[i + 1] * (x % r)
+        # e(A, B) / (e(acc, gamma) e(C, delta)) == e(alpha, beta)
+        f = eng.miller_loop(eng.embed_g2(proof.g_B), eng.embed_g1(proof.g_A))
+        if not acc.is_zero():
+            f = f * eng.miller_loop(pvk.gamma_g2_precomp,
+                                    eng.embed_g1(-acc))
+        if not proof.g_C.is_zero():
+            f = f * eng.miller_loop(pvk.delta_g2_precomp,
+                                    eng.embed_g1(-proof.g_C))
+        return eng.final_exponentiation(f) == pvk.alpha_beta_gt
+
+    def verifier_affine(self, vk, primary: list, proof) -> bool:
+        """Affine-ate verifier (tcc:748-816). The host engine's Miller loop
+        already works on affine embeddings, so this is the same
+        computation, kept as its own entry point."""
+        return self.verifier_strong_IC(vk, primary, proof)

@@ -7,6 +7,8 @@ reference reductions/r1cs_to_qap/r1cs_to_qap.tcc).
   mat-vecs + input-consistency rows, one stacked iFFT and coset FFT,
   pointwise a*b - c, icosetFFT with divide-by-Z -- over (N, m) Montgomery
   limb tensors.
+* ``qap_witness_map_zk`` (the same with nonzero d1, d2, d3): H of degree
+  m with the zero-knowledge patch, for BCTV14.
 
 Domain size = num_constraints + num_inputs + 1 (rounded to a supported
 domain), the extra rows being the per-input consistency constraints.
@@ -18,7 +20,8 @@ from typing import List
 
 import torch
 
-from ..ops.domains import get_evaluation_domain
+from ..ops.domains import (
+    add_scaled_z, get_evaluation_domain, sub_constant_term)
 
 
 def qap_domain(fr_kernel, fr_params, cs, force_pow_2: bool = False):
@@ -90,3 +93,34 @@ def qap_witness_map(r1cs_dev, domain, assignment_mont):
     eS = domain.coset_fft(domain.ifft(S))
     H = fk.sub(fk.mul(eS[..., 0, :], eS[..., 1, :]), eS[..., 2, :])
     return domain.icoset_fft_divz(H)
+
+
+def qap_witness_map_zk(r1cs_dev, domain, assignment_mont, d1_m, d2_m, d3_m):
+    """ZK-patched witness map (r1cs_to_qap.tcc:209-344 with nonzero d1, d2,
+    d3): coefficients of
+
+      H = (A*B - C)/Z + (d2*A + d1*B - d3) + d1*d2*Z
+
+    d1_m, d2_m, d3_m: (N, 1) Montgomery limbs. Returns (N, m+1)
+    Montgomery coefficients (degree m, top coefficient d1*d2). Used by
+    BCTV14; Groth16 takes ``qap_witness_map``."""
+    fk = domain.fk
+    m = domain.m
+    n = r1cs_dev.num_constraints
+    k = r1cs_dev.num_inputs
+    aA = r1cs_dev.A.evaluate(fk, assignment_mont, m)
+    aA = torch.cat([aA[..., :n], assignment_mont[..., :k + 1],
+                    aA[..., n + k + 1:]], dim=-1)
+    aB = r1cs_dev.B.evaluate(fk, assignment_mont, m)
+    aC = r1cs_dev.C.evaluate(fk, assignment_mont, m)
+    # A/B/C ride one stacked transform, as in qap_witness_map
+    cS = domain.ifft(torch.stack([aA, aB, aC], dim=-2))    # (N, 3, m)
+    patch = fk.add(fk.mul(cS[..., 0, :], d2_m), fk.mul(cS[..., 1, :], d1_m))
+    eS = domain.coset_fft(cS)
+    H = fk.sub(fk.mul(eS[..., 0, :], eS[..., 1, :]), eS[..., 2, :])
+    Hc = domain.icoset_fft_divz(H)                         # (N, m)
+    out = torch.cat([fk.add(Hc, patch), fk.zeros((1,), Hc.device)], dim=-1)
+    # -= d3 at the constant term; += d1*d2 * Z(x), Z sparse and
+    # domain-shaped (x^m - 1 only for the basic radix-2 domain)
+    out = sub_constant_term(fk, out, d3_m)
+    return add_scaled_z(fk, domain, out, fk.mul(d1_m, d2_m))

@@ -113,6 +113,20 @@ class SparseMatrix:
     num_rows: int
     num_cols: int
 
+    @classmethod
+    def from_triples(cls, fk, triples, num_rows: int, num_cols: int):
+        """From host (row, col, coeff) triples, coefficients encoded on
+        ``fk.device`` (one zero entry if there are none: shapes stay
+        non-empty)."""
+        import torch
+        triples = triples or [(0, 0, 0)]
+        rows, cols, coefs = zip(*triples)
+        dev = fk.device
+        return cls(rows=torch.from_numpy(np.asarray(rows, np.int64)).to(dev),
+                   cols=torch.from_numpy(np.asarray(cols, np.int64)).to(dev),
+                   coeffs=fk.encode(coefs), num_rows=num_rows,
+                   num_cols=num_cols)
+
     def evaluate(self, fk, assignment, num_segments: int):
         """<M_j, s> for all rows j.
 

@@ -560,3 +560,29 @@ def test_kzg_round_trip_on_card(system):
     dense = KZG10(curve, device="cuda", msm_strategy="dense")
     assert dense.commit(srs, coeffs).point == C.point
     assert kzg.commit(srs, [0] * n).point == curve.G1.zero()
+
+
+@pytest.mark.parametrize("which", ["BCTV14", "GM17", "DFGK14"])
+def test_proof_systems_card_proof_equals_cpu_proof(which):
+    """20 constraints over alt_bn128: the seeded keys from the device
+    fixed-base path and the proof on the card equal the CPU's (plain
+    versions, host fixed-base path), and the card's proof verifies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from libsnark_tpu_torch.proof_systems.bctv14 import BCTV14
+    from libsnark_tpu_torch.proof_systems.dfgk14 import DFGK14
+    from libsnark_tpu_torch.proof_systems.gm17 import GM17
+    from libsnark_tpu_torch.relations import examples
+    curve = get_curve("alt_bn128")
+    cls = {"BCTV14": BCTV14, "GM17": GM17, "DFGK14": DFGK14}[which]
+    make = (examples.generate_uscs_example if which == "DFGK14"
+            else examples.generate_r1cs_example)
+    proofs = []
+    for device in ("cuda", "cpu"):
+        cs, primary, aux = make(curve.r, 20, 2)
+        ps = cls(curve, device=device)
+        ps.host_keygen = device == "cpu"
+        kp = ps.generator(cs, seed=5)
+        proofs.append(ps.prover(kp.pk, primary, aux, seed=9))
+    assert proofs[0] == proofs[1]
+    assert ps.verifier_strong_IC(kp.vk, primary, proofs[0])
