@@ -21,9 +21,13 @@
    empty kernel's time as the launch floor, and the row-copy rates at the
    row widths bucket_reduce gathers beside one index_select; and the latency
    of one dependent product (one thread, one lane group).
-4. For alt_bn128 (16-limb Fq) and BLS12-377 (24-limb Fq), G1 and G2,
+4. For alt_bn128 (16-limb Fq), BLS12-377 (24-limb Fq) and BW6-761 (48-limb
+   Fq, G2 over Fq: its G2 checks run the G1 kernels again), G1 and G2,
    holds every kernel against its plain PyTorch version on the card at
-   main-path shapes, bit-exact (tolerance 0): mont_mul at 2^20 lanes;
+   main-path shapes, bit-exact (tolerance 0; at 48 limbs the plain
+   versions run on part of a check: mont_mul and madd_win on 2^16 of the
+   lanes, dbl_chain over the first 8 bases, aadd_rows over the chunk's
+   first 4 windows, bucket_reduce on a 2^14-point MSM): mont_mul at 2^20 lanes;
    dbl / add / madd / aadd at 2^16 lanes with planted infinity, P == Q
    and P == -Q lanes, add also at 294,930 lanes (one suffix-scan launch of
    a 2^20-point MSM), timed in a replayed CUDA graph (the wrapper called
@@ -55,10 +59,12 @@
    (the chunk loop). Times each (CUDA events).
 5. Cross-checks a 20-constraint seeded proof made on the card with the
    same proof made by the plain versions on the CPU, for Groth16, BCTV14,
-   GM17, DFGK14, BACS (19 gates and an output: 20 constraints) and TBCS (8
-   gates: 19 constraints); the CPU proofs run in worker processes, all at
-   once, beside the card's. Each card proof must verify; BCTV14's, GM17's
-   and DFGK14's with one point moved must not.
+   GM17, DFGK14, BACS (19 gates and an output: 20 constraints), TBCS (8
+   gates: 19 constraints) and ADSNARK (Schnorr) over alt_bn128 and Groth16
+   over BW6-761; the CPU proofs run in worker processes, all at once,
+   beside the card's. Each card proof must verify (ADSNARK: both
+   verifiers); BCTV14's, GM17's, DFGK14's, ADSNARK's and BW6-761's with one
+   point moved must not.
 6. Runs seeded Groth16 generator -> prover -> verifier through the entry
    points: over alt_bn128 and over BLS12-377, both at 2^20 constraints
    (generate_r1cs_example(r, 2^k - 3, 2), generator(seed=5) on the device
@@ -104,6 +110,20 @@
    rejected; mont_mul, dbl_chain, madd_win, add, bucket_reduce and
    horner_combine (G1 and G2) must each have launched on the path. Then
    BACS and TBCS round trips at 2^12 gates.
+6c. Runs ADSNARK over alt_bn128 through its entry points on
+   generate_r1cs_example(r, 2^20 - 3, 16) (a worker process makes it):
+   the authority's seeded keys and the 16 inputs' signed data, a seeded
+   keygen under torch.profiler with its phases, a prove with its phases
+   and one more under the profiler (equal proofs), peak device memory;
+   verifier_sec and verifier_pub accept, verifier_pub rejects the proof
+   made over the same input from a changed input's authenticated data and
+   verifier_sec the proof under wrong labels; every path kernel must have
+   launched; then an Ed25519 round trip at 20 constraints. Then Groth16
+   over BW6-761 on generate_r1cs_example(r, 2^20 - 3, 2) (a worker process
+   makes it) as in 6, both strategies with equal proofs, verified and
+   rejected, profiled, with the keygen's fixed base and window tables once
+   more in their earlier forms and a dense prove with the gathered level
+   0 (the yardsticks of the public madd, dbl and aadd at 48 limbs).
 7. Runs KZG10 through its entry points: over BLS12-377 at degree 2^22 - 1
    and over alt_bn128 at 2^20 - 1: setup(seed=3) on the device, then for a
    seeded random polynomial commit, create_evaluation_witness,
@@ -129,9 +149,10 @@
 
 Prints the kernel table as one JSON line, the card line, and last the
 line {"ok": true, "device": {...}}. Each row of the table names in "path"
-the run its "launches" were counted in: the alt_bn128 or the bls12_377
-Groth16 path (keygen + both proves), "<system>_alt_bn128" (the BCTV14,
-GM17 and DFGK14 paths: keygen + prove), "fixed_base_loop_<curve>" (the
+the run its "launches" were counted in: the alt_bn128, the bls12_377 or the
+bw6_761 Groth16 path (keygen + both proves), "<system>_alt_bn128" (the
+BCTV14, GM17, DFGK14 and ADSNARK paths: keygen + prove),
+"fixed_base_loop_<curve>" (the
 single-launch madd: the keygen's fixed base as the per-window loop),
 "window_table_loop_<curve>" (the public dbl: the keygen's window tables
 with their bases by the per-window dbl_n loop),
@@ -150,8 +171,8 @@ kzg_bls12_377). Any failed check raises: exit
 code 1.
 
     python3 chip_smoke.py                     # needs one CUDA card
-    python3 chip_smoke.py --log2 14 --bn-log2 12 --systems-log2 14 --kzg-log2 14
-                                              # small sizes
+    python3 chip_smoke.py --log2 14 --bn-log2 12 --systems-log2 14 \
+        --new-log2 14 --kzg-log2 14           # small sizes
 """
 from __future__ import annotations
 
@@ -329,15 +350,24 @@ class Kernels:
         the product latency) and launch_floor_ms (an empty kernel launched
         the same way, for the launch-bound probes)."""
         b, by = bound_ms(nbytes, ops, ops_per_s)
+        if err != 0:
+            raise AssertionError(f"{key}: kernel differs from its plain "
+                                 f"version (max abs limb error {err})")
+        if key in self.rows:
+            # G2 over Fq (BW6-761) runs G1's kernel: one row, G2's check
+            # beside it
+            self.rows[key].setdefault("also", []).append({
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b, "bound_by": by, **extra})
+            log(f"  {key} (again, G2 over Fq): bit-exact; kernel {ms:.4f} "
+                f"ms, plain {plain_ms:.4f} ms, bound {b:.3g} ms ({by})")
+            return
         self.rows[key] = {
             "name": key, "route": "cuda", "source": SOURCE[name],
             "replaces": TPU_KERNEL[name], "launches": None, "path": None,
             "paths": {}, "path_ms": {}, "path_bound_ms": {},
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "library_ms": library_ms, **extra}
-        if err != 0:
-            raise AssertionError(f"{key}: kernel differs from its plain "
-                                 f"version (max abs limb error {err})")
         floor = max([b] + [extra[k] for k in ("latency_bound_ms",
                                               "launch_floor_ms") if k in extra])
         log(f"  {key}: bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
@@ -376,9 +406,26 @@ def plant_edges(fk, a):
     return a
 
 
+POOL_POINTS = 64
+_POINT_POOL = {}
+
+
+def point_pool(curve, group) -> list:
+    """POOL_POINTS seeded random points of the group, made once a run and
+    drawn from by the kernel checks' inputs (a host scalar multiplication
+    takes milliseconds, tens of them at BW6-761's 761 bits)."""
+    key = (curve.name, group is curve.G2)
+    if key not in _POINT_POOL:
+        rng = random.Random(f"{curve.name} G{2 if key[1] else 1}")
+        G = group.one()
+        _POINT_POOL[key] = [G * rng.randrange(1, curve.r)
+                            for _ in range(POOL_POINTS)]
+    return _POINT_POOL[key]
+
+
 def host_points(curve, group, k: int, rng):
-    G = group.one()
-    return [G * rng.randrange(1, curve.r) for _ in range(k)]
+    """k distinct random points of the group (k <= POOL_POINTS)."""
+    return rng.sample(point_pool(curve, group), k)
 
 
 def jacobian_lanes(ck, fk_rand, aff, idx):
@@ -391,8 +438,13 @@ def jacobian_lanes(ck, fk_rand, aff, idx):
     return [fk.mul(x, Z2), fk.mul(y, fk.mul(Z2, Z)), Z]
 
 
-def groups_of(curve, g16):
-    return ((g16.g1, g16.msm_g1, curve.G1, 1), (g16.g2, g16.msm_g2, curve.G2, 2))
+def groups_of(curve, g16, g1_only: bool = False):
+    """(curve kernel, MSM kernel, host group, coordinate field degree) of
+    G1 and G2 (G2 over Fq2, or over Fq for BW6-761), or of G1 alone."""
+    from libsnark_tpu_torch.ops.cuda_ec import ext_of
+    out = ((g16.g1, g16.msm_g1, curve.G1, 1),
+           (g16.g2, g16.msm_g2, curve.G2, ext_of(g16.g2.fk)))
+    return out[:1] if g1_only else out
 
 
 # ------------------------------------------------------------ kernel checks
@@ -482,8 +534,10 @@ def check_probes(K, fqs):
                 f"{r['gsteps_per_s'] / 1e3:.4f}e12/s = "
                 f"{r['gsteps_per_s'] * 1e9 / INT32_OPS_PER_S:.3f} x "
                 f"INT32_OPS_PER_S ({INT32_OPS_PER_S:.4g})")
+    from libsnark_tpu_torch.ops import cuda_lib
     log("probe: Montgomery-product bodies (2^20 lanes x 64 chained products)")
-    for r in probes.measure_cios(fqs):
+    for r in probes.measure_cios([fk for fk in fqs
+                                  if fk.nw in cuda_lib.PROBE_WIDTHS]):
         key = f"probe_cios_{r['variant']}_n{r['N']}"
         ops = r["lanes"] * r["K"] * r["wide_mads_per_product"]
         K.add("probe_cios", key, 0 if r["exact"] else 1, r["ms"],
@@ -504,7 +558,8 @@ def check_probes(K, fqs):
     for key, n in probes.LAUNCHES.items():
         if n == 0:
             raise AssertionError(f"probe kernel not launched: {key}")
-        K.count(key, "probe", n)
+        if key in K.rows:       # the latency probe alone at 48 limbs: no row
+            K.count(key, "probe", n)
     log("probe: instructions in each kernel's main loop (cuobjdump -sass)")
     for key, loop in loops.items():
         log(f"    {key}: {len(loop)} instructions: "
@@ -512,22 +567,27 @@ def check_probes(K, fqs):
                          probes.loop_counts(loop).items()) or "no loop"))
 
 
-def check_mont_mul(fr, fq, K, gen):
+def check_mont_mul(fr, fq, K, gen, plain_lanes=None):
+    """mont_mul at 2^20 lanes against its plain version on the first
+    plain_lanes of them (all by default; lanes are independent)."""
     from libsnark_tpu_torch.ops import cuda_fp
     L = 1 << 20
-    log(f"mont_mul: {L} lanes, Fq (N={fq.N}) and Fr (N={fr.N})")
+    P = plain_lanes or L
+    log(f"mont_mul: {L} lanes, Fq (N={fq.N}) and Fr (N={fr.N}); plain "
+        f"version on {P} lanes")
     for fk in (fq, fr):
         a = plant_edges(fk, rand_field(fk, (L,), gen))
         b = plant_edges(fk, rand_field(fk, (L,), gen)).flip(-1).contiguous()
         out = cuda_fp.mont_mul(fk, a, b)
-        plain = cuda_fp.mont_mul_plain(fk, a, b)
-        err = max_abs_err([out], [plain])
+        plain_in = (a[:, :P].contiguous(), b[:, :P].contiguous())
+        plain = cuda_fp.mont_mul_plain(fk, *plain_in)
+        err = max_abs_err([out[:, :P]], [plain])
         key = f"mont_mul_n{fk.N}"
         if fk is fq and key not in K.rows:
             ms = cuda_ms(lambda: cuda_fp.mont_mul(fk, a, b), 50)
-            pms = cuda_ms(lambda: cuda_fp.mont_mul_plain(fk, a, b), 2)
+            pms = cuda_ms(lambda: cuda_fp.mont_mul_plain(fk, *plain_in), 2)
             K.add("mont_mul", key, err, ms, pms, 3 * 4 * fk.N * L,
-                  wide_mads(fk) * L)
+                  wide_mads(fk) * L, plain_lanes=P)
         elif err:
             raise AssertionError(f"mont_mul ({key}) differs: {err}")
 
@@ -616,8 +676,9 @@ def check_ec(curve, g16, K, gen, rng):
         ms = probes._graph_ms(lambda: cuda_ec.add(fk, P2, Q2), 10)
         key = cuda_ec.counter_key("add", fk)
         b = work_bound_ms(key, L2)
-        K.rows[key].update({"scan_lanes": L2, "scan_ms": ms,
-                            "scan_bound_ms": b})
+        row = K.rows[key]
+        (row["also"][-1] if "scan_ms" in row else row).update(
+            {"scan_lanes": L2, "scan_ms": ms, "scan_bound_ms": b})
         log(f"  {key} at {L2} lanes: bit-exact; kernel {ms:.4f} ms, bound "
             f"{b:.3g} ms")
         # the planted lanes really hit the exceptional cases
@@ -628,19 +689,24 @@ def check_ec(curve, g16, K, gen, rng):
                                      "give infinity, and no other planted lane")
 
 
-def check_dbl_chain(curve, g16, K, rng):
-    """dbl_chain at the keygen's window table (W = 32 windows of c = 8) on
-    a random point of each group: bit-exact against its plain version (run
-    on a CPU copy of the point: one lane's 248 doublings of small torch ops
-    take 3-12 s on the card, a fraction of that on the host) and the
-    per-window dbl_n loop it replaced (31 single-lane launches), both
-    timed in a replayed CUDA graph, beside the latency bound of its 3 c (W
-    - 1) dependent product levels at the least product latency measured
-    in this run."""
+def check_dbl_chain(curve, g16, K, rng, plain_windows=None,
+                    g1_only=False):
+    """dbl_chain at the keygen's window table (W = 32 windows of c = 8 at a
+    254-bit r, 48 at 377 bits) on a random point of each group: bit-exact
+    against its plain version (run on a CPU copy of the point: one lane's
+    248 doublings of small torch ops take 3-12 s on the card, a fraction of
+    that on the host; over the first plain_windows bases, all by default:
+    a chain's first bases do not depend on its length) and the per-window
+    dbl_n loop it replaced (W - 1 single-lane launches), both timed in a
+    replayed CUDA graph, beside the latency bound of its 3 c (W - 1)
+    dependent product levels at the least product latency measured in this
+    run."""
     from libsnark_tpu_torch import probes
     from libsnark_tpu_torch.ops import cuda_bucket
-    c, W = 8, 32
-    for ck, mk, group, ext in groups_of(curve, g16):
+    c = 8
+    W = -(-curve.r.bit_length() // c)
+    Wp = min(W, plain_windows or W)
+    for ck, mk, group, ext in groups_of(curve, g16, g1_only):
         fk = mk.fk
         FW = ext * fk.N
         key = cuda_bucket.counter_key("dbl_chain", fk)
@@ -651,9 +717,9 @@ def check_dbl_chain(curve, g16, K, rng):
         got = kern()
         t0 = time.perf_counter()
         plain = cuda_bucket.dbl_chain_plain(fk, tuple(a.cpu() for a in P), c,
-                                            W)
+                                            Wp)
         pms = (time.perf_counter() - t0) * 1e3           # one call, host
-        err = max(max_abs_err([a.cpu() for a in got], plain),
+        err = max(max_abs_err([a[..., :Wp].cpu() for a in got], plain),
                   max_abs_err(got, loop()))
         ms = probes._graph_ms(kern, 10)
         loop_ms = probes._graph_ms(loop, 10)
@@ -661,9 +727,11 @@ def check_dbl_chain(curve, g16, K, rng):
         ops = dbls * PRODUCTS["dbl"] * (3 if ext == 2 else 1) * wide_mads(fk)
         lat = latency_bound_ms(key, 3 * dbls)
         log(f"dbl_chain: W={W}, c={c}, ext={ext}, N={fk.N}: {dbls} doublings; "
-            f"per-window dbl_n loop {loop_ms:.4f} ms")
+            f"per-window dbl_n loop {loop_ms:.4f} ms; plain version over "
+            f"{Wp} bases")
         K.add("dbl_chain", key, err, ms, pms, 4 * 3 * FW * (W + 1), ops,
-              latency_bound_ms=lat, loop_ms=loop_ms, windows=W, c=c)
+              latency_bound_ms=lat, loop_ms=loop_ms, windows=W, c=c,
+              plain_windows=Wp)
         log(f"  {key}: {loop_ms / ms:.2f}x the loop; {ms / dbls * 1e3:.2f} us "
             f"a doubling ({lat / dbls * 1e3:.2f} at the latency bound)")
 
@@ -684,7 +752,8 @@ def dense_chunk(mk, points, sc, c: int):
     return runs, (0, R // 2, 0, W_full, B + 1)
 
 
-def check_aadd_rows(curve, g16, K, gen, rng):
+def check_aadd_rows(curve, g16, K, gen, rng, plain_windows=None,
+                    g1_only=False):
     """aadd_rows on the first dense chunk of a 2^20-point MSM (c = 15: the
     full windows at the chunk depth dense_depth picks there), points of
     msm_inputs (64 points, one point and scalar in lanes 0-63: P == Q at
@@ -694,13 +763,14 @@ def check_aadd_rows(curve, g16, K, gen, rng):
     gathered form it replaced (MSMKernel.dense_level0_composed: row gather,
     limb split, infinity mask, the aadd kernel); each form timed in a
     replayed CUDA graph and between CUDA events (the level-0 device time of
-    one chunk, old form against new)."""
+    one chunk, old form against new). plain_windows: hold the plain version
+    on the chunk's first windows only (all by default)."""
     from libsnark_tpu_torch import probes
     from libsnark_tpu_torch.ops import cuda_ec
     from libsnark_tpu_torch.ops.msm import default_window_bits
     m = 1 << 20
     c = default_window_bits(m)
-    for ck, mk, group, ext in groups_of(curve, g16):
+    for ck, mk, group, ext in groups_of(curve, g16, g1_only):
         fk = mk.fk
         FW = ext * fk.N
         key = cuda_ec.counter_key("aadd_rows", fk)
@@ -713,12 +783,15 @@ def check_aadd_rows(curve, g16, K, gen, rng):
         err = max_abs_err(got, gathered())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        Wp = min(Wn, plain_windows or Wn)
         plain = [cuda_ec.aadd_rows_plain(fk, *runs, base, half, w, 1, nb)
-                 for w in range(w_lo, w_lo + Wn)]
+                 for w in range(w_lo, w_lo + Wp)]
         torch.cuda.synchronize()
         pms = (time.perf_counter() - t0) * 1e3
-        err = max(err, max_abs_err(got, [torch.cat(a, dim=-1)
-                                         for a in zip(*plain)]))
+        # outputs (.., half, Wn nb): the first Wp windows' columns
+        err = max(err, max_abs_err([a[..., :Wp * nb] for a in got],
+                                   [torch.cat(a, dim=-1)
+                                    for a in zip(*plain)]))
         del plain
         ms = probes._graph_ms(kern, 3)
         gathered_ms = probes._graph_ms(gathered, 3)
@@ -732,6 +805,7 @@ def check_aadd_rows(curve, g16, K, gen, rng):
         ops = pairs * PRODUCTS["aadd"] * (3 if ext == 2 else 1) * wide_mads(fk)
         log(f"aadd_rows: {m}-point MSM, ext={ext}, N={fk.N}, c={c}: chunk "
             f"depth {2 * half} x {Wn} windows x {nb} buckets = {L} lanes "
+            f"(plain version over {Wp} windows) "
             f"({live} of {2 * L} depths live, {pairs} lanes add two live "
             "rows); gathered form (graph) "
             f"{gathered_ms:.4f} ms; level 0 between CUDA events: gathered "
@@ -740,21 +814,21 @@ def check_aadd_rows(curve, g16, K, gen, rng):
         K.add("aadd_rows", key, err, ms, pms, L * (20 * FW + 8), ops,
               gathered_ms=gathered_ms, events_ms=ev_ms,
               gathered_events_ms=ev_gathered_ms, lanes=L, live_lanes=pairs,
-              m=m, c=c)
+              m=m, c=c, plain_windows=Wp)
 
 
-def planted_scalar_limbs(r: int, c: int, W: int, rng):
-    """(16, 7) int32 scalar limbs on the card: 0, 1, r - 1, every window
-    2^c - 1 (all 256 bits set), digit 0 in every odd / every even window,
+def planted_scalar_limbs(r: int, c: int, W: int, rng, nl: int = 16):
+    """(nl, 7) int32 scalar limbs on the card: 0, 1, r - 1, every window
+    2^c - 1 (all 16 nl bits set), digit 0 in every odd / every even window,
     only the top window nonzero."""
     from libsnark_tpu_torch.ops.limbs import ints_to_limbs
-    full = (1 << 256) - 1
+    full = (1 << (16 * nl)) - 1
     digits = lambda keep: sum(rng.randrange(1, 1 << c) << (c * w)
                               for w in range(W) if keep(w)) & full
     top = ((rng.randrange(1 << c) | 1) << (c * (W - 1))) & full
     xs = [0, 1, r - 1, full, digits(lambda w: w % 2 == 0),
-          digits(lambda w: w % 2 == 1), top or 1 << 255]
-    return torch.from_numpy(ints_to_limbs(xs, 16).astype("int32")).cuda()
+          digits(lambda w: w % 2 == 1), top or 1 << (16 * nl - 1)]
+    return torch.from_numpy(ints_to_limbs(xs, nl).astype("int32")).cuda()
 
 
 def fixed_base_madds(fk, scalars, c: int, W: int) -> int:
@@ -771,23 +845,26 @@ def fixed_base_madds(fk, scalars, c: int, W: int) -> int:
     return int(nz.sum()) - int(nz.any(dim=0).sum())
 
 
-def check_madd_windows(curve, g16, K, gen, rng):
-    """madd_win at the keygen's shape: 2^20 lanes, c = 8 (W = 32 windows)
-    on the keygen's own table of each group, random scalars below r with
-    planted lanes (planted_scalar_limbs): bit-exact against its plain
-    version and against the per-window madd kernel loop that batch_exp ran
-    before it (timed beside it), with the bound of the madds these scalars
-    need."""
+def check_madd_windows(curve, g16, K, gen, rng, plain_lanes=None,
+                       g1_only=False):
+    """madd_win at the keygen's shape: 2^20 lanes, c = 8 (W = 32 windows at
+    a 254-bit r, 48 at 377 bits) on the keygen's own table of each group,
+    random scalars below r with planted lanes (planted_scalar_limbs):
+    bit-exact against its plain version (on the first plain_lanes lanes,
+    all by default: the lanes are independent) and against the per-window
+    madd kernel loop that batch_exp ran before it (timed beside it), with
+    the bound of the madds these scalars need."""
     from libsnark_tpu_torch.ops import cuda_ec
     m, c = 1 << 20, 8
-    for ck, mk, group, ext in groups_of(curve, g16):
+    P = plain_lanes or m
+    for ck, mk, group, ext in groups_of(curve, g16, g1_only):
         fk = mk.fk
         FW = ext * fk.N
         key = cuda_ec.counter_key("madd_win", fk)
         taff, rows = g16._window_table_affine(ck, mk, group.one(), c)
         W = rows.shape[0] >> c
         sc = rand_field(g16.fr, (m,), gen)
-        planted = planted_scalar_limbs(curve.r, c, W, rng)
+        planted = planted_scalar_limbs(curve.r, c, W, rng, g16.fr.N)
         sc[:, :planted.shape[1]] = planted
         kern = lambda: cuda_ec.madd_windows(fk, rows, sc, c)
         loop = lambda: mk.batch_exp_loop(taff, sc, c)
@@ -795,10 +872,11 @@ def check_madd_windows(curve, g16, K, gen, rng):
         err = max_abs_err(got, loop())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plain = cuda_ec.madd_windows_plain(fk, rows, sc, c)
+        plain = cuda_ec.madd_windows_plain(fk, rows,
+                                           sc[:, :P].contiguous(), c)
         torch.cuda.synchronize()
         pms = (time.perf_counter() - t0) * 1e3           # one call: it is slow
-        err = max(err, max_abs_err(got, plain))
+        err = max(err, max_abs_err([a[..., :P] for a in got], plain))
         del plain
         inf = fk.is_zero(got[2])
         if not bool(inf[0]) or bool(inf[1:planted.shape[1]].any()):
@@ -809,9 +887,11 @@ def check_madd_windows(curve, g16, K, gen, rng):
         ops = n_madd * PRODUCTS["madd"] * (3 if ext == 2 else 1) * wide_mads(fk)
         nbytes = 4 * (sc.numel() + rows.numel() + 3 * FW * m)
         log(f"madd_win: {m} lanes, ext={ext}, N={fk.N}, c={c}, W={W}, "
-            f"{n_madd} madds; per-window madd loop {loop_ms:.4f} ms")
+            f"{n_madd} madds; per-window madd loop {loop_ms:.4f} ms; plain "
+            f"version on {P} lanes")
+        MADD_WIN_LANE[key] = (g16.fr.N, W - 1)
         K.add("madd_win", key, err, ms, pms, nbytes, ops, loop_ms=loop_ms,
-              lanes=m, windows=W, madds=n_madd)
+              lanes=m, windows=W, madds=n_madd, plain_lanes=P)
         b = K.rows[key]["bound_ms"]
         log(f"  {key}: {loop_ms / ms:.2f}x the per-window loop; "
             f"{b / ms:.1%} of the product bound (loop {b / loop_ms:.1%})")
@@ -924,12 +1004,17 @@ def msm_inputs(curve, g16, ck, group, m, gen, rng):
     return (aff[0][..., idx], aff[1][..., idx], inf), sc
 
 
-def check_bucket_and_horner(curve, g16, K, gen, rng):
+def check_bucket_and_horner(curve, g16, K, gen, rng, m=1 << 16,
+                            plain_segments=None, g1_only=False):
+    """bucket_reduce on an m-point MSM (msm_inputs) at the path's window
+    bits for m, bit-exact against its plain version on plain_segments of
+    its segments (all by default; the segments are independent): the
+    longest half of them and a random half of the rest. Then check_horner
+    at the 2^20-point MSM's windows."""
     from libsnark_tpu_torch.ops import cuda_bucket
     from libsnark_tpu_torch.ops.cuda_ec import counter_key
     from libsnark_tpu_torch.ops.msm import default_window_bits
-    m = 1 << 16
-    for ck, mk, group, ext in groups_of(curve, g16):
+    for ck, mk, group, ext in groups_of(curve, g16, g1_only):
         fk = mk.fk
         FW = ext * fk.N
         c = default_window_bits(m)
@@ -938,25 +1023,38 @@ def check_bucket_and_horner(curve, g16, K, gen, rng):
         args = (mk.row_table(points), seg["gidx"], seg["seg_start"],
                 seg["seg_count"], seg["seg_order"])
         counts = seg["seg_count"]
+        nseg = counts.numel()
+        sel = torch.arange(nseg, device=counts.device)
+        if plain_segments is not None and plain_segments < nseg:
+            half = plain_segments // 2
+            order = seg["seg_order"]
+            rest = order[half:][torch.randperm(
+                nseg - half, generator=gen, device=counts.device)]
+            sel = torch.sort(torch.cat([order[:half],
+                                        rest[:plain_segments - half]]))[0]
         log(f"bucket_reduce: {m}-point MSM, ext={ext}, N={fk.N}, c={c}, "
-            f"{seg['num_buckets']} buckets in {counts.numel()} segments, "
-            f"deepest segment {int(counts.max())}")
+            f"{seg['num_buckets']} buckets in {nseg} segments, deepest "
+            f"segment {int(counts.max())}; plain version on {sel.numel()} "
+            "segments")
         out = cuda_bucket.bucket_reduce(fk, *args)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plain = cuda_bucket.bucket_reduce_plain(fk, *args)
+        plain = cuda_bucket.bucket_reduce_plain(
+            fk, args[0], args[1], args[2][sel], args[3][sel])
         torch.cuda.synchronize()
         pms = (time.perf_counter() - t0) * 1e3       # one call: it is slow
-        err = max_abs_err(out, plain)
+        err = max_abs_err([a[:, sel] for a in out], plain)
+        del plain
         ms = cuda_ms(lambda: cuda_bucket.bucket_reduce(fk, *args), 5)
         # data-dependent work: one madd per row in a bucket run
         n_madd = int(counts.sum())
         ops = n_madd * PRODUCTS["madd"] * (3 if ext == 2 else 1) * wide_mads(fk)
         nbytes = (args[0].numel() * 4 + args[1].numel() * 4
                   + args[2].numel() * 8 + args[3].numel() * 4
-                  + args[4].numel() * 8 + 3 * FW * 4 * counts.numel())
+                  + args[4].numel() * 8 + 3 * FW * 4 * nseg)
         K.add("bucket_reduce", counter_key("bucket_reduce", fk), err, ms, pms,
-              nbytes, ops)
+              nbytes, ops, points=m, c=c, segments=nseg,
+              plain_segments=sel.numel())
 
         check_horner(curve, ck, group, K, gen, rng, mk.num_windows(
             default_window_bits(1 << 20)), default_window_bits(1 << 20))
@@ -970,14 +1068,13 @@ def rand_fe(fk, shape, gen):
     return rand_field(fk, shape, gen)
 
 
-def horner_windows(group, W: int, c: int, r: int, rng):
+def horner_windows(curve, group, W: int, c: int, rng):
     """Planted window sums S_0 .. S_(W-1) for horner_combine, as (label,
-    host points): random; an infinity window (in the middle, or S_0 at W =
-    2); an infinity top window; S_(W-2) = 2^c S_(W-1), so that the first add
-    meets P == Q; S_0 = -(sum of the rest), a result at infinity. W = 1:
-    random and infinity."""
-    G = group.one()
-    rnd = lambda: [G * rng.randrange(1, r) for _ in range(W)]
+    host points): random (distinct points of point_pool); an infinity
+    window (in the middle, or S_0 at W = 2); an infinity top window;
+    S_(W-2) = 2^c S_(W-1), so that the first add meets P == Q; S_0 = -(sum
+    of the rest), a result at infinity. W = 1: random and infinity."""
+    rnd = lambda: host_points(curve, group, W, rng)
     if W == 1:
         return [("random", rnd()), ("infinity", [group.zero()])]
     cases = [("random", rnd())]
@@ -1004,7 +1101,9 @@ def check_horner(curve, ck, group, K, gen, rng, W_path: int, c_path: int):
     planted windows of horner_windows (Jacobian, random Z), bit-exact
     against the plain version run over all cases of a (W, c) at once; the
     result of a random case equals the host's sum and the planted infinity
-    result has Z = 0. Then the time at the path's shape (W_path, c_path), with the
+    result has Z = 0 (the plain version runs on CPU copies: its chains of
+    small torch ops are launch-bound on the card). Then the time at the
+    path's shape (W_path, c_path), with the
     bounds: throughput (bound_ms) and latency (the critical path
     (W - 1)(3 c + 5) times the least product latency)."""
     from libsnark_tpu_torch.ops import cuda_bucket
@@ -1017,7 +1116,7 @@ def check_horner(curve, ck, group, K, gen, rng, W_path: int, c_path: int):
     timed = None
     for W in (1, 2, W_path):
         for c in (1, c_path, 16):
-            cases = horner_windows(group, W, c, curve.r, rng)
+            cases = horner_windows(curve, group, W, c, rng)
             S = []
             for _, pts in cases:
                 X, Y, Z = ck.encode_points(pts, device="cuda")
@@ -1025,16 +1124,17 @@ def check_horner(curve, ck, group, K, gen, rng, W_path: int, c_path: int):
                 z2 = fk.sqr(z)
                 S.append([a.reshape(FW, W) for a in (
                     fk.mul(X, z2), fk.mul(Y, fk.mul(z2, z)), fk.mul(Z, z))])
-            batch = tuple(torch.stack([s[i] for s in S], dim=-1)
+            # the plain version on the host: one chain of small torch ops
+            # a case, launch-bound on the card
+            batch = tuple(torch.stack([s[i] for s in S], dim=-1).cpu()
                           for i in range(3))
-            torch.cuda.synchronize()
             t0 = time.perf_counter()
             want = cuda_bucket.horner_combine_plain(fk, batch, c)
-            torch.cuda.synchronize()
             pms = (time.perf_counter() - t0) * 1e3
             for b, (label, pts) in enumerate(cases):
                 got = cuda_bucket.horner_combine(fk, S[b], c)
-                if max_abs_err(got, [a[:, b:b + 1] for a in want]):
+                if max_abs_err([a.cpu() for a in got],
+                               [a[:, b:b + 1] for a in want]):
                     raise AssertionError(f"{key} differs from its plain "
                                          f"version: W={W}, c={c}, {label}")
                 if label == "result at infinity" and bool(got[2].any()):
@@ -1058,12 +1158,12 @@ def check_horner(curve, ck, group, K, gen, rng, W_path: int, c_path: int):
     ops = prods * (3 if ext == 2 else 1) * wide_mads(fk)
     lat = latency_bound_ms(key, (W_path - 1) * (3 * c_path + 5))
     log(f"  {key} at W={W_path}, c={c_path}: {ms:.4f} ms; latency bound "
-        f"{lat:.4f} ms; plain over {ncase} chains {pms:.1f} ms")
+        f"{lat:.4f} ms; plain over {ncase} chains (host) {pms:.1f} ms")
     K.add("horner_combine", key, 0, ms, pms, 4 * 3 * FW * (W_path + 1), ops,
           latency_bound_ms=lat)
 
 
-def check_dense_window_sums(curve, g16, gen, rng):
+def check_dense_window_sums(curve, g16, gen, rng, g1_only=False):
     """The dense strategy's window sums equal the default strategy's as
     affine points on a 2^16-point MSM: random scalars (planted cases as in
     msm_inputs), then 4096 all-equal scalars, which put 4096 points into
@@ -1073,7 +1173,7 @@ def check_dense_window_sums(curve, g16, gen, rng):
     m = 1 << 16
     c = default_window_bits(m)
     lanes = lambda S: tuple(a.movedim(0, -2) for a in S)       # (.., W, 1)
-    for ck, mk, group, ext in groups_of(curve, g16):
+    for ck, mk, group, ext in groups_of(curve, g16, g1_only):
         dense = MSMKernel(ck, mk.scalar_bits, strategy="dense")
         key = cuda_ec.counter_key("aadd_rows", mk.fk)
         points, sc = msm_inputs(curve, g16, ck, group, m, gen, rng)
@@ -1110,10 +1210,41 @@ def check_dense_window_sums(curve, g16, gen, rng):
 
 # ------------------------------------------------------------- end to end
 
-def small_systems(r: int):
-    """The 20-constraint cross-check of each pairing system: (label, class,
-    the circuit's generator, keygen, prover, verifier, corrupt (a proof
-    with one point moved, or None))."""
+def auth_labels(k: int) -> list:
+    """The labels of ADSNARK's k authenticated inputs."""
+    return [f"input{i}".encode() for i in range(k)]
+
+
+def adsnark_keygen(ps, circuit, timings=None):
+    """ADSNARK's seeded authority keys (kept on ps) and keypair."""
+    ps.auth_keys = ps.auth_generator(seed=3)
+    return ps.generator(circuit, ps.auth_keys.pap, seed=5, timings=timings)
+
+
+def adsnark_prove(ps, kp, primary, aux, timings=None):
+    """The inputs' authenticated data (seeded, kept on ps) and the proof."""
+    ps.auth_data = ps.auth_sign(primary, ps.auth_keys.sak,
+                                auth_labels(len(primary)), seed=4)
+    return ps.prover(kp.pk, primary, aux, ps.auth_data, seed=9,
+                     timings=timings)
+
+
+def adsnark_verify(ps, kp, primary, proof) -> bool:
+    """Both verifiers, symmetric and public, on the data adsnark_prove
+    authenticated."""
+    labels = auth_labels(len(primary))
+    return (ps.verifier_sec(kp.vk, proof, ps.auth_keys.sak, labels)
+            and ps.verifier_pub(kp.vk, ps.auth_data, proof,
+                                ps.auth_keys.pak, labels))
+
+
+def small_systems(curve_name: str, r: int):
+    """The 20-constraint cross-check of each pairing system over the curve:
+    (label, class, the circuit's generator, keygen, prover, verifier,
+    corrupt (a proof with one point moved, or None)). alt_bn128: Groth16,
+    BCTV14, GM17, DFGK14, BACS, TBCS, ADSNARK (Schnorr); BW6-761:
+    Groth16."""
+    from libsnark_tpu_torch.proof_systems.adsnark import ADSNARK
     from libsnark_tpu_torch.proof_systems.bacs_ppzksnark import BACSPpzksnark
     from libsnark_tpu_torch.proof_systems.bctv14 import BCTV14
     from libsnark_tpu_torch.proof_systems.dfgk14 import DFGK14
@@ -1132,6 +1263,8 @@ def small_systems(r: int):
     plain = (lambda ps, c: ps.generator(c, seed=5),
              lambda ps, kp, p, a: ps.prover(kp.pk, p, a, seed=9),
              lambda ps, kp, p, proof: ps.verifier_strong_IC(kp.vk, p, proof))
+    if curve_name == "bw6_761":
+        return (("Groth16", Groth16, r1cs) + plain + (moved("g_C"),),)
     return (
         ("Groth16", Groth16, r1cs) + plain + (None,),
         ("BCTV14", BCTV14, r1cs) + plain + (moved("g_H"),),
@@ -1149,7 +1282,12 @@ def small_systems(r: int):
          lambda ps, c: ps.tbcs_generator(c, seed=5),
          lambda ps, kp, p, a: ps.tbcs_prover(kp.pk, p, a, seed=9),
          lambda ps, kp, p, proof: ps.tbcs_verifier_strong_IC(kp.vk, p, proof),
-         None))
+         None),
+        ("ADSNARK", ADSNARK, r1cs, adsnark_keygen, adsnark_prove,
+         adsnark_verify, moved("g_H")))
+
+
+SMALL_CURVES = ("alt_bn128", "bw6_761")
 
 
 def proof_coords(x):
@@ -1161,11 +1299,86 @@ def proof_coords(x):
                      for f in dataclasses.fields(x))
     if hasattr(x, "g") and hasattr(x, "h"):              # KnowledgeCommitment
         return (proof_coords(x.g), proof_coords(x.h))
-    if x.is_zero():
+    return point_coords(x)
+
+
+def point_coords(P):
+    """A host point of G1 or G2 as integers (None: infinity), what a worker
+    process can take: (x, y) over Fq, ((x0, x1), (y0, y1)) over Fq2."""
+    if P.is_zero():
         return None
-    if hasattr(x.x, "c0"):
-        return ((int(x.x.c0), int(x.x.c1)), (int(x.y.c0), int(x.y.c1)))
-    return (int(x.x), int(x.y))
+    if hasattr(P.x, "c0"):
+        return ((int(P.x.c0), int(P.x.c1)), (int(P.y.c0), int(P.y.c1)))
+    return (int(P.x), int(P.y))
+
+
+def coords_point(curve, group, xy):
+    """point_coords' inverse in ``group`` (curve.G1 or curve.G2)."""
+    if xy is None:
+        return group.zero()
+    if isinstance(xy[0], tuple):
+        F2 = curve.Fq2
+        return group.point(F2(*xy[0]), F2(*xy[1]))
+    return group.point(*xy)
+
+
+def pairing_check_worker(curve_name: str, pairs) -> bool:
+    """The port's host pairing check of (G1, G2) integer coordinates, in a
+    worker process of PairingPool."""
+    from libsnark_tpu_torch import get_curve
+    curve = get_curve(curve_name)
+    return curve.pairing_check([
+        (coords_point(curve, curve.G1, P), coords_point(curve, curve.G2, Q))
+        for P, Q in pairs])
+
+
+class LazyCheck:
+    """The verdict of a pairing check running in a worker process: a bool
+    that waits for the worker when it is read."""
+
+    def __init__(self, future):
+        self.future = future
+
+    def __bool__(self):
+        return bool(self.future.result())
+
+    def __repr__(self):
+        return repr(bool(self))
+
+    __str__ = __repr__
+
+    def __format__(self, spec):
+        return format(bool(self), spec)
+
+
+class PairingPool:
+    """Spreads the verifiers' host pairing checks over worker processes.
+    While active, each curve's pairing_check(pairs) sends the pairs (as
+    integers) to a worker and returns a LazyCheck at once, so the checks a
+    verifier builds before it reads any (BCTV14's five, GM17's and DFGK14's,
+    ADSNARK's six) run at the same time; each one is the port's own
+    pairing check, computed as it would be in this process. A verifier
+    may then return a LazyCheck: every caller here reads its verdict with
+    bool() (or not) before it takes the time it logs."""
+
+    def __init__(self, workers: int):
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn"))
+        self.curves = []
+
+    def activate(self, *curves):
+        for curve in curves:
+            curve.pairing_check = (
+                lambda pairs, name=curve.name: LazyCheck(self.pool.submit(
+                    pairing_check_worker, name,
+                    [(point_coords(P), point_coords(Q)) for P, Q in pairs])))
+            self.curves.append(curve)
+
+    def shutdown(self):
+        for curve in self.curves:
+            curve.__dict__.pop("pairing_check", None)
+        self.pool.shutdown(wait=True, cancel_futures=True)
 
 
 def cpu_proof(label: str, curve_name: str):
@@ -1176,7 +1389,8 @@ def cpu_proof(label: str, curve_name: str):
     from libsnark_tpu_torch import get_curve
     torch.set_num_threads(1)
     curve = get_curve(curve_name)
-    for name, cls, make, keygen, prove, _, _ in small_systems(curve.r):
+    for name, cls, make, keygen, prove, _, _ in small_systems(curve_name,
+                                                              curve.r):
         if name == label:
             circuit, primary, aux = make()
             ps = cls(curve, device="cpu")
@@ -1185,58 +1399,75 @@ def cpu_proof(label: str, curve_name: str):
     raise KeyError(label)
 
 
-def small_cross_check(curve):
-    """About 20 constraints, for Groth16, BCTV14, GM17, DFGK14, BACS and
-    TBCS: the proof on the card (keygen on the device fixed-base path) ==
-    the proof made by the plain versions on the CPU (cpu_proof, one worker
-    process each, all at once beside the card's work), and it verifies;
-    for BCTV14, GM17 and DFGK14 a proof with one point moved is
-    rejected."""
-    systems = small_systems(curve.r)
+def start_cpu_proofs():
+    """The CPU plain proofs of small_cross_check, one worker process each,
+    all started at once: (the pool, {(curve, label): future})."""
+    from libsnark_tpu_torch import get_curve
+    labels = [(name, entry[0]) for name in SMALL_CURVES
+              for entry in small_systems(name, get_curve(name).r)]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=len(labels),
+        mp_context=multiprocessing.get_context("spawn"))
+    return pool, {(name, label): pool.submit(cpu_proof, label, name)
+                  for name, label in labels}
+
+
+def small_cross_check(cpu):
+    """About 20 constraints, for Groth16, BCTV14, GM17, DFGK14, BACS, TBCS
+    and ADSNARK over alt_bn128 and Groth16 over BW6-761: the proof on the
+    card (keygen on the device fixed-base path) == the proof made by the
+    plain versions on the CPU (cpu: start_cpu_proofs' futures, made in
+    worker processes beside the card's work), and it verifies (ADSNARK:
+    both verifiers); for BCTV14, GM17, DFGK14, ADSNARK and BW6-761's
+    Groth16 a proof with one point moved is rejected."""
+    from libsnark_tpu_torch import get_curve
+    systems = [(get_curve(name), entry) for name in SMALL_CURVES
+               for entry in small_systems(name, get_curve(name).r)]
     t0 = time.perf_counter()
-    with concurrent.futures.ProcessPoolExecutor(
-            max_workers=len(systems),
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        cpu = {label: pool.submit(cpu_proof, label, curve.name)
-               for label, *_ in systems}
-        for label, cls, make, keygen, prove, verify, corrupt in systems:
-            t1 = time.perf_counter()
-            circuit, primary, aux = make()
-            ps = cls(curve)                                # device="cuda"
-            kp = keygen(ps, circuit)
-            proof = prove(ps, kp, primary, aux)
-            if not verify(ps, kp, primary, proof):
-                raise AssertionError(f"{label}: 20-constraint card proof "
-                                     "rejected")
-            rejected = corrupt is not None and not verify(
-                ps, kp, primary, corrupt(proof, curve.G1.one()))
-            if corrupt is not None and not rejected:
-                raise AssertionError(f"{label}: a corrupted 20-constraint "
-                                     "proof was accepted")
-            t_card = time.perf_counter() - t1
-            if proof_coords(proof) != cpu[label].result():
-                raise AssertionError(f"{label}: card proof != CPU plain "
-                                     "proof (20 constraints)")
-            log(f"20-constraint seeded {label} proof: card == CPU plain, "
-                "verifies" + (", corrupted proof rejected" if rejected
-                              else "")
-                + f" (card side {t_card:.1f} s, elapsed "
-                  f"{time.perf_counter() - t0:.1f} s)")
+    for curve, (label, cls, make, keygen, prove, verify,
+                corrupt) in systems:
+        t1 = time.perf_counter()
+        circuit, primary, aux = make()
+        ps = cls(curve)                                # device="cuda"
+        kp = keygen(ps, circuit)
+        proof = prove(ps, kp, primary, aux)
+        if not verify(ps, kp, primary, proof):
+            raise AssertionError(f"{label}: 20-constraint card proof "
+                                 "rejected")
+        rejected = corrupt is not None and not verify(
+            ps, kp, primary, corrupt(proof, curve.G1.one()))
+        if corrupt is not None and not rejected:
+            raise AssertionError(f"{label}: a corrupted 20-constraint "
+                                 "proof was accepted")
+        t_card = time.perf_counter() - t1
+        if proof_coords(proof) != cpu[curve.name, label].result():
+            raise AssertionError(f"{label} {curve.name}: card proof != "
+                                 "CPU plain proof (20 constraints)")
+        log(f"20-constraint seeded {label} {curve.name} proof: card == "
+            "CPU plain, "
+            "verifies" + (", corrupted proof rejected" if rejected
+                          else "")
+            + f" (card side {t_card:.1f} s, elapsed "
+              f"{time.perf_counter() - t0:.1f} s)")
 
 
-def main_path(curve, log2: int, paths: dict):
+def main_path(curve, log2: int, paths: dict, circuit=None,
+              extras: bool = True):
     """Keygen (under the device profiler, paths["keygen_<curve>"], and the
     port's phase blocks), prove (default strategy), prove (dense strategy),
     verify. Counts are set to 0 just before each phase and read just after.
     Then one more prove of each strategy under the device profiler
     (paths["prove_<curve>"], paths["prove_dense_<curve>"]), the keygen's
     fixed-base phase again with the per-window madd loop and with
-    madd_windows (fixed_base_before_after), and the device time of a G1 and
-    a G2 MSM by part. Returns the path's launches per kernel (the three
-    phases added up) and {run: launches} of the yardstick runs that count
-    the kernels the path replaced (the single madd, the public dbl and
-    aadd)."""
-    from libsnark_tpu_torch.ops import launch_counts
+    madd_windows (fixed_base_before_after), its window tables with the
+    dbl_n loop (window_table_before_after), a dense prove with the gathered
+    level 0 (dense_gathered_prove) and, with extras, the prove's encoding
+    in turns and the device time of a G1 and a G2 MSM by part. circuit: the circuit from a
+    worker (receive_circuit's entry), else it is made here. Returns the
+    path's launches per kernel (the three phases added up) and {run:
+    launches} of the yardstick runs that count the kernels the path
+    replaced (the single madd, the public dbl and aadd)."""
+    from libsnark_tpu_torch.ops.cuda_ec import counter_key
     from libsnark_tpu_torch.ops.msm import default_window_bits
     from libsnark_tpu_torch.profiling import PROFILER, start_profiling
     from libsnark_tpu_torch.proof_systems.groth16 import Groth16
@@ -1244,9 +1475,14 @@ def main_path(curve, log2: int, paths: dict):
     from libsnark_tpu_torch.relations.examples import generate_r1cs_example
     n = (1 << log2) - 3
     t0 = time.perf_counter()
-    cs, primary, aux = generate_r1cs_example(curve.r, n, 2)
-    log(f"main path {curve.name}: generate_r1cs_example(r, 2^{log2} - 3, 2): "
-        f"{time.perf_counter() - t0:.2f} s (host)")
+    if circuit is None:
+        cs, primary, aux = generate_r1cs_example(curve.r, n, 2)
+        made = "(host)"
+    else:
+        (cs, primary, aux), secs = receive_circuit(circuit)
+        made = (f"(host, a worker process: {secs:.2f} s), received in")
+    log(f"main path {curve.name}: generate_r1cs_example(r, 2^{log2} - 3, 2) "
+        f"{made} {time.perf_counter() - t0:.2f} s")
     systems = {"segments": Groth16(curve),                 # device="cuda"
                "dense": Groth16(curve, msm_strategy="dense")}
     phases, proofs = {}, {}
@@ -1273,7 +1509,7 @@ def main_path(curve, log2: int, paths: dict):
                              "default strategy's")
     proof = proofs["dense"]
     t0 = time.perf_counter()
-    ok = g16.verifier_strong_IC(kp.vk, primary, proof)
+    ok = bool(g16.verifier_strong_IC(kp.vk, primary, proof))
     bad_input = list(primary)
     bad_input[0] = (bad_input[0] + 1) % curve.r
     rej_input = not g16.verifier_strong_IC(kp.vk, bad_input, proof)
@@ -1295,17 +1531,27 @@ def main_path(curve, log2: int, paths: dict):
         if caller_split(f"prove_{curve.name}", lambda: g16.prover(
                 kp.pk, primary, aux, seed=9), paths) != proof:
             raise AssertionError("the proof under PortCallers differs")
-    prove_encode_in_turns(g16, kp, primary, aux, proof, curve.name)
+    total = path_totals(phases, curve.name, [
+        f"mont_mul_n{g16.fq.N}", f"mont_mul_n{g16.fr.N}"] + [
+        counter_key(k, ck.fk) for k in (
+            "dbl_chain", "add", "madd_win", "aadd_rows", "bucket_reduce",
+            "horner_combine") for ck in (g16.g1, g16.g2)])
+    if extras:
+        prove_encode_in_turns(g16, kp, primary, aux, proof, curve.name)
     # the kernels the path no longer runs count where their forms still do
     yardsticks = {
         f"prove_dense_gathered_{curve.name}": dense_gathered_prove(
             curve, systems["dense"], kp, primary, aux, proof),
+        # (without extras on 2^16 scalars: a yardstick, not the keygen)
         f"fixed_base_loop_{curve.name}": {
             k: n for k, n in fixed_base_before_after(
-                curve, g16, kp.pk.H_query[0].shape[-1]).items()
+                curve, g16, kp.pk.H_query[0].shape[-1] if extras
+                else 1 << 16).items()
             if k.startswith("madd_fp")},
         f"window_table_loop_{curve.name}": window_table_before_after(curve,
                                                                      g16)}
+    if not extras:
+        return total, yardsticks
     gen = torch.Generator(device="cuda").manual_seed(77)
     c = default_window_bits(kp.pk.r1cs_dev.num_variables + 1)
     for which, q in (("g1", kp.pk.H_query), ("g2", kp.pk.B_query_g2)):
@@ -1325,10 +1571,20 @@ def main_path(curve, log2: int, paths: dict):
                 f"{warp_efficiency(counts[order]):.3f} in length order "
                 f"({counts.numel()} segments, {int(counts.sum())} rows)")
 
-    level0 = [k for k in launch_counts() if k.startswith("aadd_rows_")]
-    if any(phases[p].get(k) for k in level0
-           for p in ("keygen", "prove[segments]")):
-        raise AssertionError("aadd_rows launched outside the dense strategy")
+    return total, yardsticks
+
+
+def path_totals(phases: dict, label: str, need) -> dict:
+    """The launches of a Groth16 path's phases (keygen, prove[segments],
+    prove[dense]) added up. Fails if a kernel of ``need`` launched in none
+    of them, if the public dbl or aadd launched, or if aadd_rows launched
+    outside the dense strategy."""
+    level0 = [k for p in ("keygen", "prove[segments]")
+              for k, v in phases[p].items() if v and
+              k.startswith("aadd_rows_")]
+    if level0:
+        raise AssertionError(f"aadd_rows launched outside the dense "
+                             f"strategy: {level0}")
     total = {}
     for counts in phases.values():
         for k, v in counts.items():
@@ -1336,18 +1592,12 @@ def main_path(curve, log2: int, paths: dict):
     replaced = [k for k in total if k.startswith(("dbl_fp", "aadd_fp"))]
     if replaced:
         raise AssertionError(f"the public dbl / aadd launched on the "
-                             f"{curve.name} path: {replaced}")
-    nq = g16.fq.N
-    path = [f"mont_mul_n{nq}", f"mont_mul_n{g16.fr.N}"] + [
-        f"{k}_{f}_n{nq}" for k in ("dbl_chain", "add", "madd_win",
-                                   "aadd_rows", "bucket_reduce",
-                                   "horner_combine")
-        for f in ("fp", "fp2")]
-    missing = [k for k in path if not total.get(k)]
+                             f"{label} path: {replaced}")
+    missing = [k for k in need if not total.get(k)]
     if missing:
-        raise AssertionError(f"kernels not launched on the {curve.name} "
+        raise AssertionError(f"kernels not launched on the {label} "
                              f"main path: {missing}")
-    return total, yardsticks
+    return total
 
 
 def timed_phase(phases: dict, label: str, fn):
@@ -1371,32 +1621,47 @@ def timed_phase(phases: dict, label: str, fn):
     return out
 
 
-def make_circuit(conn, kind: str, r: int, n: int):
-    """generate_r1cs_example(r, n, 2) ("r1cs") or generate_uscs_example(r,
-    n, 2) ("uscs") in a worker process: sends (circuit, host seconds) on
+def make_circuit(conn, kind: str, r: int, n: int, k: int = 2):
+    """generate_r1cs_example(r, n, k) ("r1cs") or generate_uscs_example(r,
+    n, k) ("uscs") in a worker process: sends (circuit, host seconds) on
     ``conn``, which blocks until the parent reads it."""
     from libsnark_tpu_torch.relations import examples as ex
     make = ex.generate_uscs_example if kind == "uscs" else \
         ex.generate_r1cs_example
     t0 = time.perf_counter()
-    out = make(r, n, 2)
+    out = make(r, n, k)
     conn.send((out, time.perf_counter() - t0))
     conn.close()
 
 
-def systems_circuits(r: int, log2: int) -> dict:
-    """The circuits of proof_systems_path, each made in a worker process
-    of its own while the earlier paths run: {system: (process, the pipe's
-    read end)}. A circuit crosses to this process only when
-    receive_circuit reads it (a background receiver would unpickle it
-    under the interpreter lock in the middle of another path)."""
+# ADSNARK's authenticated inputs on its 2^20 path
+ADSNARK_INPUTS = 16
+# worker processes of the verifiers' pairing checks (PairingPool)
+PAIRING_WORKERS = 6
+
+
+def systems_circuits(systems_log2: int, new_log2: int) -> dict:
+    """The circuits of proof_systems_path (alt_bn128, domains of
+    2^systems_log2), of adsnark_path (alt_bn128, 2^new_log2 - 3
+    constraints, 16 inputs) and of the BW6-761 Groth16 path (2^new_log2 -
+    3 constraints), each made in a worker process of its own while the
+    earlier paths run: {name: (process, the pipe's read end)}. A circuit
+    crosses to this process only when receive_circuit reads it (a
+    background receiver would unpickle it under the interpreter lock in
+    the middle of another path)."""
+    from libsnark_tpu_torch import get_curve
     ctx = multiprocessing.get_context("spawn")
+    r, r6 = get_curve("alt_bn128").r, get_curve("bw6_761").r
+    log2 = systems_log2
     out = {}
-    for name, kind, n in (("bctv14", "r1cs", (1 << log2) - 3),
-                          ("gm17", "r1cs", (1 << (log2 - 1)) - 3),
-                          ("dfgk14", "uscs", 1 << log2)):
+    for name, kind, rr, n, k in (
+            ("bctv14", "r1cs", r, (1 << log2) - 3, 2),
+            ("gm17", "r1cs", r, (1 << (log2 - 1)) - 3, 2),
+            ("dfgk14", "uscs", r, 1 << log2, 2),
+            ("adsnark", "r1cs", r, (1 << new_log2) - 3, ADSNARK_INPUTS),
+            ("bw6_761", "r1cs", r6, (1 << new_log2) - 3, 2)):
         recv, send = ctx.Pipe(duplex=False)
-        proc = ctx.Process(target=make_circuit, args=(send, kind, r, n),
+        proc = ctx.Process(target=make_circuit, args=(send, kind, rr, n, k),
                            daemon=True)
         proc.start()
         send.close()
@@ -1477,7 +1742,7 @@ def proof_systems_path(curve, log2: int, paths: dict,
                 kp.pk, primary, aux, seed=9), paths) != proof:
             raise AssertionError(f"{name}: the profiled proof differs")
         t0 = time.perf_counter()
-        ok = ps.verifier_strong_IC(kp.vk, primary, proof)
+        ok = bool(ps.verifier_strong_IC(kp.vk, primary, proof))
         bad = [(primary[0] + 1) % r] + primary[1:]
         rej = not ps.verifier_strong_IC(kp.vk, bad, proof)
         log(f"  proofs equal; verify {time.perf_counter() - t0:.2f} s "
@@ -1510,17 +1775,110 @@ def proof_systems_path(curve, log2: int, paths: dict,
             circuit, primary, aux = ex.generate_bacs_example(r, gates, 2)
             kp = ps.bacs_generator(circuit, seed=5)
             proof = ps.bacs_prover(kp.pk, primary, aux, seed=9)
-            ok = ps.verifier_strong_IC(kp.vk, primary, proof)
+            ok = bool(ps.verifier_strong_IC(kp.vk, primary, proof))
         else:
             circuit, primary, aux = ex.generate_tbcs_example(gates, 2)
             kp = ps.tbcs_generator(circuit, seed=5)
             proof = ps.tbcs_prover(kp.pk, primary, aux, seed=9)
-            ok = ps.tbcs_verifier_strong_IC(kp.vk, primary, proof)
+            ok = bool(ps.tbcs_verifier_strong_IC(kp.vk, primary, proof))
         log(f"{name} {curve.name}, {gates} gates: keygen, prove, verify "
             f"{time.perf_counter() - t0:.2f} s: accepted={ok}")
         if not ok:
             raise AssertionError(f"{name} round trip rejected")
     return out
+
+
+def adsnark_path(curve, log2: int, paths: dict, circuit) -> dict:
+    """ADSNARK through its entry points on generate_r1cs_example(r, 2^log2
+    - 3, 16) (circuit: systems_circuits' entry): the authority's seeded
+    keys and the 16 inputs' signed data (Schnorr), a seeded keygen under
+    the device profiler (paths["keygen_adsnark_<curve>"]) with its phases,
+    one prove with its phases and one more under the profiler
+    (paths["prove_adsnark_<curve>"], equal proofs), peak device memory;
+    both verifiers accept; the public verifier rejects the proof made over
+    the same input from the authenticated data of a changed input, and the
+    symmetric one the proof under wrong labels. Every path kernel (G1 and
+    G2) must have launched. Then an Ed25519 round trip at 20 constraints.
+    Returns {"adsnark_<curve>": launches per kernel (keygen and prove)}."""
+    from libsnark_tpu_torch.ops.cuda_ec import counter_key
+    from libsnark_tpu_torch.proof_systems.adsnark import ADSNARK
+    from libsnark_tpu_torch.reductions.r1cs_to_qap import qap_domain
+    from libsnark_tpu_torch.relations import examples as ex
+    label = f"adsnark_{curve.name}"
+    t0 = time.perf_counter()
+    (cs, primary, aux), made = receive_circuit(circuit)
+    k = len(primary)
+    log(f"adsnark path {curve.name}: generate_r1cs_example(r, 2^{log2} - 3, "
+        f"{k}): {made:.2f} s (host, a worker process), "
+        f"{time.perf_counter() - t0:.2f} s to receive")
+    ps = ADSNARK(curve)                                    # device="cuda"
+    labels = auth_labels(k)
+    t0 = time.perf_counter()
+    keys = ps.auth_generator(seed=3)
+    auth = ps.auth_sign(primary, keys.sak, labels, seed=4)
+    log(f"  authority keys and {k} signed inputs: "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    phases = {}
+    kp = timed_phase(phases, "keygen", lambda t: path_timing(
+        f"keygen_{label}", lambda: ADSNARK(curve).generator(
+            cs, keys.pap, seed=5, timings=t), paths))
+    domain = ps.domain_for(qap_domain, kp.pk.r1cs_dev)
+    log(f"  domain {type(domain).__name__}, m = {domain.m}; queries of "
+        f"{kp.pk.A_query_g[0].shape[-1]} lanes")
+    proof = timed_phase(phases, "prove", lambda t: ps.prover(
+        kp.pk, primary, aux, auth, seed=9, timings=t))
+    if path_timing(f"prove_{label}", lambda: ps.prover(
+            kp.pk, primary, aux, auth, seed=9), paths) != proof:
+        raise AssertionError("adsnark: the profiled proof differs")
+    t0 = time.perf_counter()
+    ok_sec = bool(ps.verifier_sec(kp.vk, proof, keys.sak, labels))
+    t1 = time.perf_counter()
+    ok_pub = bool(ps.verifier_pub(kp.vk, auth, proof, keys.pak, labels))
+    t2 = time.perf_counter()
+    changed = [(primary[0] + 1) % curve.r] + primary[1:]
+    bad_auth = ps.auth_sign(changed, keys.sak, labels, seed=7)
+    bad = ps.prover(kp.pk, primary, aux, bad_auth, seed=9)
+    t3 = time.perf_counter()
+    rej_pub = not ps.verifier_pub(kp.vk, bad_auth, bad, keys.pak, labels)
+    rej_sec = not ps.verifier_sec(kp.vk, proof, keys.sak,
+                                  [b"x" + l for l in labels])
+    log(f"  proofs equal; verifier_sec {t1 - t0:.2f} s, verifier_pub "
+        f"{t2 - t1:.2f} s (host): accepted={ok_sec and ok_pub}; the proof "
+        "from a changed input's authenticated data (proved "
+        f"{t3 - t2:.2f} s) rejected by verifier_pub={rej_pub}, wrong labels "
+        f"rejected by verifier_sec={rej_sec} ({time.perf_counter() - t3:.2f}"
+        " s)")
+    if not (ok_sec and ok_pub and rej_pub and rej_sec):
+        raise AssertionError("adsnark verification checks failed")
+    total = {}
+    for counts in phases.values():
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+    need = [f"mont_mul_n{ps.fq.N}"] + [
+        counter_key(kern, ck.fk) for kern in (
+            "dbl_chain", "add", "madd_win", "bucket_reduce",
+            "horner_combine") for ck in (ps.g1, ps.g2)]
+    missing = [key for key in need if not total.get(key)]
+    replaced = [key for key in total if key.startswith(("dbl_fp", "aadd_fp"))]
+    if missing or replaced:
+        raise AssertionError(f"{label}: kernels not launched {missing}, "
+                             f"public dbl / aadd launched {replaced}")
+    del cs, kp, ps, domain
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ps = ADSNARK(curve, sig_scheme="ed25519")
+    cs, primary, aux = ex.generate_r1cs_example(curve.r, 20, 2)
+    kp = adsnark_keygen(ps, cs)
+    proof = adsnark_prove(ps, kp, primary, aux)
+    ok = bool(ps.verifier_pub(kp.vk, ps.auth_data, proof, ps.auth_keys.pak,
+                              auth_labels(len(primary))))
+    log(f"adsnark {curve.name} with Ed25519 signatures, 20 constraints: "
+        f"keygen, prove, verifier_pub (the one that reads the signatures) "
+        f"{time.perf_counter() - t0:.2f} s: accepted={ok}")
+    if not ok:
+        raise AssertionError("adsnark Ed25519 round trip rejected")
+    return {label: total}
 
 
 def fixed_base_parts(profiler) -> str:
@@ -1728,7 +2086,7 @@ def kzg_open_and_verify(kzg, srs, coeffs, z, label):
     v, W = kzg.create_evaluation_witness(srs, coeffs, z)
     t2 = time.perf_counter()
     peak_open = torch.cuda.max_memory_allocated()
-    ok = kzg.verify_evaluation(srs, C, z, v, W)
+    ok = bool(kzg.verify_evaluation(srs, C, z, v, W))
     checks = {"accepted": ok}
     if any(c % r for c in coeffs[1:]):
         checks["wrong-value-rejected"] = not kzg.verify_evaluation(
@@ -1766,8 +2124,8 @@ def kzg_batched_and_bdfg21(kzg, srs, log2: int):
     cm_2s = [kzg.commit(srs, g) for g in gs]
     wit = batched.create_evaluation_witness(fs, gs, z_1, z_2, evals, srs,
                                             gamma_1, gamma_2)
-    ok = batched.verify_evaluations(z_1, z_2, evals, srs, gamma_1, gamma_2,
-                                    wit, cm_1s, cm_2s, r_rand)
+    ok = bool(batched.verify_evaluations(z_1, z_2, evals, srs, gamma_1,
+                                         gamma_2, wit, cm_1s, cm_2s, r_rand))
     bad = type(evals)(s_1s=[(evals.s_1s[0] + 1) % r] + evals.s_1s[1:],
                       s_2s=evals.s_2s)
     rej = not batched.verify_evaluations(z_1, z_2, bad, srs, gamma_1, gamma_2,
@@ -1786,7 +2144,7 @@ def kzg_batched_and_bdfg21(kzg, srs, log2: int):
     ev = b.evaluate_polynomials(f_sets, T)
     ph1 = b.create_evaluation_witness_phase_1(f_sets, T, ev, srs, gamma)
     w = b.create_evaluation_witness(f_sets, T, ev, srs, gamma, ph1, z)
-    ok = b.verify_evaluations(T, ev, srs, gamma, z, w, cm_sets)
+    ok = bool(b.verify_evaluations(T, ev, srs, gamma, z, w, cm_sets))
     bad = [list(e) for e in ev]
     bad[1][0] = (bad[1][0] + 1) % r
     rej = not b.verify_evaluations(T, bad, srs, gamma, z, w, cm_sets)
@@ -1863,7 +2221,7 @@ def kzg_path(curve, log2: int, small_log2=None, paths=None) -> dict:
 
     t0 = time.perf_counter()
     changed = [(coeffs[0] + 1) % r] + coeffs[1:]
-    ok = kzg.verify_poly(srs, C, coeffs)
+    ok = bool(kzg.verify_poly(srs, C, coeffs))
     rej = not kzg.verify_poly(srs, C, changed)
     log(f"  verify_poly {time.perf_counter() - t0:.2f} s: accepted={ok} "
         f"changed-coefficient-rejected={rej}")
@@ -1919,6 +2277,11 @@ def kernel_key(name: str):
     return f"{fam}_{'fp2' if ext == 2 else 'fp'}_n{2 * nw}"
 
 
+# madd_win counter key -> (scalar limbs, madds) of one lane at the paths'
+# window bits: set by check_madd_windows, which runs before every path
+MADD_WIN_LANE = {}
+
+
 def unit_cost(key: str):
     """(bytes, wide multiply-adds) of one unit of a wrapper's work count:
     a lane (mont_mul: one product; dbl: one doubling; aadd_rows: an output
@@ -1942,11 +2305,13 @@ def unit_cost(key: str):
     if fam == "aadd_rows":
         return 8 * FW + 8 + 12 * FW, PRODUCTS["aadd"] * per * wm
     if fam == "madd_win":
-        # a lane reads its 16 scalar limbs and writes 3 elements over the
-        # 31 madds of W = 32 windows (c = 8 on a 253- or 254-bit r, the
-        # fixed-base paths' width); the products outweigh the bytes ~100x.
-        # Zero digits (1 / 2^c of them) count as work they skip.
-        return (4 * 16 + 12 * FW) / 31, PRODUCTS["madd"] * per * wm
+        # a lane reads its scalar limbs and writes 3 elements over the
+        # madds of its windows after the first (MADD_WIN_LANE, recorded by
+        # check_madd_windows at the paths' c = 8); the products outweigh
+        # the bytes ~100x. Zero digits (1 / 2^c of them) count as work
+        # they skip.
+        nl, madds = MADD_WIN_LANE[key]
+        return (4 * nl + 12 * FW) / madds, PRODUCTS["madd"] * per * wm
     nfield = {"dbl": 6, "add": 9, "madd": 8, "aadd": 7}[fam]
     return (nfield * FW * 4 + (2 if fam in ("madd", "aadd") else 0),
             PRODUCTS[fam] * per * wm)
@@ -2294,19 +2659,23 @@ def main(argv=None) -> int:
                     help="alt_bn128 Groth16 circuit: 2^k - 3 constraints "
                          "(18: the run's time limit leaves 2^20 to "
                          "BLS12-377 and to the proof-systems path)")
-    ap.add_argument("--systems-log2", type=int, default=20,
+    ap.add_argument("--systems-log2", type=int, default=18,
                     help="BCTV14, GM17 and DFGK14 over alt_bn128: witness "
-                         "map on a domain of 2^k (20)")
+                         "map on a domain of 2^k (18: the run's time limit "
+                         "leaves 2^20 to the ADSNARK and BW6-761 paths)")
+    ap.add_argument("--new-log2", type=int, default=20,
+                    help="ADSNARK over alt_bn128 (16 authenticated inputs) "
+                         "and Groth16 over BW6-761: 2^k - 3 constraints "
+                         "(20)")
     ap.add_argument("--kzg-log2", type=int, default=22,
                     help="KZG10 over BLS12-377: degree 2^k - 1 (22); over "
-                         "alt_bn128 the degree is 2^min(k, 20) - 1")
+                         "alt_bn128 the degree is 2^min(k, 18) - 1")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from libsnark_tpu_torch import get_curve
     from libsnark_tpu_torch.ops import cuda_lib
-    from libsnark_tpu_torch.proof_systems.groth16 import Groth16
 
     t_start = time.perf_counter()
     log(f"device: {torch.cuda.get_device_name(0)} "
@@ -2317,32 +2686,88 @@ def main(argv=None) -> int:
     cuda_lib.build_all()
     log(f"kernels built in {cuda_lib.build_seconds:.1f} s "
         f"({len(cuda_lib.SOURCES)} libraries in parallel)")
+    # the cross-check's CPU proofs run in worker processes from here on,
+    # beside the kernel checks, and the verifiers' pairing checks in others
+    cpu_pool, cpu_proofs = start_cpu_proofs()
+    pairings = PairingPool(PAIRING_WORKERS)
+    try:
+        pairings.activate(*(get_curve(name) for name in (
+            "alt_bn128", "bls12_377", "bw6_761")))
+        K, paths = kernels_and_paths(args, t_start, cpu_pool, cpu_proofs)
+    finally:
+        cpu_pool.shutdown(wait=True, cancel_futures=True)
+        pairings.shutdown()
+    unread = [k for k, row in K.rows.items() if row["launches"] is None]
+    if unread:
+        raise AssertionError(f"kernels with no main-path count: {unread}")
+    redesign_ranking(K, paths)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": list(K.rows.values())}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
+    """The probes, the kernel checks, the cross-check and every path (the
+    numbered steps 3-8 of the module doc): (the kernel table, the measured
+    paths)."""
+    from libsnark_tpu_torch import get_curve
+    from libsnark_tpu_torch.ops import cuda_lib
+    from libsnark_tpu_torch.proof_systems.groth16 import Groth16
     for line in cuda_lib.ptxas_summary():
         log(f"  {line}")
 
     curves = {"alt_bn128": args.bn_log2, "bls12_377": args.log2}
-    systems = {name: Groth16(get_curve(name)) for name in curves}
+    systems = {name: Groth16(get_curve(name))
+               for name in list(curves) + ["bw6_761"]}
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rng = random.Random(1234)
     K = Kernels()
     check_probes(K, [g.fq for g in systems.values()])
     for name, g16 in systems.items():
         log(f"--- kernels against their plain versions: {name}")
-        check_mont_mul(g16.fr, g16.fq, K, gen)
-        check_ec(g16.curve, g16, K, gen, rng)
-        check_madd_windows(g16.curve, g16, K, gen, rng)
-        check_dbl_chain(g16.curve, g16, K, rng)
-        check_aadd_rows(g16.curve, g16, K, gen, rng)
-        check_encode(g16.fr, f"{name} Fr")
-        check_bucket_and_horner(g16.curve, g16, K, gen, rng)
-        check_dense_window_sums(g16.curve, g16, gen, rng)
+        # at 48 limbs (BW6-761) the plain versions run on part of each
+        # check's lanes, windows or segments (all would take minutes),
+        # and G2, over Fq there, runs G1's kernels: check_ec holds them on
+        # both groups' points, the other checks on G1's
+        small = name == "bw6_761"
+        checks = [
+            ("mont_mul", lambda: check_mont_mul(
+                g16.fr, g16.fq, K, gen,
+                plain_lanes=1 << 16 if small else None)),
+            ("ec", lambda: check_ec(g16.curve, g16, K, gen, rng)),
+            ("madd_windows", lambda: check_madd_windows(
+                g16.curve, g16, K, gen, rng,
+                plain_lanes=1 << 16 if small else None, g1_only=small)),
+            ("dbl_chain", lambda: check_dbl_chain(
+                g16.curve, g16, K, rng, plain_windows=8 if small else None,
+                g1_only=small)),
+            ("aadd_rows", lambda: check_aadd_rows(
+                g16.curve, g16, K, gen, rng,
+                plain_windows=4 if small else None, g1_only=small)),
+            ("bucket_and_horner", lambda: check_bucket_and_horner(
+                g16.curve, g16, K, gen, rng, m=1 << 20 if small else 1 << 16,
+                plain_segments=1 << 13 if small else None, g1_only=small)),
+            ("dense_window_sums", lambda: check_dense_window_sums(
+                g16.curve, g16, gen, rng, g1_only=small))]
+        if not small:       # BW6-761's Fr is BLS12-377's Fq: no new field
+            checks.insert(5, ("encode", lambda: check_encode(
+                g16.fr, f"{name} Fr")))
+        for label, check in checks:
+            t0 = time.perf_counter()
+            check()
+            log(f"  check {label} {name}: {time.perf_counter() - t0:.1f} s")
         log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
     check_limb_codec()
-    small_cross_check(get_curve("alt_bn128"))
+    small_cross_check(cpu_proofs)
+    cpu_pool.shutdown()
     del systems
     paths = {}
-    # the proof-systems path's circuits are made beside the Groth16 paths
-    circuits = systems_circuits(get_curve("alt_bn128").r, args.systems_log2)
+    # the later paths' circuits are made beside the Groth16 paths
+    circuits = systems_circuits(args.systems_log2, args.new_log2)
     try:
         for name, log2 in curves.items():
             counts, yardsticks = main_path(get_curve(name), log2, paths)
@@ -2362,27 +2787,33 @@ def main(argv=None) -> int:
                 circuits).items():
             for key, n in counts.items():
                 K.count(key, label, n)
+        log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
+        for label, counts in adsnark_path(
+                get_curve("alt_bn128"), args.new_log2, paths,
+                circuits["adsnark"]).items():
+            for key, n in counts.items():
+                K.count(key, label, n)
+        log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
+        counts, yardsticks = main_path(
+            get_curve("bw6_761"), args.new_log2, paths,
+            circuit=circuits["bw6_761"], extras=False)
+        for key, n in counts.items():
+            # mont_mul_n24 (BW6-761's Fr) keeps the BLS12-377 path's count
+            K.count(key, "bw6_761", n)
+        for label, yard in yardsticks.items():
+            for key, n in yard.items():
+                K.count(key, label, n)
     finally:
         stop_workers(circuits)
     log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
     for name, log2, small in (("bls12_377", args.kzg_log2, None),
-                              ("alt_bn128", min(args.kzg_log2, 20), 12)):
+                              ("alt_bn128", min(args.kzg_log2, 18), 12)):
         measured = paths if name == "bls12_377" else None
         for key, n in kzg_path(get_curve(name), log2, small,
                                measured).items():
             K.count(key, f"kzg_{name}", n)
         log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
-    unread = [k for k, row in K.rows.items() if row["launches"] is None]
-    if unread:
-        raise AssertionError(f"kernels with no main-path count: {unread}")
-    redesign_ranking(K, paths)
-    log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": list(K.rows.values())}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return K, paths
 
 
 if __name__ == "__main__":

@@ -44,7 +44,10 @@
 // products a doubling. One CTA runs the chain with horner_combine's slots
 // and hz_dbl, and stores each base as it is reached.
 //
-// Instantiated for NW = 8 and NW = 12 words.
+// Instantiated for NW = 8 and NW = 12 words, and for ext = 1 at NW = 24
+// (BW6-761's G1 and its G2 over Fp; ext = 2 there is refused). At NW = 24
+// a lane group is 32 lanes, 24 of them holding words (LaneGroup<24>::GS),
+// so horner_combine runs 160 threads and dbl_chain 96, as at NW = 8.
 #include "ec.cuh"
 
 __device__ __forceinline__ void cp_async16(uint32_t smem, const void* gmem) {
@@ -574,11 +577,17 @@ dbl_chain_kernel(const int32_t* __restrict__ px,
       KERNEL<NWV, 2><<<GRID, THREADS, 0, s>>>(__VA_ARGS__,                   \
                                               *(const Mod<NWV>*)M);          \
     break;
+// a width built for ext = 1 only (lsn_built refuses ext = 2 there)
+#define LAUNCH_W1(NWV, KERNEL, GRID, THREADS, ...)                           \
+  case NWV:                                                                  \
+    KERNEL<NWV, 1><<<GRID, THREADS, 0, s>>>(__VA_ARGS__,                     \
+                                            *(const Mod<NWV>*)M);            \
+    break;
 #define LAUNCH(KERNEL, GRID, THREADS, ...)                                   \
-  if (ext != 1 && ext != 2) return (int)cudaErrorInvalidValue;               \
   switch (nw) {                                                              \
     LAUNCH_W(8, KERNEL, GRID, THREADS, __VA_ARGS__)                          \
     LAUNCH_W(12, KERNEL, GRID, THREADS, __VA_ARGS__)                         \
+    LAUNCH_W1(24, KERNEL, GRID, THREADS, __VA_ARGS__)                        \
     default: return (int)cudaErrorInvalidValue;                              \
   }
 
@@ -590,6 +599,7 @@ extern "C" int lsn_bucket_reduce(int nw, int ext, const void* rows,
                                  const void* order, long long nb, void* ox,
                                  void* oy, void* oz, const void* M,
                                  void* stream) {
+  if (!lsn_built(nw, ext)) return (int)cudaErrorInvalidValue;
   if (nb > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     unsigned grid = (unsigned)((nb + 127) / 128);
@@ -613,7 +623,7 @@ extern "C" int lsn_horner(int nw, int ext, const void* sx, const void* sy,
                           const void* sz, long long W, int c, void* ox,
                           void* oy, void* oz, const void* M, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (W < 1 || c < 0 || (ext != 1 && ext != 2))
+  if (W < 1 || c < 0 || !lsn_built(nw, ext))
     return (int)cudaErrorInvalidValue;
   if (nw == 8)
     (ext == 1 ? horner_launch<8, 1> : horner_launch<8, 2>)(
@@ -622,7 +632,7 @@ extern "C" int lsn_horner(int nw, int ext, const void* sx, const void* sy,
     (ext == 1 ? horner_launch<12, 1> : horner_launch<12, 2>)(
         sx, sy, sz, W, c, ox, oy, oz, M, s);
   else
-    return (int)cudaErrorInvalidValue;
+    horner_launch<24, 1>(sx, sy, sz, W, c, ox, oy, oz, M, s);
   return (int)cudaGetLastError();
 }
 
@@ -641,7 +651,7 @@ extern "C" int lsn_dbl_chain(int nw, int ext, const void* px, const void* py,
                              const void* pz, int W, int c, void* ox, void* oy,
                              void* oz, const void* M, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (W < 1 || c < 0 || (ext != 1 && ext != 2))
+  if (W < 1 || c < 0 || !lsn_built(nw, ext))
     return (int)cudaErrorInvalidValue;
   if (nw == 8)
     (ext == 1 ? dbl_chain_launch<8, 1> : dbl_chain_launch<8, 2>)(
@@ -650,6 +660,6 @@ extern "C" int lsn_dbl_chain(int nw, int ext, const void* px, const void* py,
     (ext == 1 ? dbl_chain_launch<12, 1> : dbl_chain_launch<12, 2>)(
         px, py, pz, W, c, ox, oy, oz, M, s);
   else
-    return (int)cudaErrorInvalidValue;
+    dbl_chain_launch<24, 1>(px, py, pz, W, c, ox, oy, oz, M, s);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Elementwise group ops: replace the Pallas kernels
 // libsnark_tpu/ops/pallas_ec.py:_build_dbl, _build_add, _build_madd and
 // _build_aadd (public dbl / add / madd / aadd), for G1 (ext = 1) and G2
-// over Fp2 (ext = 2), at NW = 8 and NW = 12 words.
+// over Fp2 (ext = 2), at NW = 8 and NW = 12 words, and for ext = 1 at
+// NW = 24 (BW6-761's G1 and its G2 over Fp; ext = 2 there is refused).
 //
 // One thread per lane over the shared formulas of ec.cuh; the P == Q
 // repair that the TPU wrapper runs as a second dbl launch under a
@@ -268,13 +269,20 @@ static inline unsigned grid_for(long long L, int threads) {
       KERNEL<NWV, 2><<<grid_for(L, 128), 128, 0, s>>>(                       \
           __VA_ARGS__, *(const Mod<NWV>*)M);                                 \
     break;
+// a width built for ext = 1 only (lsn_built refuses ext = 2 there)
+#define LAUNCH_W1(NWV, KERNEL, ...)                                          \
+  case NWV:                                                                  \
+    KERNEL<NWV, 1><<<grid_for(L, 128), 128, 0, s>>>(__VA_ARGS__,             \
+                                                    *(const Mod<NWV>*)M);    \
+    break;
 #define LAUNCH(KERNEL, ...)                                                  \
-  if (ext != 1 && ext != 2) return (int)cudaErrorInvalidValue;               \
+  if (!lsn_built(nw, ext)) return (int)cudaErrorInvalidValue;                \
   if (L > 0) {                                                               \
     cudaStream_t s = (cudaStream_t)stream;                                   \
     switch (nw) {                                                            \
       LAUNCH_W(8, KERNEL, __VA_ARGS__)                                       \
       LAUNCH_W(12, KERNEL, __VA_ARGS__)                                      \
+      LAUNCH_W1(24, KERNEL, __VA_ARGS__)                                     \
       default: return (int)cudaErrorInvalidValue;                            \
     }                                                                        \
   }                                                                          \

@@ -33,8 +33,20 @@
 // MSM's dense chunk; aadd spills 1220 B and ran 10 % slower than at 255
 // registers, but aadd_rows is the one on a path). dbl_kernel: G1 4 / 3
 // (88 / 128 registers), G2 1 (148 / 227; 4 blocks ran G2 at 16 limbs 5-7 %
-// faster with 140 B of spills, and the public dbl runs on no path). The
-// sweep's builds set them with -D.
+// faster with 140 B of spills, and the public dbl runs on no path).
+// At 48 limbs (NW = 24, ext = 1 only: BW6-761's G1 and G2) a point has
+// coordinates of 24 words, the register load of G2 at 24 limbs, and the
+// budgets follow the path: madd_windows 3 blocks and bucket_reduce 3
+// (2-5 % faster than at 1 block, 255 registers, on an H100 at 2^20 lanes
+// and on a 2^20-point MSM, and over the BW6-761 keygen and prove), add 3
+// (3.5 % faster at 294,930 lanes, a level of the segment combine; even
+// over the proves); two builds at 1 block differed by 0.3 % at most, and
+// the three spill 1.4-2.2 KB. aadd_rows takes 1 block (214 registers, no
+// spills): at 4 blocks it ran a 2^20-point dense chunk 7 % faster but the
+// BW6-761 dense prove's 45 launches 25 % slower. madd and dbl run on no
+// path at 48 limbs and take 1 block, the fastest at the checks' 2^16
+// lanes (madd 253 registers, dbl 214, no spills).
+// The sweep's builds set them with -D.
 #ifndef LSN_ADD_BLOCKS_N16
 #define LSN_ADD_BLOCKS_N16 3
 #endif
@@ -90,25 +102,64 @@
 #define LSN_DBL_BLOCKS_G2 1
 #endif
 
+#ifndef LSN_ADD_BLOCKS_N48
+#define LSN_ADD_BLOCKS_N48 3
+#endif
+#ifndef LSN_MADD_BLOCKS_N48
+#define LSN_MADD_BLOCKS_N48 1
+#endif
+#ifndef LSN_MADD_WIN_BLOCKS_N48
+#define LSN_MADD_WIN_BLOCKS_N48 3
+#endif
+#ifndef LSN_BUCKET_BLOCKS_N48
+#define LSN_BUCKET_BLOCKS_N48 3
+#endif
+#ifndef LSN_AADD_BLOCKS_N48
+#define LSN_AADD_BLOCKS_N48 1
+#endif
+#ifndef LSN_DBL_BLOCKS_N48
+#define LSN_DBL_BLOCKS_N48 1
+#endif
+
+// ext = 1 budgets by width: n16 at NW = 8, n24 at NW = 12, n48 at NW = 24
+#define LSN_BY_NW(NWV, n16, n24, n48) \
+  ((NWV) == 8 ? (n16) : (NWV) == 12 ? (n24) : (n48))
+
 template <int NW, int E>
 struct Blocks {
   static constexpr int add =
-      E == 2 ? 1 : NW == 8 ? LSN_ADD_BLOCKS_N16 : LSN_ADD_BLOCKS_N24;
-  static constexpr int madd = E == 2    ? LSN_MADD_BLOCKS_G2
-                              : NW == 8 ? LSN_MADD_BLOCKS_N16
-                                        : LSN_MADD_BLOCKS_N24;
+      E == 2 ? 1
+             : LSN_BY_NW(NW, LSN_ADD_BLOCKS_N16, LSN_ADD_BLOCKS_N24,
+                         LSN_ADD_BLOCKS_N48);
+  static constexpr int madd =
+      E == 2 ? LSN_MADD_BLOCKS_G2
+             : LSN_BY_NW(NW, LSN_MADD_BLOCKS_N16, LSN_MADD_BLOCKS_N24,
+                         LSN_MADD_BLOCKS_N48);
   static constexpr int madd_win =
       E == 2 ? (NW == 8 ? LSN_MADD_WIN_BLOCKS_G2_N16 : LSN_MADD_WIN_BLOCKS_G2_N24)
-             : (NW == 8 ? LSN_MADD_WIN_BLOCKS_N16 : LSN_MADD_WIN_BLOCKS_N24);
+             : LSN_BY_NW(NW, LSN_MADD_WIN_BLOCKS_N16, LSN_MADD_WIN_BLOCKS_N24,
+                         LSN_MADD_WIN_BLOCKS_N48);
   static constexpr int bucket =
-      E == 2 ? 1 : NW == 8 ? LSN_BUCKET_BLOCKS_N16 : LSN_BUCKET_BLOCKS_N24;
+      E == 2 ? 1
+             : LSN_BY_NW(NW, LSN_BUCKET_BLOCKS_N16, LSN_BUCKET_BLOCKS_N24,
+                         LSN_BUCKET_BLOCKS_N48);
   static constexpr int aadd =
       E == 2 ? (NW == 8 ? LSN_AADD_BLOCKS_G2_N16 : LSN_AADD_BLOCKS_G2_N24)
-             : (NW == 8 ? LSN_AADD_BLOCKS_N16 : LSN_AADD_BLOCKS_N24);
-  static constexpr int dbl = E == 2    ? LSN_DBL_BLOCKS_G2
-                             : NW == 8 ? LSN_DBL_BLOCKS_N16
-                                       : LSN_DBL_BLOCKS_N24;
+             : LSN_BY_NW(NW, LSN_AADD_BLOCKS_N16, LSN_AADD_BLOCKS_N24,
+                         LSN_AADD_BLOCKS_N48);
+  static constexpr int dbl =
+      E == 2 ? LSN_DBL_BLOCKS_G2
+             : LSN_BY_NW(NW, LSN_DBL_BLOCKS_N16, LSN_DBL_BLOCKS_N24,
+                         LSN_DBL_BLOCKS_N48);
 };
+
+// the (width, coordinate field) pairs ec.cu and bucket.cu build: ext 1
+// and 2 at NW = 8 and 12, ext 1 only at NW = 24 (no curve of either
+// package has an Fp2 over a 761-bit field); their C entries refuse others
+static inline bool lsn_built(int nw, int ext) {
+  return ext == 1 ? (nw == 8 || nw == 12 || nw == 24)
+                  : ext == 2 && (nw == 8 || nw == 12);
+}
 
 template <int NW, int E>
 struct Jac {

@@ -6,7 +6,8 @@
 // limbs leading, so limb k of element t of a length-L batch is at k*L + t
 // and neighbouring threads read neighbouring words. In registers an element
 // is NW words of 32 bits (a template parameter: 8 for a 256-bit modulus,
-// 12 for a 384-bit one; the interface has NL = 2*NW limbs); products are
+// 12 for a 384-bit one, 24 for a 768-bit one; the interface has NL = 2*NW
+// limbs); products are
 // 64-bit. R = 2^(32*NW) is the JAX package's 2^(16*N), so the Montgomery
 // form is the same; only the REDC constant differs: n0inv = -p^-1 mod 2^32
 // here (mod 2^16 in the JAX code). The product (fp_mul, a carry chain)
@@ -18,9 +19,10 @@
 // formula gives the JAX package's bits exactly.
 //
 // Every function is a template over NW. Each source instantiates its
-// kernels for NW = 8 and NW = 12 and its C entries take the width as their
-// first argument (nw); one more width is one more case in each source's
-// launch switch.
+// kernels for NW = 8 and NW = 12 (G1 and G2 over Fp2) and NW = 24 (G1 and
+// G2 over Fp only: no curve of either package has an Fp2 over a 761-bit
+// field), and its C entries take the width as their first argument (nw);
+// one more width is one more case in each source's launch switch.
 #pragma once
 #include <stdint.h>
 
@@ -484,12 +486,20 @@ __device__ __forceinline__ Fp<NW> fp_mul_by_nonresidue(const Fp<NW>& a,
   return M.beta_neg ? fp_neg<NW>(out, M) : out;
 }
 
+// The group law over Fp inlines the product below 24 words and calls
+// fp_mul_call at 24: there a product keeps some 100 words of its own live
+// beside the formula's elements of 24 words each, so inlined copies (7-19
+// a kernel) would spill and multiply the build time, the reason the Fp2
+// law calls it (above).
 template <int NW>
 __device__ __forceinline__ Fe<NW, 1> fe_mul(const Fe<NW, 1>& a,
                                             const Fe<NW, 1>& b,
                                             const Mod<NW>& M) {
   Fe<NW, 1> r;
-  r.c[0] = fp_mul<NW>(a.c[0], b.c[0], M);
+  if constexpr (NW >= 24)
+    r.c[0] = fp_mul_call<NW>(a.c[0], b.c[0], M);
+  else
+    r.c[0] = fp_mul<NW>(a.c[0], b.c[0], M);
   return r;
 }
 

@@ -1,6 +1,7 @@
 // Batched Montgomery multiplication: replaces the Pallas kernel
 // libsnark_tpu/ops/pallas_fp.py:_build_mul (public mont_mul), for fields
-// of NW = 8 (16 limbs) and NW = 12 (24 limbs) 32-bit words.
+// of NW = 8 (16 limbs), NW = 12 (24 limbs) and NW = 24 (48 limbs) 32-bit
+// words.
 //
 // One thread per lane: load a and b (2 NW limbs each, coalesced across the
 // warp), run the NW x 32-bit carry-chain product of field.cuh, store 2 NW
@@ -40,6 +41,7 @@ extern "C" int lsn_mont_mul(int nw, const void* a, const void* b, void* out,
     switch (nw) {
       case 8: mont_mul_launch<8>(a, b, out, L, M, stream); break;
       case 12: mont_mul_launch<12>(a, b, out, L, M, stream); break;
+      case 24: mont_mul_launch<24>(a, b, out, L, M, stream); break;
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -42,8 +42,9 @@
 // over even and odd column accumulators) with its rounds unrolled (variant
 // 2) and in a loop of two rounds (variant 3); fp_mul takes one of the two
 // by the width; and the lane-split product of field.cuh (variant 4), one
-// element a group of GS lanes (8 at NW = 8, 16 at NW = 12), the product of
-// horner_combine's lane groups. All return canonical values, so each is
+// element a group of GS lanes (8 at NW = 8, 16 at NW = 12, 32 at NW = 24),
+// the product of horner_combine's lane groups; at NW = 24 only variants
+// 2-4 are built, for the latency of one dependent product. All return canonical values, so each is
 // exact against the plain Montgomery product. Bound: 2 NW^2 + NW wide
 // multiply-adds per product. Launched over one element (L = 1), each
 // variant's time over K is the latency of one dependent product, the
@@ -290,18 +291,13 @@ lanes_chain_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
   }
 }
 
+// variants 2-4: the bodies of the kernels' products (the latency probe's)
 template <int NW>
-static int cios_launch(int variant, const void* a, const void* b, void* out,
-                       long long L, int K, const void* M, cudaStream_t s) {
+static int chain_launch(int variant, const void* a, const void* b, void* out,
+                        long long L, int K, const void* M, cudaStream_t s) {
   unsigned grid = (unsigned)((L + 255) / 256);
   const Mod<NW>* mod = (const Mod<NW>*)M;
-  if (variant == 0)
-    cios_kernel<NW, 0><<<grid, 256, 0, s>>>((const int32_t*)a, (const int32_t*)b,
-                                            (int32_t*)out, L, K, *mod);
-  else if (variant == 1)
-    cios_kernel<NW, 1><<<grid, 256, 0, s>>>((const int32_t*)a, (const int32_t*)b,
-                                            (int32_t*)out, L, K, *mod);
-  else if (variant == 2)
+  if (variant == 2)
     cios_kernel<NW, 2><<<grid, 256, 0, s>>>((const int32_t*)a, (const int32_t*)b,
                                             (int32_t*)out, L, K, *mod);
   else if (variant == 3)
@@ -321,7 +317,24 @@ static int cios_launch(int variant, const void* a, const void* b, void* out,
   return (int)cudaGetLastError();
 }
 
-// nw: 32-bit words per element (8 or 12); M: the Mod<nw> of that width
+template <int NW>
+static int cios_launch(int variant, const void* a, const void* b, void* out,
+                       long long L, int K, const void* M, cudaStream_t s) {
+  unsigned grid = (unsigned)((L + 255) / 256);
+  const Mod<NW>* mod = (const Mod<NW>*)M;
+  if (variant == 0)
+    cios_kernel<NW, 0><<<grid, 256, 0, s>>>((const int32_t*)a, (const int32_t*)b,
+                                            (int32_t*)out, L, K, *mod);
+  else if (variant == 1)
+    cios_kernel<NW, 1><<<grid, 256, 0, s>>>((const int32_t*)a, (const int32_t*)b,
+                                            (int32_t*)out, L, K, *mod);
+  else
+    return chain_launch<NW>(variant, a, b, out, L, K, M, s);
+  return (int)cudaGetLastError();
+}
+
+// nw: 32-bit words per element (8, 12; 24 for variants 2-4 only, the
+// product latency at 48 limbs); M: the Mod<nw> of that width
 extern "C" int lsn_probe_cios(int nw, int variant, const void* a,
                               const void* b, void* out, long long L, int K,
                               const void* M, void* stream) {
@@ -329,5 +342,7 @@ extern "C" int lsn_probe_cios(int nw, int variant, const void* a,
   cudaStream_t s = (cudaStream_t)stream;
   if (nw == 8) return cios_launch<8>(variant, a, b, out, L, K, M, s);
   if (nw == 12) return cios_launch<12>(variant, a, b, out, L, K, M, s);
+  if (nw == 24 && variant >= 2)
+    return chain_launch<24>(variant, a, b, out, L, K, M, s);
   return (int)cudaErrorInvalidValue;
 }

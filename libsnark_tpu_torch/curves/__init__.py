@@ -1,5 +1,6 @@
 """Curve registry of the port: alt_bn128 and BLS12-377 (a = 0, G2 over
-Fq2), the curves of the Groth16 path."""
+Fq2) and BW6-761 (a = 0, G2 over Fq itself), the curves of the Groth16
+path."""
 from __future__ import annotations
 
 import functools
@@ -8,7 +9,7 @@ import importlib
 # curve name -> its module; the reference's "bn128" (the ate-pairing
 # backend) is the same curve as alt_bn128, one implementation here
 _MODULES = {"alt_bn128": "alt_bn128", "bn128": "alt_bn128",
-            "bls12_377": "bls12_377"}
+            "bls12_377": "bls12_377", "bw6_761": "bw6_761"}
 
 
 @functools.lru_cache(maxsize=None)

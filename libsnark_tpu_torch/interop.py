@@ -10,7 +10,7 @@ into the port from plain numpy data.
   package's device arrays);
 * points: name -> integer affine coordinates of the host points
   (alpha_g1, beta_g1, delta_g1 as (x, y); beta_g2, delta_g2 as
-  ((x0, x1), (y0, y1)));
+  ((x0, x1), (y0, y1)), or (x, y) where G2 lies over Fq: BW6-761);
 * matrices: "A" / "B" / "C" -> (rows, cols, coeffs) numpy, coeffs the
   (N, nnz) uint32 Montgomery limbs;
 * the constraint-system sizes.
@@ -20,10 +20,11 @@ arrays of [alpha^i]_1 in the same layout ((N, n) uint32 Montgomery limbs
 for x and y, a bool infinity mask) and the integer affine coordinates of
 [alpha]_2.
 
-``bctv14_proving_key_from_numpy``, ``gm17_proving_key_from_numpy`` and
-``dfgk14_proving_key_from_numpy`` do the same for the other pairing
-systems: their query triples in the same layout (names as in each
-system's ``QUERIES``), GM17's host points as integer coordinates, their
+``bctv14_proving_key_from_numpy``, ``gm17_proving_key_from_numpy``,
+``dfgk14_proving_key_from_numpy`` and ``adsnark_proving_key_from_numpy``
+do the same for the other pairing systems: their query triples in the
+same layout (names as in each system's ``QUERIES``), GM17's and ADSNARK's
+host points as integer coordinates, their
 sparse matrices as (rows, cols, coeffs) -- R1CS "A" / "B" / "C", SAP "A" /
 "C" / "AB_diff", SSP "V" -- and their sizes.
 
@@ -37,7 +38,7 @@ import torch
 from .ops.cuda_lib import resolve_device
 from .ops.limbs import to_torch
 from .polynomial_commitments.kzg10 import KZG10SRS
-from .proof_systems import bctv14, dfgk14, gm17
+from .proof_systems import adsnark, bctv14, dfgk14, gm17
 from .proof_systems.groth16 import Groth16ProvingKey
 from .reductions.r1cs_to_sap import SAPDevice
 from .reductions.uscs_to_ssp import SSPDevice
@@ -51,6 +52,10 @@ def _g1(curve, xy):
 
 
 def _g2(curve, xy):
+    """G2 from ((x0, x1), (y0, y1)) over Fq2, or (x, y) where G2 lies over
+    Fq itself (``g2_field_degree`` 1: BW6-761)."""
+    if getattr(curve, "g2_field_degree", 2) == 1:
+        return curve.G2.point(int(xy[0]), int(xy[1]))
     (x0, x1), (y0, y1) = xy
     F2 = curve.Fq2
     return curve.G2.point(F2(int(x0), int(x1)), F2(int(y0), int(y1)))
@@ -106,6 +111,19 @@ def bctv14_proving_key_from_numpy(system, queries: dict, matrices: dict,
         r1cs_dev=_r1cs_device(system, matrices, num_constraints, num_inputs,
                               num_variables),
         **_queries(system.device, queries, bctv14.QUERIES))
+
+
+def adsnark_proving_key_from_numpy(system, queries: dict, points: dict,
+                                   matrices: dict, num_constraints: int,
+                                   num_inputs: int, num_variables: int):
+    """The port's ADSNARK proving key: the eight queries of
+    ``adsnark.QUERIES``, the host point rA_i_Z_g1 ((x, y)) and the R1CS
+    matrices "A", "B", "C"."""
+    return adsnark.ADSNARKProvingKey(
+        rA_i_Z_g1=_g1(system.curve, points["rA_i_Z_g1"]),
+        r1cs_dev=_r1cs_device(system, matrices, num_constraints, num_inputs,
+                              num_variables),
+        **_queries(system.device, queries, adsnark.QUERIES))
 
 
 def gm17_proving_key_from_numpy(system, queries: dict, points: dict,

@@ -48,7 +48,7 @@ import torch
 
 from . import cuda_lib
 from .cuda_ec import (add_plain, counter_key, counter_keys, dbl_plain,
-                      ext_of, madd_plain)
+                      ext_of, madd_plain, width_args)
 from .limbs import words_to_limbs
 
 LAUNCHES = dict.fromkeys(counter_keys(("bucket_reduce", "horner_combine",
@@ -130,7 +130,7 @@ def bucket_reduce(fk, rows, gidx, starts, counts, order=None):
     outs = [torch.empty((FW, nb), dtype=torch.int32, device=rows.device)
             for _ in range(3)]
     code = cuda_lib.lib("bucket").lsn_bucket_reduce(
-        fk.nw, ext_of(fk), rows.data_ptr(), m, gidx.data_ptr(),
+        *width_args(fk), rows.data_ptr(), m, gidx.data_ptr(),
         starts.data_ptr(), counts.data_ptr(),
         None if order is None else order.data_ptr(), nb,
         *[o.data_ptr() for o in outs], ctypes.addressof(fk.mod),
@@ -171,7 +171,7 @@ def horner_combine(fk, S, c: int):
     outs = [torch.empty((FW, 1), dtype=torch.int32, device=S[0].device)
             for _ in range(3)]
     code = cuda_lib.lib("bucket").lsn_horner(
-        fk.nw, ext_of(fk), *[a.data_ptr() for a in S], W, c,
+        *width_args(fk), *[a.data_ptr() for a in S], W, c,
         *[o.data_ptr() for o in outs], ctypes.addressof(fk.mod),
         cuda_lib.stream_ptr(S[0]))
     cuda_lib.check(code, "horner_combine")
@@ -207,7 +207,7 @@ def dbl_chain(fk, P, c: int, W: int):
     outs = [torch.empty((FW, W), dtype=torch.int32, device=P[0].device)
             for _ in range(3)]
     code = cuda_lib.lib("bucket").lsn_dbl_chain(
-        fk.nw, ext_of(fk), *[a.data_ptr() for a in flat], W, c,
+        *width_args(fk), *[a.data_ptr() for a in flat], W, c,
         *[o.data_ptr() for o in outs], ctypes.addressof(fk.mod),
         cuda_lib.stream_ptr(outs[0]))
     cuda_lib.check(code, "dbl_chain")

@@ -40,7 +40,8 @@ def counter_keys(kernels):
     """Launch-counter keys: one per kernel, coordinate field (fp: G1, fp2:
     G2) and field width (N 16-bit limbs)."""
     return [f"{k}_{f}_n{2 * nw}" for k in kernels for f in ("fp", "fp2")
-            for nw in cuda_lib.WIDTHS]
+            for nw in (cuda_lib.WIDTHS if f == "fp" else
+                       cuda_lib.FP2_WIDTHS)]
 
 
 LAUNCHES = dict.fromkeys(counter_keys(("dbl", "add", "madd", "aadd",
@@ -58,6 +59,18 @@ LIVE_PAIRS = dict.fromkeys(counter_keys(("aadd_rows",)), 0)
 def ext_of(fk) -> int:
     """Coordinate field degree: 2 for an Fp2Kernel, 1 for an FpKernel."""
     return 2 if hasattr(fk, "fp") else 1
+
+
+def width_args(fk):
+    """The (nw, ext) arguments of a group kernel's C entry for field kernel
+    fk; raises where csrc builds none (Fp2 is built at ``FP2_WIDTHS``
+    only), as the C entries refuse it."""
+    nw, ext = fk.nw, ext_of(fk)
+    if ext == 2 and nw not in cuda_lib.FP2_WIDTHS:
+        raise ValueError(f"no group kernels built over a field of degree 2 "
+                         f"at {nw} 32-bit words (Fp2 at "
+                         f"{cuda_lib.FP2_WIDTHS})")
+    return nw, ext
 
 
 def counter_key(kernel: str, fk) -> str:
@@ -315,7 +328,7 @@ def _call(fn_name, fk, ins, L, extra=(), kernel="", work=None):
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
     f = getattr(cuda_lib.lib("ec"), fn_name)
     ptrs = [t.data_ptr() if t is not None else None for t in ins]
-    args = ([fk.nw, ext_of(fk)] + ptrs + [o.data_ptr() for o in outs] + [L]
+    args = ([*width_args(fk)] + ptrs + [o.data_ptr() for o in outs] + [L]
             + list(extra) + [ctypes.addressof(fk.mod),
                              cuda_lib.stream_ptr(outs[0])])
     cuda_lib.check(f(*args), kernel)
@@ -398,7 +411,7 @@ def madd_windows(fk, rows, scalars, c: int):
     if m == 0:
         return tuple(outs)
     code = cuda_lib.lib("ec").lsn_ec_madd_windows(
-        fk.nw, ext_of(fk), rows.data_ptr(), scalars.data_ptr(), nl, c, W,
+        *width_args(fk), rows.data_ptr(), scalars.data_ptr(), nl, c, W,
         *[o.data_ptr() for o in outs], m, ctypes.addressof(fk.mod),
         cuda_lib.stream_ptr(rows))
     cuda_lib.check(code, "madd_win")
@@ -461,7 +474,7 @@ def aadd_rows(fk, rows, gidx, starts, counts, m: int, base: int, half: int,
     outs = [torch.empty((FW, L), dtype=torch.int32, device=rows.device)
             for _ in range(3)]
     code = cuda_lib.lib("ec").lsn_ec_aadd_rows(
-        fk.nw, ext_of(fk), rows.data_ptr(), gidx.data_ptr(),
+        *width_args(fk), rows.data_ptr(), gidx.data_ptr(),
         starts.data_ptr(), counts.data_ptr(), starts.shape[1], m, base, half,
         w_lo, Wn, nb, *[o.data_ptr() for o in outs], L,
         ctypes.addressof(fk.mod), cuda_lib.stream_ptr(rows))

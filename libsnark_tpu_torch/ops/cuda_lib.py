@@ -4,7 +4,9 @@ Each ``csrc/*.cu`` source compiles with nvcc into one shared library with
 a plain C interface (``sm_90a``), loaded with ctypes. The kernels are
 templates over the field width and every field source instantiates them for
 the widths in ``WIDTHS`` (32-bit words: 8 for a 16-limb modulus, 12 for a
-24-limb one); the C entries take the width as their first argument
+24-limb one, 24 for a 48-limb one), the group kernels over Fp2 (ext = 2)
+only at ``FP2_WIDTHS``, and the CIOS probe (``probe.cu``) at
+``PROBE_WIDTHS`` (its product-latency bodies at every width); the C entries take the width as their first argument
 (``probe_layout`` moves plain 32-bit words and knows no field). The
 libraries are built at first use from the sources in the checkout, into
 ``libsnark_tpu_torch/build/`` (listed in .gitignore), one nvcc process per
@@ -34,7 +36,9 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-WIDTHS = (8, 12)          # 32-bit words per element that csrc instantiates
+WIDTHS = (8, 12, 24)      # 32-bit words per element that csrc instantiates
+FP2_WIDTHS = (8, 12)      # the widths of the group kernels over Fp2 too
+PROBE_WIDTHS = (8, 12)    # csrc/probe.cu's widths (at 24: the latency probe)
 SOURCES = ("fp", "ec", "bucket", "probe", "probe_layout")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -70,8 +70,11 @@ RATE_OPS = ("mul_lo", "mad_lo", "mad_hi", "mad_wide", "add64", "shift_and",
 # unrolled and in a loop of two rounds; field.cuh's lane-split product
 CIOS_VARIANTS = ("cios", "sos", "chain", "chain_rolled", "lanes")
 LAUNCHES = {f"probe_rate_{op}": 0 for op in RATE_OPS}
+# the product bodies of the kernels: the latency probe's, at every width
+LATENCY_VARIANTS = ("chain", "chain_rolled", "lanes")
 LAUNCHES.update({f"probe_cios_{v}_n{2 * nw}": 0 for v in CIOS_VARIANTS
-                 for nw in cuda_lib.WIDTHS})
+                 for nw in cuda_lib.WIDTHS
+                 if nw in cuda_lib.PROBE_WIDTHS or v in LATENCY_VARIANTS})
 
 # layout probes, in the order of the TPU kernels they replace; the three
 # reshapes, each with a C entry of its own, in the order of enum ReshapeMode
@@ -765,7 +768,7 @@ def measure_cios(fks, L: int = 1 << 20, K: int = 64, seed: int = 8) -> list:
 
 
 def measure_product_latency(fks, K: int = 2048, seed: int = 9,
-                            variants=("chain", "chain_rolled", "lanes")) -> list:
+                            variants=LATENCY_VARIANTS) -> list:
     """One row per (field kernel, variant): K chained products over ONE
     element, so the time over K is the latency of one dependent product
     (one thread for the carry chains, one lane group for ``lanes``), in us;

@@ -1,6 +1,6 @@
 """Shared kernel bundle for pairing-based proof systems (the port of
 libsnark_tpu/proof_systems/base.py) over a curve with G1 over Fq and G2
-over Fq2 (alt_bn128, BLS12-377).
+over Fq2 (alt_bn128, BLS12-377) or over Fq itself (BW6-761).
 
 Fixed-base window-table exponentiation at setup (libff get_window_table /
 batch_exp, r1cs_gg_ppzksnark.tcc:316-398) and variable-base Pippenger MSM
@@ -44,7 +44,8 @@ class PhaseClock:
 
 
 class PairingSystem:
-    """Device kernel bundle over a named curve (G2 over an Fq2 tower).
+    """Device kernel bundle over a named curve (G2 over an Fq2 tower, or
+    over Fq for an embedding-degree-6 curve).
 
     device: ``"cuda"`` (the default) or ``"cpu"``, where every kernel
     wrapper runs its plain PyTorch version. msm_strategy: the bucket
@@ -63,10 +64,17 @@ class PairingSystem:
                     if a_int else None)
         self.g1 = CurveKernel(self.fq, f"{curve.name}.G1",
                               mul_by_a=g1_mul_a, a_tag=str(a_int))
-        if getattr(curve, "g2_field_degree", 2) != 2:
-            raise NotImplementedError("the port has G2 over Fq2 only")
-        self.fq2 = Fp2Kernel(self.fq, int(curve.Fq2.NON_RESIDUE))
-        self.g2 = CurveKernel(self.fq2, f"{curve.name}.G2")
+        deg = getattr(curve, "g2_field_degree", 2)
+        if deg == 1:
+            # k = 6 (BW6-761): G2 lies over Fq itself, a2 = 0, so its group
+            # law takes the same kernels as G1 (ext = 1)
+            self.fq2 = None
+            self.g2 = CurveKernel(self.fq, f"{curve.name}.G2", a_tag="0")
+        elif deg == 2:
+            self.fq2 = Fp2Kernel(self.fq, int(curve.Fq2.NON_RESIDUE))
+            self.g2 = CurveKernel(self.fq2, f"{curve.name}.G2")
+        else:
+            raise NotImplementedError(f"G2 over a field of degree {deg}")
         sbits = curve.r.bit_length()
         self.msm_g1 = MSMKernel(self.g1, sbits, strategy=msm_strategy)
         self.msm_g2 = MSMKernel(self.g2, sbits, strategy=msm_strategy)

@@ -7,10 +7,11 @@ Builds csrc/ec.cu and csrc/bucket.cu once per variant of ``VARIANTS``
 (nvcc, one process per library, all started together, into
 libsnark_tpu_torch/build/sweep/), against the built-in values: ``blocks
 k`` sets every __launch_bounds__ minimum of ec.cuh that a -D sets
-(LSN_ADD_BLOCKS_N16/_N24, LSN_MADD_BLOCKS_N16/_N24/_G2,
-LSN_MADD_WIN_BLOCKS_N16/_N24/_G2_N16/_G2_N24,
-LSN_BUCKET_BLOCKS_N16/_N24, LSN_AADD_BLOCKS_N16/_N24/_G2_N16/_G2_N24,
-LSN_DBL_BLOCKS_N16/_N24/_G2) to k, i.e. a budget of 65536 / (128 k)
+(LSN_ADD_BLOCKS_N16/_N24/_N48, LSN_MADD_BLOCKS_N16/_N24/_N48/_G2,
+LSN_MADD_WIN_BLOCKS_N16/_N24/_N48/_G2_N16/_G2_N24,
+LSN_BUCKET_BLOCKS_N16/_N24/_N48,
+LSN_AADD_BLOCKS_N16/_N24/_N48/_G2_N16/_G2_N24,
+LSN_DBL_BLOCKS_N16/_N24/_N48/_G2) to k, i.e. a budget of 65536 / (128 k)
 registers a thread; ``product unrolled at 16 limbs`` / ``product
 unrolled`` run the carry-chain product of field.cuh with its rounds
 unrolled at 16 limbs / at every width instead of in its loop of two
@@ -29,7 +30,8 @@ segments of a 2^16-point MSM (c = 11) and of a 2^20-point MSM (c = 15,
 the path's shape), of aadd and dbl at 2^16 lanes (the kernel check's
 shape) and of aadd_rows on the first dense chunk of a 2^20-point MSM
 (c = 15, the dense prove's level 0), for alt_bn128 (16 limbs) and
-BLS12-377 (24 limbs).
+BLS12-377 (24 limbs), or the curves ``--curves`` names (BW6-761: 48
+limbs, G1 and G2 both over Fq; madd_win there has 48 windows).
 Points are 64 distinct ones spread over the lanes (a madd's work does not
 depend on which point it adds). Every variant's results are held
 bit-exact against the built-in one. Last, one JSON line with every time
@@ -40,6 +42,8 @@ and the card's name and power limit.
     python3 scripts/sweep_launch_bounds.py --kernels madd madd_win
     python3 scripts/sweep_launch_bounds.py --kernels aadd aadd_rows dbl \
         --variants "blocks 1" "blocks 2" "blocks 3" "blocks 4"
+    python3 scripts/sweep_launch_bounds.py --curves bw6_761 \
+        --kernels add madd_win bucket_reduce aadd_rows
 """
 from __future__ import annotations
 
@@ -66,7 +70,10 @@ _BLOCKS = ("LSN_ADD_BLOCKS_N16", "LSN_ADD_BLOCKS_N24", "LSN_MADD_BLOCKS_N16",
            "LSN_BUCKET_BLOCKS_N24", "LSN_AADD_BLOCKS_N16",
            "LSN_AADD_BLOCKS_N24", "LSN_AADD_BLOCKS_G2_N16",
            "LSN_AADD_BLOCKS_G2_N24", "LSN_DBL_BLOCKS_N16",
-           "LSN_DBL_BLOCKS_N24", "LSN_DBL_BLOCKS_G2")
+           "LSN_DBL_BLOCKS_N24", "LSN_DBL_BLOCKS_G2", "LSN_ADD_BLOCKS_N48",
+           "LSN_MADD_BLOCKS_N48", "LSN_MADD_WIN_BLOCKS_N48",
+           "LSN_BUCKET_BLOCKS_N48", "LSN_AADD_BLOCKS_N48",
+           "LSN_DBL_BLOCKS_N48")
 KERNELS = ("add", "madd", "madd_win", "bucket_reduce", "aadd", "aadd_rows",
            "dbl")
 # variant -> its -D flags
@@ -119,7 +126,10 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def cases(kernels=KERNELS, seed=5):
+CURVES = ("alt_bn128", "bls12_377")
+
+
+def cases(kernels=KERNELS, seed=5, curves=CURVES):
     """(label, callable returning the kernel's outputs) for every timed
     launch of the given kernels, on the card; the callables go through the
     port's wrappers."""
@@ -131,12 +141,12 @@ def cases(kernels=KERNELS, seed=5):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rng = random.Random(seed)
     out = []
-    for name in ("alt_bn128", "bls12_377"):
+    for name in curves:
         ps = PairingSystem(get_curve(name), device="cuda")
         for ck, mk, group in ((ps.g1, ps.msm_g1, ps.curve.G1),
                               (ps.g2, ps.msm_g2, ps.curve.G2)):
             fk = ck.fk
-            tag = f"{'G2' if hasattr(fk, 'fp') else 'G1'} N={fk.N}"
+            tag = f"{'G2' if ck is ps.g2 else 'G1'} N={fk.N}"
             for L in (1 << 16, SCAN_LANES):
                 P, Q, Pa, Qa, valid = ec_inputs(ps.curve, ck, group, L, gen,
                                                 rng)
@@ -195,6 +205,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", nargs="+", default=list(KERNELS),
                     choices=list(KERNELS))
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--curves", nargs="+", default=list(CURVES),
+                    choices=("alt_bn128", "bls12_377", "bw6_761"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("sweep_launch_bounds: no CUDA device available", file=sys.stderr)
@@ -212,7 +224,7 @@ def main(argv=None) -> int:
                    ("add", "madd", "madd_windows", "bucket_reduce", "aadd",
                     "aadd_rows", "dbl")):
                 print(f"  [{name}] {line}", flush=True)
-    timed = cases(args.kernels)
+    timed = cases(args.kernels, curves=args.curves)
     want = {label: fn() for label, fn in timed}
     builtin = {s: lib for s, (lib, _) in variants["built-in"].items()}
     table = {}

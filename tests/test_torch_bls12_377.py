@@ -114,17 +114,18 @@ def test_fq2_op_matches_jax(op):
 
 
 def test_odd_or_unbuilt_limb_count_is_refused():
-    """19 limbs cannot pair into 32-bit words; 48 limbs have no build yet.
-    Both raise instead of running a plain path in silence."""
+    """19 limbs cannot pair into 32-bit words; 32 limbs (16 words) have no
+    build (csrc builds 8, 12 and 24 words). Both raise instead of running a
+    plain path in silence."""
     from libsnark_tpu_torch.curves.curve import FieldParams
     from libsnark_tpu_torch.ops import cuda_lib
     p19 = (1 << 298) - 317        # any odd modulus of 19 limbs
     with pytest.raises(ValueError, match="odd"):
         FpKernel(FieldParams.build(p19), device="cpu")
     with pytest.raises(ValueError, match="no kernels built"):
-        cuda_lib.make_mod((1 << 761) - 1, 48)
+        cuda_lib.make_mod((1 << 509) - 1, 32)
     with pytest.raises(ValueError, match="no kernels built"):
-        cuda_lib.words_of(48)
+        cuda_lib.words_of(32)
 
 
 # ------------------------------------------------------------------ groups

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from libsnark_tpu_torch import get_curve, probes
-from libsnark_tpu_torch.ops import cuda_bucket, cuda_ec, cuda_fp
+from libsnark_tpu_torch.ops import cuda_bucket, cuda_ec, cuda_fp, cuda_lib
 from libsnark_tpu_torch.ops.limbs import ints_to_limbs
 from libsnark_tpu_torch.ops.msm import MSMKernel
 from libsnark_tpu_torch.polynomial_commitments.kzg10 import KZG10
@@ -21,9 +21,10 @@ from libsnark_tpu_torch.proof_systems.base import PairingSystem
 pytestmark = pytest.mark.gpu
 
 
-@pytest.fixture(scope="module", params=["alt_bn128", "bls12_377"])
+@pytest.fixture(scope="module", params=["alt_bn128", "bls12_377", "bw6_761"])
 def system(request):
-    """One system per curve: 16-limb and 24-limb base fields."""
+    """One system per curve: 16-limb, 24-limb and 48-limb base fields (at
+    48 limbs G2 lies over Fq too: every group kernel runs with ext = 1)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     return PairingSystem(get_curve(request.param), device="cuda")
@@ -392,17 +393,17 @@ def test_dbl_chain_matches_plain_on_card(system, group_name):
         group.one() * (3 << 40)]
 
 
-def _planted_scalar_ints(r, c, W, m, seed):
-    """0, 1, r - 1, every window 2^c - 1 (all 256 bits set), digit 0 in
+def _planted_scalar_ints(r, c, W, m, seed, nl):
+    """0, 1, r - 1, every window 2^c - 1 (all 16 nl bits set), digit 0 in
     every odd / every even window, only the top window nonzero; the rest
     random below r."""
     rng = random.Random(seed)
-    full = (1 << 256) - 1
+    full = (1 << (16 * nl)) - 1
     digits = lambda keep: sum(rng.randrange(1, 1 << c) << (c * w)
                               for w in range(W) if keep(w)) & full
     top = ((rng.randrange(1 << c) | 1) << (c * (W - 1))) & full
     xs = [0, 1, r - 1, full, digits(lambda w: w % 2 == 0),
-          digits(lambda w: w % 2 == 1), top or 1 << 255]
+          digits(lambda w: w % 2 == 1), top or 1 << (16 * nl - 1)]
     return xs + [rng.randrange(r) for _ in range(m - len(xs))]
 
 
@@ -419,8 +420,10 @@ def test_madd_windows_matches_plain_and_loop_on_card(system, group_name):
     for c in (4, 6, 8):
         taff, rows = system._window_table_affine(ck, mk, group.one(), c)
         W = rows.shape[0] >> c
-        xs = _planted_scalar_ints(system.curve.r, c, W, 1 << 12, seed=c)
-        sc = torch.from_numpy(ints_to_limbs(xs, 16).astype("int32")).cuda()
+        nl = system.scalar_limbs
+        xs = _planted_scalar_ints(system.curve.r, c, W, 1 << 12, seed=c,
+                                  nl=nl)
+        sc = torch.from_numpy(ints_to_limbs(xs, nl).astype("int32")).cuda()
         before = cuda_ec.LAUNCHES[key]
         got = mk.batch_exp(taff, sc, c, rows)
         assert cuda_ec.LAUNCHES[key] == before + 1
@@ -472,6 +475,8 @@ def test_probe_kernels_match_plain_on_card(system):
     assert probes.single_wide_mad_loop(steps["probe_rate_mad_wide"]), steps
     assert not probes.single_wide_mad_loop(steps["probe_rate_mad_wide_split"])
     for fk in (system.fr, system.fq):
+        if fk.nw not in cuda_lib.PROBE_WIDTHS:      # 48 limbs: no probe
+            continue
         a = fk.encode(_ints(fk.p, 512, 9))
         b = fk.encode(_ints(fk.p, 512, 10)[::-1])
         want = probes.cios_chain_plain(fk, a, b, 5)
@@ -562,27 +567,78 @@ def test_kzg_round_trip_on_card(system):
     assert kzg.commit(srs, [0] * n).point == curve.G1.zero()
 
 
-@pytest.mark.parametrize("which", ["BCTV14", "GM17", "DFGK14"])
+@pytest.mark.parametrize("which", ["BCTV14", "GM17", "DFGK14", "ADSNARK",
+                                   "Groth16-bw6_761"])
 def test_proof_systems_card_proof_equals_cpu_proof(which):
-    """20 constraints over alt_bn128: the seeded keys from the device
-    fixed-base path and the proof on the card equal the CPU's (plain
-    versions, host fixed-base path), and the card's proof verifies."""
+    """20 constraints over alt_bn128 (Groth16 over BW6-761: 48-limb Fq):
+    the seeded keys from the device fixed-base path and the proof on the
+    card equal the CPU's (plain versions, host fixed-base path), and the
+    card's proof verifies."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from libsnark_tpu_torch.proof_systems.adsnark import ADSNARK
     from libsnark_tpu_torch.proof_systems.bctv14 import BCTV14
     from libsnark_tpu_torch.proof_systems.dfgk14 import DFGK14
     from libsnark_tpu_torch.proof_systems.gm17 import GM17
+    from libsnark_tpu_torch.proof_systems.groth16 import Groth16
     from libsnark_tpu_torch.relations import examples
-    curve = get_curve("alt_bn128")
-    cls = {"BCTV14": BCTV14, "GM17": GM17, "DFGK14": DFGK14}[which]
+    curve = get_curve("bw6_761" if which == "Groth16-bw6_761"
+                      else "alt_bn128")
+    cls = {"BCTV14": BCTV14, "GM17": GM17, "DFGK14": DFGK14,
+           "ADSNARK": ADSNARK, "Groth16-bw6_761": Groth16}[which]
     make = (examples.generate_uscs_example if which == "DFGK14"
             else examples.generate_r1cs_example)
+    labels = [b"input0", b"input1"]
     proofs = []
     for device in ("cuda", "cpu"):
         cs, primary, aux = make(curve.r, 20, 2)
         ps = cls(curve, device=device)
         ps.host_keygen = device == "cpu"
-        kp = ps.generator(cs, seed=5)
-        proofs.append(ps.prover(kp.pk, primary, aux, seed=9))
+        if which == "ADSNARK":
+            keys = ps.auth_generator(seed=3)
+            auth = ps.auth_sign(primary, keys.sak, labels, seed=4)
+            kp = ps.generator(cs, keys.pap, seed=5)
+            proofs.append(ps.prover(kp.pk, primary, aux, auth, seed=9))
+        else:
+            kp = ps.generator(cs, seed=5)
+            proofs.append(ps.prover(kp.pk, primary, aux, seed=9))
     assert proofs[0] == proofs[1]
-    assert ps.verifier_strong_IC(kp.vk, primary, proofs[0])
+    if which == "ADSNARK":
+        assert ps.verifier_sec(kp.vk, proofs[0], keys.sak, labels)
+        assert ps.verifier_pub(kp.vk, auth, proofs[0], keys.pak, labels)
+    else:
+        assert ps.verifier_strong_IC(kp.vk, primary, proofs[0])
+
+
+def test_fp2_at_48_limbs_is_refused_on_card():
+    """csrc builds the group kernels at 24 words for ext = 1 only: each C
+    entry returns cudaErrorInvalidValue for ext = 2 there, and the Python
+    wrappers raise before a launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import ctypes
+    from libsnark_tpu_torch.ops.fp2 import Fp2Kernel
+    ps = PairingSystem(get_curve("bw6_761"), device="cuda")
+    fq = ps.fq
+    x = fq.encode([1, 2])
+    null = ctypes.c_void_p(0)
+    stream = cuda_lib.stream_ptr(x)
+    ec, bucket = cuda_lib.lib("ec"), cuda_lib.lib("bucket")
+    mod = ctypes.addressof(fq.mod)
+    ptr = x.data_ptr()
+    codes = [
+        ec.lsn_ec_dbl(24, 2, ptr, ptr, ptr, ptr, ptr, ptr, 0, 1, mod, stream),
+        ec.lsn_ec_add(24, 2, *[ptr] * 9, 0, mod, stream),
+        bucket.lsn_bucket_reduce(24, 2, ptr, 0, ptr, ptr, ptr, null, 0, ptr,
+                                 ptr, ptr, mod, stream),
+        bucket.lsn_horner(24, 2, ptr, ptr, ptr, 1, 1, ptr, ptr, ptr, mod,
+                          stream),
+        bucket.lsn_dbl_chain(24, 2, ptr, ptr, ptr, 1, 1, ptr, ptr, ptr, mod,
+                             stream)]
+    assert all(code != 0 for code in codes), codes
+    assert ec.lsn_ec_dbl(24, 1, ptr, ptr, ptr, ptr, ptr, ptr, 0, 1, mod,
+                         stream) == 0
+    f2 = Fp2Kernel(fq, -4)
+    P = (torch.stack([x, x]),) * 3
+    with pytest.raises(ValueError, match="degree 2 at 24"):
+        cuda_ec.dbl(f2, P)

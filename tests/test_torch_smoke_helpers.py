@@ -63,3 +63,39 @@ def test_port_callers_label_each_operation_with_the_port_functions():
     assert ("ops/cuda_fp.py:normalize", "ops/fp.py:add") in chains
     assert all(len(c) <= 3 for c in chains)
     assert () in chains                   # the add outside the port
+
+
+def test_pairing_pool_gives_the_port_checks_verdicts():
+    """PairingPool: while active, a curve's pairing_check sends its pairs
+    to a worker process and returns a LazyCheck whose truth is the port's
+    own verdict (G2 over Fq2 and over Fq, infinity, a false check); after
+    shutdown the curve's own method is back."""
+    pool = chip_smoke.PairingPool(2)
+    curves = [get_curve(name) for name in ("alt_bn128", "bw6_761")]
+    try:
+        pool.activate(*curves)
+        for curve in curves:
+            P, Q = curve.G1.one(), curve.G2.one()
+            good = curve.pairing_check([(P * 6, Q), (-(P * 2), Q * 3)])
+            bad = curve.pairing_check([(P * 6, Q), (-(P * 2), Q * 4)])
+            zero = curve.pairing_check([(curve.G1.zero(), Q)])
+            assert isinstance(good, chip_smoke.LazyCheck)
+            assert good and not bad and zero
+            assert f"{good} {bad}" == "True False"
+            assert (good and bad) is bad and not all([good, bad])
+    finally:
+        pool.shutdown()
+    assert all("pairing_check" not in c.__dict__ for c in curves)
+    assert curves[0].pairing_check([(curves[0].G1.one(),
+                                     curves[0].G2.one())]) is False
+
+
+def test_point_coords_round_trip():
+    """point_coords / coords_point over G1, G2 over Fq2, G2 over Fq and
+    infinity."""
+    for name in ("alt_bn128", "bw6_761"):
+        curve = get_curve(name)
+        for group in (curve.G1, curve.G2):
+            for P in (group.one() * 5, group.zero()):
+                assert chip_smoke.coords_point(
+                    curve, group, chip_smoke.point_coords(P)) == P
