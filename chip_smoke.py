@@ -111,7 +111,8 @@
    horner_combine (G1 and G2) must each have launched on the path. Then
    BACS and TBCS round trips at 2^12 gates.
 6c. Runs ADSNARK over alt_bn128 through its entry points on
-   generate_r1cs_example(r, 2^20 - 3, 16) (a worker process makes it):
+   generate_r1cs_example(r, 2^19 - 3, 16) (--adsnark-log2; a worker
+   process makes it):
    the authority's seeded keys and the 16 inputs' signed data, a seeded
    keygen under torch.profiler with its phases, a prove with its phases
    and one more under the profiler (equal proofs), peak device memory;
@@ -124,6 +125,16 @@
    rejected, profiled, with the keygen's fixed base and window tables once
    more in their earlier forms and a dense prove with the gathered level
    0 (the yardsticks of the public madd, dbl and aadd at 48 limbs).
+6d. Runs a two-step SpPCD over BLS12-377 -> BW6-761 through its entry
+   points (pcd_path): the tally compliance predicate of arity 2, the
+   generator (device keygen of the inner key over BLS12-377 and of the
+   outer key of the aggregation circuit over BW6-761: 139,054 constraints,
+   2,024 inputs, a 2^18 domain) with its phases, two real inner step
+   proofs (each verified), the prover folding both into one outer proof
+   with its phases (circuit rebuild, the verifier gadgets' witness, the
+   outer prove), and the verifier accepting it and rejecting it for a
+   changed statement element; peak device memory of each phase; the
+   outer prove's launches are the kernel table's "pcd" counts.
 7. Runs KZG10 through its entry points: over BLS12-377 at degree 2^22 - 1
    and over alt_bn128 at 2^20 - 1: setup(seed=3) on the device, then for a
    seeded random polynomial commit, create_evaluation_witness,
@@ -147,11 +158,18 @@
    (keygen, default and dense prove of each curve; KZG setup and commit +
    opening at 2^22): the order of the redesign PRs.
 
+Every verifier call (the paths' proof systems and the PCD; not KZG's)
+runs whole in one of six worker processes (VerifierPool), on a system made
+over the same curves on the CPU: the calls of one check (a proof accepted,
+each rejection) run at once, and each verdict comes back as a plain bool,
+read before the time it is logged under is taken.
+
 Prints the kernel table as one JSON line, the card line, and last the
 line {"ok": true, "device": {...}}. Each row of the table names in "path"
 the run its "launches" were counted in: the alt_bn128, the bls12_377 or the
 bw6_761 Groth16 path (keygen + both proves), "<system>_alt_bn128" (the
-BCTV14, GM17, DFGK14 and ADSNARK paths: keygen + prove),
+BCTV14, GM17, DFGK14 and ADSNARK paths: keygen + prove), "pcd" (the
+SpPCD's outer prove over BW6-761),
 "fixed_base_loop_<curve>" (the
 single-launch madd: the keygen's fixed base as the per-window loop),
 "window_table_loop_<curve>" (the public dbl: the keygen's window tables
@@ -166,21 +184,25 @@ row's launches in every path that ran it, the KZG paths (kzg_bls12_377,
 kzg_alt_bn128: setup + commit + opening) among them; "path_ms" and
 "path_bound_ms" the device time and bound of its launches in each
 profiled path (keygen_<curve>, prove_<curve>, prove_dense_<curve>,
-keygen_<system>_alt_bn128, prove_<system>_alt_bn128, kzg_setup_bls12_377,
-kzg_bls12_377). Any failed check raises: exit
+keygen_<system>_alt_bn128, prove_<system>_alt_bn128, prove_pcd,
+kzg_setup_bls12_377, kzg_bls12_377). Any failed check raises: exit
 code 1.
 
     python3 chip_smoke.py                     # needs one CUDA card
     python3 chip_smoke.py --log2 14 --bn-log2 12 --systems-log2 14 \
-        --new-log2 14 --kzg-log2 14           # small sizes
+        --new-log2 14 --adsnark-log2 14 --kzg-log2 14
+                                              # small sizes (the PCD
+                                              # circuit keeps its size)
 """
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
 import dataclasses
+import io
 import json
 import multiprocessing
+import pickle
 import random
 import re
 import subprocess
@@ -1229,19 +1251,20 @@ def adsnark_prove(ps, kp, primary, aux, timings=None):
                      timings=timings)
 
 
-def adsnark_verify(ps, kp, primary, proof) -> bool:
-    """Both verifiers, symmetric and public, on the data adsnark_prove
-    authenticated."""
+def adsnark_verify(ps, kp, primary, proof) -> list:
+    """The calls of both verifiers, symmetric and public, on the data
+    adsnark_prove authenticated."""
     labels = auth_labels(len(primary))
-    return (ps.verifier_sec(kp.vk, proof, ps.auth_keys.sak, labels)
-            and ps.verifier_pub(kp.vk, ps.auth_data, proof,
-                                ps.auth_keys.pak, labels))
+    return [("verifier_sec", (kp.vk, proof, ps.auth_keys.sak, labels)),
+            ("verifier_pub", (kp.vk, ps.auth_data, proof, ps.auth_keys.pak,
+                              labels))]
 
 
 def small_systems(curve_name: str, r: int):
     """The 20-constraint cross-check of each pairing system over the curve:
-    (label, class, the circuit's generator, keygen, prover, verifier,
-    corrupt (a proof with one point moved, or None)). alt_bn128: Groth16,
+    (label, class, the circuit's generator, keygen, prover, verifier
+    calls (the (method, args) whose verdicts must all be true), corrupt (a
+    proof with one point moved, or None)). alt_bn128: Groth16,
     BCTV14, GM17, DFGK14, BACS, TBCS, ADSNARK (Schnorr); BW6-761:
     Groth16."""
     from libsnark_tpu_torch.proof_systems.adsnark import ADSNARK
@@ -1262,7 +1285,8 @@ def small_systems(curve_name: str, r: int):
     r1cs = lambda: ex.generate_r1cs_example(r, 20, 2)
     plain = (lambda ps, c: ps.generator(c, seed=5),
              lambda ps, kp, p, a: ps.prover(kp.pk, p, a, seed=9),
-             lambda ps, kp, p, proof: ps.verifier_strong_IC(kp.vk, p, proof))
+             lambda ps, kp, p, proof: [("verifier_strong_IC",
+                                        (kp.vk, p, proof))])
     if curve_name == "bw6_761":
         return (("Groth16", Groth16, r1cs) + plain + (moved("g_C"),),)
     return (
@@ -1275,13 +1299,15 @@ def small_systems(curve_name: str, r: int):
         ("BACS", BACSPpzksnark, lambda: ex.generate_bacs_example(r, 19, 2),
          lambda ps, c: ps.bacs_generator(c, seed=5),
          lambda ps, kp, p, a: ps.bacs_prover(kp.pk, p, a, seed=9),
-         lambda ps, kp, p, proof: ps.verifier_strong_IC(kp.vk, p, proof),
+         lambda ps, kp, p, proof: [("verifier_strong_IC",
+                                    (kp.vk, p, proof))],
          None),
         # 8 gates: 8 + 10 wires + 1 output = 19 constraints (2g + 3 is odd)
         ("TBCS", TBCSPpzksnark, lambda: ex.generate_tbcs_example(8, 2),
          lambda ps, c: ps.tbcs_generator(c, seed=5),
          lambda ps, kp, p, a: ps.tbcs_prover(kp.pk, p, a, seed=9),
-         lambda ps, kp, p, proof: ps.tbcs_verifier_strong_IC(kp.vk, p, proof),
+         lambda ps, kp, p, proof: [("tbcs_verifier_strong_IC",
+                                    (kp.vk, p, proof))],
          None),
         ("ADSNARK", ADSNARK, r1cs, adsnark_keygen, adsnark_prove,
          adsnark_verify, moved("g_H")))
@@ -1312,73 +1338,114 @@ def point_coords(P):
     return (int(P.x), int(P.y))
 
 
-def coords_point(curve, group, xy):
-    """point_coords' inverse in ``group`` (curve.G1 or curve.G2)."""
-    if xy is None:
-        return group.zero()
-    if isinstance(xy[0], tuple):
-        F2 = curve.Fq2
-        return group.point(F2(*xy[0]), F2(*xy[1]))
-    return group.point(*xy)
+# the curves whose host points and field elements cross to VerifierPool's
+# workers
+HOST_CURVES = ("alt_bn128", "bls12_377", "bw6_761")
 
 
-def pairing_check_worker(curve_name: str, pairs) -> bool:
-    """The port's host pairing check of (G1, G2) integer coordinates, in a
-    worker process of PairingPool."""
+def host_field_element(curve_name: str, attr: str, comps):
+    """A host field element of get_curve(curve_name).<attr> from an integer
+    (a prime field) or its components (an extension)."""
     from libsnark_tpu_torch import get_curve
-    curve = get_curve(curve_name)
-    return curve.pairing_check([
-        (coords_point(curve, curve.G1, P), coords_point(curve, curve.G2, Q))
-        for P, Q in pairs])
+    F = getattr(get_curve(curve_name), attr)
+    return F(*comps) if isinstance(comps, tuple) else F(comps)
 
 
-class LazyCheck:
-    """The verdict of a pairing check running in a worker process: a bool
-    that waits for the worker when it is read."""
-
-    def __init__(self, future):
-        self.future = future
-
-    def __bool__(self):
-        return bool(self.future.result())
-
-    def __repr__(self):
-        return repr(bool(self))
-
-    __str__ = __repr__
-
-    def __format__(self, spec):
-        return format(bool(self), spec)
+def host_point(curve_name: str, attr: str, xy):
+    """A point of get_curve(curve_name).<attr> (G1 or G2); xy None is
+    infinity."""
+    from libsnark_tpu_torch import get_curve
+    group = getattr(get_curve(curve_name), attr)
+    return group.zero() if xy is None else group.point(*xy)
 
 
-class PairingPool:
-    """Spreads the verifiers' host pairing checks over worker processes.
-    While active, each curve's pairing_check(pairs) sends the pairs (as
-    integers) to a worker and returns a LazyCheck at once, so the checks a
-    verifier builds before it reads any (BCTV14's five, GM17's and DFGK14's,
-    ADSNARK's six) run at the same time; each one is the port's own
-    pairing check, computed as it would be in this process. A verifier
-    may then return a LazyCheck: every caller here reads its verdict with
-    bool() (or not) before it takes the time it logs."""
+class HostPickler(pickle.Pickler):
+    """Pickles the port's host points and field elements (their classes
+    are made at run time, so the default pickler cannot name them) by
+    curve, attribute and integers."""
+
+    def __init__(self, f):
+        from libsnark_tpu_torch import get_curve
+        from libsnark_tpu_torch.curves.host_ec import ECGroup
+        super().__init__(f)
+        self.names = {}
+        for name in HOST_CURVES:
+            for attr, v in vars(get_curve(name)).items():
+                if isinstance(v, (type, ECGroup)):
+                    self.names[id(v)] = (name, attr)
+
+    def reducer_override(self, obj):
+        if hasattr(obj, "group") and hasattr(obj, "is_zero"):
+            xy = None if obj.is_zero() else (obj.x, obj.y)
+            return host_point, self.names[id(obj.group)] + (xy,)
+        where = self.names.get(id(type(obj)))
+        if where is None:
+            return NotImplemented
+        comps = tuple(getattr(obj, c) for c in ("c0", "c1", "c2")
+                      if hasattr(obj, c))
+        return host_field_element, where + (comps or int(obj),)
+
+
+def host_dumps(obj) -> bytes:
+    buf = io.BytesIO()
+    HostPickler(buf).dump(obj)
+    return buf.getvalue()
+
+
+# a worker's systems, by (class, curves, keyword arguments)
+WORKER_SYSTEMS = {}
+
+
+def verify_worker(blob: bytes) -> bool:
+    """One verifier call in a worker process of VerifierPool: the system,
+    made on the CPU over the same curves (the verifiers are host code), and
+    its method on the arguments; a plain bool."""
+    import importlib
+    from libsnark_tpu_torch import get_curve
+    module, name, curves, kwargs, method, args = pickle.loads(blob)
+    key = (module, name, curves, tuple(sorted(kwargs.items())))
+    if key not in WORKER_SYSTEMS:
+        cls = getattr(importlib.import_module(module), name)
+        WORKER_SYSTEMS[key] = cls(*map(get_curve, curves), device="cpu",
+                                  **kwargs)
+    return bool(getattr(WORKER_SYSTEMS[key], method)(*args))
+
+
+class VerifierPool:
+    """Runs whole verifier calls in worker processes, so the calls a path
+    makes (the accepted proof and each rejection) run at once: each call
+    is the port's own verifier, on a system made over the same curves, and
+    its verdict comes back as a plain bool."""
 
     def __init__(self, workers: int):
         self.pool = concurrent.futures.ProcessPoolExecutor(
             max_workers=workers,
             mp_context=multiprocessing.get_context("spawn"))
-        self.curves = []
 
-    def activate(self, *curves):
-        for curve in curves:
-            curve.pairing_check = (
-                lambda pairs, name=curve.name: LazyCheck(self.pool.submit(
-                    pairing_check_worker, name,
-                    [(point_coords(P), point_coords(Q)) for P, Q in pairs])))
-            self.curves.append(curve)
+    def submit(self, ps, method: str, *args, **system_kwargs):
+        """ps.<method>(*args) in a worker (system_kwargs: the keyword
+        arguments ps was made with, other than its curves and device): a
+        future of its bool."""
+        curves = ((ps.inner.name, ps.outer.name) if hasattr(ps, "inner")
+                  else (ps.curve.name,))
+        cls = type(ps)
+        return self.pool.submit(verify_worker, host_dumps(
+            (cls.__module__, cls.__qualname__, curves, system_kwargs,
+             method, args)))
+
+    def verdicts(self, ps, calls, **system_kwargs) -> list:
+        """[ps.<method>(*args) for (method, args) in calls], all submitted
+        before the first is read: a list of bools."""
+        futures = [self.submit(ps, method, *args, **system_kwargs)
+                   for method, args in calls]
+        return [f.result() for f in futures]
 
     def shutdown(self):
-        for curve in self.curves:
-            curve.__dict__.pop("pairing_check", None)
         self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+# set by main(): the verifier calls of every path go through it
+VERIFIERS = None
 
 
 def cpu_proof(label: str, curve_name: str):
@@ -1431,11 +1498,14 @@ def small_cross_check(cpu):
         ps = cls(curve)                                # device="cuda"
         kp = keygen(ps, circuit)
         proof = prove(ps, kp, primary, aux)
-        if not verify(ps, kp, primary, proof):
+        calls = verify(ps, kp, primary, proof)
+        bad = ([] if corrupt is None else
+               verify(ps, kp, primary, corrupt(proof, curve.G1.one())))
+        verdicts = VERIFIERS.verdicts(ps, calls + bad)
+        if not all(verdicts[:len(calls)]):
             raise AssertionError(f"{label}: 20-constraint card proof "
                                  "rejected")
-        rejected = corrupt is not None and not verify(
-            ps, kp, primary, corrupt(proof, curve.G1.one()))
+        rejected = corrupt is not None and not all(verdicts[len(calls):])
         if corrupt is not None and not rejected:
             raise AssertionError(f"{label}: a corrupted 20-constraint "
                                  "proof was accepted")
@@ -1509,15 +1579,18 @@ def main_path(curve, log2: int, paths: dict, circuit=None,
                              "default strategy's")
     proof = proofs["dense"]
     t0 = time.perf_counter()
-    ok = bool(g16.verifier_strong_IC(kp.vk, primary, proof))
     bad_input = list(primary)
     bad_input[0] = (bad_input[0] + 1) % curve.r
-    rej_input = not g16.verifier_strong_IC(kp.vk, bad_input, proof)
     tam = type(proof)(g_A=proof.g_A, g_B=proof.g_B,
                       g_C=proof.g_C + curve.G1.one())
-    rej_proof = not g16.verifier_strong_IC(kp.vk, primary, tam)
+    ok, bad_ok, tam_ok = VERIFIERS.verdicts(g16, [
+        ("verifier_strong_IC", (kp.vk, primary, proof)),
+        ("verifier_strong_IC", (kp.vk, bad_input, proof)),
+        ("verifier_strong_IC", (kp.vk, primary, tam))])
+    rej_input, rej_proof = not bad_ok, not tam_ok
     log(f"  proofs equal under both strategies; verify "
-        f"{time.perf_counter() - t0:.2f} s (host): accepted={ok} "
+        f"{time.perf_counter() - t0:.2f} s (host, three calls in "
+        f"workers): accepted={ok} "
         f"wrong-input-rejected={rej_input} corrupted-proof-rejected={rej_proof}")
     if not (ok and rej_input and rej_proof):
         raise AssertionError("Groth16 verification checks failed")
@@ -1634,15 +1707,16 @@ def make_circuit(conn, kind: str, r: int, n: int, k: int = 2):
     conn.close()
 
 
-# ADSNARK's authenticated inputs on its 2^20 path
+# ADSNARK's authenticated inputs on its path
 ADSNARK_INPUTS = 16
-# worker processes of the verifiers' pairing checks (PairingPool)
-PAIRING_WORKERS = 6
+# worker processes of the verifier calls (VerifierPool)
+VERIFIER_WORKERS = 6
 
 
-def systems_circuits(systems_log2: int, new_log2: int) -> dict:
+def systems_circuits(systems_log2: int, new_log2: int,
+                     adsnark_log2: int) -> dict:
     """The circuits of proof_systems_path (alt_bn128, domains of
-    2^systems_log2), of adsnark_path (alt_bn128, 2^new_log2 - 3
+    2^systems_log2), of adsnark_path (alt_bn128, 2^adsnark_log2 - 3
     constraints, 16 inputs) and of the BW6-761 Groth16 path (2^new_log2 -
     3 constraints), each made in a worker process of its own while the
     earlier paths run: {name: (process, the pipe's read end)}. A circuit
@@ -1658,7 +1732,8 @@ def systems_circuits(systems_log2: int, new_log2: int) -> dict:
             ("bctv14", "r1cs", r, (1 << log2) - 3, 2),
             ("gm17", "r1cs", r, (1 << (log2 - 1)) - 3, 2),
             ("dfgk14", "uscs", r, 1 << log2, 2),
-            ("adsnark", "r1cs", r, (1 << new_log2) - 3, ADSNARK_INPUTS),
+            ("adsnark", "r1cs", r, (1 << adsnark_log2) - 3,
+             ADSNARK_INPUTS),
             ("bw6_761", "r1cs", r6, (1 << new_log2) - 3, 2)):
         recv, send = ctx.Pipe(duplex=False)
         proc = ctx.Process(target=make_circuit, args=(send, kind, rr, n, k),
@@ -1742,11 +1817,14 @@ def proof_systems_path(curve, log2: int, paths: dict,
                 kp.pk, primary, aux, seed=9), paths) != proof:
             raise AssertionError(f"{name}: the profiled proof differs")
         t0 = time.perf_counter()
-        ok = bool(ps.verifier_strong_IC(kp.vk, primary, proof))
         bad = [(primary[0] + 1) % r] + primary[1:]
-        rej = not ps.verifier_strong_IC(kp.vk, bad, proof)
+        ok, bad_ok = VERIFIERS.verdicts(ps, [
+            ("verifier_strong_IC", (kp.vk, primary, proof)),
+            ("verifier_strong_IC", (kp.vk, bad, proof))])
+        rej = not bad_ok
         log(f"  proofs equal; verify {time.perf_counter() - t0:.2f} s "
-            f"(host, two calls): accepted={ok} wrong-input-rejected={rej}")
+            f"(host, two calls in workers): accepted={ok} "
+            f"wrong-input-rejected={rej}")
         if not (ok and rej):
             raise AssertionError(f"{name} verification checks failed")
         total = {}
@@ -1775,12 +1853,14 @@ def proof_systems_path(curve, log2: int, paths: dict,
             circuit, primary, aux = ex.generate_bacs_example(r, gates, 2)
             kp = ps.bacs_generator(circuit, seed=5)
             proof = ps.bacs_prover(kp.pk, primary, aux, seed=9)
-            ok = bool(ps.verifier_strong_IC(kp.vk, primary, proof))
+            ok, = VERIFIERS.verdicts(ps, [("verifier_strong_IC",
+                                           (kp.vk, primary, proof))])
         else:
             circuit, primary, aux = ex.generate_tbcs_example(gates, 2)
             kp = ps.tbcs_generator(circuit, seed=5)
             proof = ps.tbcs_prover(kp.pk, primary, aux, seed=9)
-            ok = bool(ps.tbcs_verifier_strong_IC(kp.vk, primary, proof))
+            ok, = VERIFIERS.verdicts(ps, [("tbcs_verifier_strong_IC",
+                                           (kp.vk, primary, proof))])
         log(f"{name} {curve.name}, {gates} gates: keygen, prove, verify "
             f"{time.perf_counter() - t0:.2f} s: accepted={ok}")
         if not ok:
@@ -1831,23 +1911,24 @@ def adsnark_path(curve, log2: int, paths: dict, circuit) -> dict:
             kp.pk, primary, aux, auth, seed=9), paths) != proof:
         raise AssertionError("adsnark: the profiled proof differs")
     t0 = time.perf_counter()
-    ok_sec = bool(ps.verifier_sec(kp.vk, proof, keys.sak, labels))
-    t1 = time.perf_counter()
-    ok_pub = bool(ps.verifier_pub(kp.vk, auth, proof, keys.pak, labels))
-    t2 = time.perf_counter()
     changed = [(primary[0] + 1) % curve.r] + primary[1:]
     bad_auth = ps.auth_sign(changed, keys.sak, labels, seed=7)
     bad = ps.prover(kp.pk, primary, aux, bad_auth, seed=9)
-    t3 = time.perf_counter()
-    rej_pub = not ps.verifier_pub(kp.vk, bad_auth, bad, keys.pak, labels)
-    rej_sec = not ps.verifier_sec(kp.vk, proof, keys.sak,
-                                  [b"x" + l for l in labels])
-    log(f"  proofs equal; verifier_sec {t1 - t0:.2f} s, verifier_pub "
-        f"{t2 - t1:.2f} s (host): accepted={ok_sec and ok_pub}; the proof "
-        "from a changed input's authenticated data (proved "
-        f"{t3 - t2:.2f} s) rejected by verifier_pub={rej_pub}, wrong labels "
-        f"rejected by verifier_sec={rej_sec} ({time.perf_counter() - t3:.2f}"
-        " s)")
+    t1 = time.perf_counter()
+    ok_sec, ok_pub, bad_pub, bad_sec = VERIFIERS.verdicts(ps, [
+        ("verifier_sec", (kp.vk, proof, keys.sak, labels)),
+        ("verifier_pub", (kp.vk, auth, proof, keys.pak, labels)),
+        ("verifier_pub", (kp.vk, bad_auth, bad, keys.pak, labels)),
+        ("verifier_sec", (kp.vk, proof, keys.sak,
+                          [b"x" + l for l in labels]))])
+    rej_pub, rej_sec = not bad_pub, not bad_sec
+    log(f"  proofs equal; the proof from a changed input's authenticated "
+        f"data proved {t1 - t0:.2f} s; verifier_sec and verifier_pub on "
+        f"both, and verifier_sec under wrong labels, four calls in workers "
+        f"{time.perf_counter() - t1:.2f} s (host): accepted="
+        f"{ok_sec and ok_pub}; the changed data's proof rejected by "
+        f"verifier_pub={rej_pub}, wrong labels rejected by verifier_sec="
+        f"{rej_sec}")
     if not (ok_sec and ok_pub and rej_pub and rej_sec):
         raise AssertionError("adsnark verification checks failed")
     total = {}
@@ -1871,14 +1952,131 @@ def adsnark_path(curve, log2: int, paths: dict, circuit) -> dict:
     cs, primary, aux = ex.generate_r1cs_example(curve.r, 20, 2)
     kp = adsnark_keygen(ps, cs)
     proof = adsnark_prove(ps, kp, primary, aux)
-    ok = bool(ps.verifier_pub(kp.vk, ps.auth_data, proof, ps.auth_keys.pak,
-                              auth_labels(len(primary))))
+    ok, = VERIFIERS.verdicts(ps, [("verifier_pub", (
+        kp.vk, ps.auth_data, proof, ps.auth_keys.pak,
+        auth_labels(len(primary))))], sig_scheme="ed25519")
     log(f"adsnark {curve.name} with Ed25519 signatures, 20 constraints: "
         f"keygen, prove, verifier_pub (the one that reads the signatures) "
         f"{time.perf_counter() - t0:.2f} s: accepted={ok}")
     if not ok:
         raise AssertionError("adsnark Ed25519 round trip rejected")
     return {label: total}
+
+
+def pcd_path(paths: dict) -> dict:
+    """A two-step SpPCD over BLS12-377 -> BW6-761 through its entry points:
+    the tally compliance predicate (max_arity 2: 5 constraints, a statement
+    of 4 inputs); generator(num_proofs=2, seed=77) with device keygen of
+    the inner and outer Groth16 keys, its phases and the outer circuit's
+    size; two real inner step proofs over BLS12-377 (prove_step: payloads
+    [10, 1] and [20, 2] with local [5], then [35, 4] and [7, 1] with local
+    [3]), each verified on the host; the prover folding both into one outer
+    Groth16 proof over BW6-761, its phases (circuit rebuild, the verifier
+    gadgets' witness, the outer prove with its own), under the device
+    profiler (paths["prove_pcd"]); the verifier accepts it and rejects it
+    with one statement element changed (the verdicts read in the logged
+    time). Each phase: counts set to 0 just before and read just after,
+    peak device memory. Beside the keygen's phases, the
+    host scalar multiplications gamma_ABC took before it came from the
+    device fixed base, timed on a sample. Returns {"pcd": the outer prove's
+    launches per kernel}; every kernel of that prove must have launched."""
+    import gc
+    from libsnark_tpu_torch import get_curve
+    from libsnark_tpu_torch.ops.cuda_ec import counter_key
+    from libsnark_tpu_torch.proof_systems.compliance_predicate import (
+        PCDLocalData, PCDMessage, TallyCompliancePredicate)
+    from libsnark_tpu_torch.proof_systems.pcd import SpPCD
+    from libsnark_tpu_torch.reductions.r1cs_to_qap import qap_domain
+    bls, bw6 = get_curve("bls12_377"), get_curve("bw6_761")
+    # the circuits hold ~10^8 linear terms: the collector's full passes over
+    # them would take longer than building them
+    gc.collect()
+    gc.freeze()
+    gc.disable()
+    try:
+        cp = TallyCompliancePredicate(bls.r, max_arity=2)
+        cp.generate_r1cs_constraints()
+        inner_cs = cp.get_constraint_system()
+        log(f"pcd path: TallyCompliancePredicate(max_arity=2) over "
+            f"BLS12-377's r: {inner_cs.num_constraints} constraints, "
+            f"{inner_cs.num_inputs} inputs")
+        pcd = SpPCD(bls, bw6)                              # device="cuda"
+        phases, gen_t = {}, {}
+
+        def generator(t):
+            out = pcd.generator(cp, num_proofs=2, seed=77, timings=t)
+            gen_t.update(t)
+            return out
+
+        pk, vk = timed_phase(phases, "generator", generator)
+        dev = pk.outer_keypair.pk.r1cs_dev
+        domain = pcd.g16_outer.domain_for(qap_domain, dev)
+        log(f"  outer circuit: {dev.num_constraints} constraints, "
+            f"{dev.num_inputs} inputs, {dev.num_variables} variables, "
+            f"{sum(int(m.rows.numel()) for m in (dev.A, dev.B, dev.C))} "
+            f"nonzeros, domain {type(domain).__name__} m = {domain.m}")
+        # gamma_ABC before: one host scalar multiplication an input
+        n_abc = len(vk.outer_vk.gamma_ABC)
+        rng = random.Random(77)
+        sample = [rng.randrange(bw6.r) for _ in range(64)]
+        t0 = time.perf_counter()
+        G1 = bw6.G1.one()
+        for sc in sample:
+            G1 * sc
+        host = time.perf_counter() - t0
+        log(f"  outer keygen_host_rest "
+            f"{gen_t['outer.keygen_host_rest']:.3f} s with gamma_ABC "
+            f"from the device fixed base ({n_abc} points); the host form "
+            f"it replaced, {len(sample)} host scalar multiplications of "
+            f"BW6-761's G1: {host:.3f} s, so ~{host * n_abc / len(sample):.1f}"
+            f" s for {n_abc} (estimated from the sample)")
+        steps = (([PCDMessage(1, [10, 1]), PCDMessage(1, [20, 2])], [5]),
+                 ([PCDMessage(1, [35, 4]), PCDMessage(1, [7, 1])], [3]))
+        stmts, proofs = [], []
+        for i, (incoming, local) in enumerate(steps):
+            stmt, proof = timed_phase(
+                phases, f"prove_step[{i}]", lambda t: pcd.prove_step(
+                    pk, cp, incoming, PCDLocalData(local), seed=5 + i))
+            t0 = time.perf_counter()
+            ok, = VERIFIERS.verdicts(pcd.g16_inner, [(
+                "verifier_strong_IC", (pk.inner_keypair.vk, stmt, proof))])
+            log(f"  step {i}: statement {stmt}; inner proof verified on the "
+                f"host in {time.perf_counter() - t0:.2f} s: {ok}")
+            if not ok:
+                raise AssertionError(f"pcd: inner step proof {i} rejected")
+            stmts.append(stmt)
+            proofs.append(proof)
+        if stmts[0][1:3] != [35, 4] or stmts[1][1:3] != [45, 6]:
+            raise AssertionError(f"pcd: tally statements {stmts}")
+        proof = timed_phase(phases, "prover", lambda t: path_timing(
+            "prove_pcd", lambda: pcd.prover(pk, stmts, proofs, seed=9,
+                                            timings=t), paths))
+        t0 = time.perf_counter()
+        bad = [list(stmts[0]), stmts[1]]
+        bad[0][1] = (bad[0][1] + 1) % bls.r
+        ok, bad_ok = VERIFIERS.verdicts(pcd, [
+            ("verifier", (vk, stmts, proof)),
+            ("verifier", (vk, bad, proof))])
+        log(f"  verify {time.perf_counter() - t0:.2f} s (host, two calls in "
+            f"workers, verdicts read): accepted={ok} "
+            f"changed-statement-rejected={not bad_ok}")
+        if not ok or bad_ok:
+            raise AssertionError("pcd verification checks failed")
+    finally:
+        gc.enable()
+        gc.unfreeze()
+    counts = phases["prover"]
+    fq, fr = pcd.g16_outer.fq, pcd.g16_outer.fr
+    need = [f"mont_mul_n{fq.N}", f"mont_mul_n{fr.N}"] + [
+        counter_key(k, fq) for k in ("add", "bucket_reduce",
+                                      "horner_combine")]
+    missing = [k for k in need if not counts.get(k)]
+    replaced = [k for k in counts if k.startswith(("dbl_fp", "aadd_fp"))]
+    if missing or replaced:
+        raise AssertionError(f"pcd: kernels not launched in the outer prove "
+                             f"{missing}, public dbl / aadd launched "
+                             f"{replaced}")
+    return {"pcd": counts}
 
 
 def fixed_base_parts(profiler) -> str:
@@ -2664,9 +2862,11 @@ def main(argv=None) -> int:
                          "map on a domain of 2^k (18: the run's time limit "
                          "leaves 2^20 to the ADSNARK and BW6-761 paths)")
     ap.add_argument("--new-log2", type=int, default=20,
-                    help="ADSNARK over alt_bn128 (16 authenticated inputs) "
-                         "and Groth16 over BW6-761: 2^k - 3 constraints "
-                         "(20)")
+                    help="Groth16 over BW6-761: 2^k - 3 constraints (20)")
+    ap.add_argument("--adsnark-log2", type=int, default=19,
+                    help="ADSNARK over alt_bn128 (16 authenticated inputs): "
+                         "2^k - 3 constraints (19: the run's time limit, "
+                         "with the PCD path, leaves 2^20 to BW6-761)")
     ap.add_argument("--kzg-log2", type=int, default=22,
                     help="KZG10 over BLS12-377: degree 2^k - 1 (22); over "
                          "alt_bn128 the degree is 2^min(k, 18) - 1")
@@ -2687,16 +2887,15 @@ def main(argv=None) -> int:
     log(f"kernels built in {cuda_lib.build_seconds:.1f} s "
         f"({len(cuda_lib.SOURCES)} libraries in parallel)")
     # the cross-check's CPU proofs run in worker processes from here on,
-    # beside the kernel checks, and the verifiers' pairing checks in others
+    # beside the kernel checks, and the verifier calls in others
     cpu_pool, cpu_proofs = start_cpu_proofs()
-    pairings = PairingPool(PAIRING_WORKERS)
+    global VERIFIERS
+    VERIFIERS = VerifierPool(VERIFIER_WORKERS)
     try:
-        pairings.activate(*(get_curve(name) for name in (
-            "alt_bn128", "bls12_377", "bw6_761")))
         K, paths = kernels_and_paths(args, t_start, cpu_pool, cpu_proofs)
     finally:
         cpu_pool.shutdown(wait=True, cancel_futures=True)
-        pairings.shutdown()
+        VERIFIERS.shutdown()
     unread = [k for k, row in K.rows.items() if row["launches"] is None]
     if unread:
         raise AssertionError(f"kernels with no main-path count: {unread}")
@@ -2767,7 +2966,8 @@ def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
     del systems
     paths = {}
     # the later paths' circuits are made beside the Groth16 paths
-    circuits = systems_circuits(args.systems_log2, args.new_log2)
+    circuits = systems_circuits(args.systems_log2, args.new_log2,
+                                args.adsnark_log2)
     try:
         for name, log2 in curves.items():
             counts, yardsticks = main_path(get_curve(name), log2, paths)
@@ -2789,7 +2989,7 @@ def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
                 K.count(key, label, n)
         log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
         for label, counts in adsnark_path(
-                get_curve("alt_bn128"), args.new_log2, paths,
+                get_curve("alt_bn128"), args.adsnark_log2, paths,
                 circuits["adsnark"]).items():
             for key, n in counts.items():
                 K.count(key, label, n)
@@ -2805,6 +3005,10 @@ def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
                 K.count(key, label, n)
     finally:
         stop_workers(circuits)
+    log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
+    for label, counts in pcd_path(paths).items():
+        for key, n in counts.items():
+            K.count(key, label, n)
     log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
     for name, log2, small in (("bls12_377", args.kzg_log2, None),
                               ("alt_bn128", min(args.kzg_log2, 18), 12)):

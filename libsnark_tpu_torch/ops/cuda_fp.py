@@ -10,14 +10,17 @@ put it near the memory bound; the design keeps every intermediate in
 registers and touches each word of input and output once.
 
 The plain version computes the same canonical product in int64 torch ops
-over 16-bit limbs (a schoolbook product into lazy columns, then REDC).
+over 16-bit limbs (a schoolbook product into lazy columns, then REDC); on
+the CPU, up to SMALL_LANES lanes, the same REDC on Python integers.
 The wrapper takes it only for tensors on the CPU; a CUDA tensor always
 launches the kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from . import cuda_lib
@@ -98,11 +101,86 @@ def redc(fk, T: torch.Tensor) -> torch.Tensor:
 
 def mont_mul_plain(fk, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a * b * R^-1 mod p over int64 16-bit limbs (canonical output):
-    one schoolbook product, then one REDC."""
+    one schoolbook product, then one REDC. Up to SMALL_LANES lanes on the
+    CPU, the same REDC on Python integers (mont_mul_ints)."""
+    if small_lanes(a, b):
+        out = mont_mul_ints(fk, a, b)
+        if out is not None:
+            return out
     shape = torch.broadcast_shapes(a.shape, b.shape)
     a64 = a.to(torch.int64).expand(shape)
     b64 = b.to(torch.int64).expand(shape)
     return redc(fk, mul_columns(a64, b64)).to(torch.int32)
+
+
+# Lanes up to which the CPU plain versions (this product, FpKernel.add and
+# sub) take Python integers: a chain of one-lane operations (a Horner
+# combine, a window table's bases, a Fermat inversion) would otherwise
+# spend its time in one torch call per carry pass.
+SMALL_LANES = 8
+
+
+def lanes_shape(*ts):
+    """The shape the tensors broadcast to (their own where all agree)."""
+    shape = ts[0].shape
+    if all(t.shape == shape for t in ts[1:]):
+        return shape
+    return torch.broadcast_shapes(*(t.shape for t in ts))
+
+
+def small_lanes(*ts) -> bool:
+    """Whether the CPU plain versions take the Python-integer forms: CPU
+    tensors of at most SMALL_LANES lanes."""
+    return (not any(t.is_cuda for t in ts)
+            and math.prod(lanes_shape(*ts)[1:]) <= SMALL_LANES)
+
+
+def lane_ints(fk, *ts):
+    """The integer value of each lane of each (N, *batch) limb tensor
+    (broadcast to one shape), or None if a limb lies outside [0, 2^16)."""
+    shape = lanes_shape(*ts)
+    nbytes = 2 * fk.N
+    out = []
+    for t in ts:
+        a = t.expand(shape).reshape(fk.N, -1).numpy()
+        if a.min() < 0 or a.max() > LIMB_MASK:
+            return None
+        raw = a.T.astype("<u2").tobytes()
+        out.append([int.from_bytes(raw[i:i + nbytes], "little")
+                    for i in range(0, len(raw), nbytes)])
+    return out
+
+
+def ints_lanes(fk, vals, shape) -> torch.Tensor:
+    """lane_ints' inverse: the low N limbs of each value, int32 (N, *batch)."""
+    nbytes = 2 * fk.N
+    mask = (1 << (8 * nbytes)) - 1
+    raw = b"".join((v & mask).to_bytes(nbytes, "little") for v in vals)
+    a = np.frombuffer(raw, dtype="<u2").reshape(len(vals), fk.N)
+    return torch.from_numpy(a.T.astype(np.int32)).reshape(shape)
+
+
+def mont_mul_ints(fk, a: torch.Tensor, b: torch.Tensor):
+    """The REDC of redc() on the Python integers of a few lanes: U = (a b +
+    m p) / R with m = -a b p^-1 mod R, U - p where U >= p, the low N limbs
+    of that. The same value redc() computes in limb columns, so the same
+    limbs. None (the caller takes the limb columns) if a limb lies outside
+    [0, 2^16)."""
+    vals = lane_ints(fk, a, b)
+    if vals is None:
+        return None
+    key = ("ints", fk.N)
+    if key not in fk._consts:
+        R = 1 << (LIMB_BITS * fk.N)
+        fk._consts[key] = (R, (-pow(fk.p, -1, R)) % R)
+    R, nprime = fk._consts[key]
+    p, shift = fk.p, LIMB_BITS * fk.N
+    out = []
+    for x, y in zip(*vals):
+        t = x * y
+        u = (t + (t * nprime % R) * p) >> shift
+        out.append(u - p if u >= p else u)
+    return ints_lanes(fk, out, lanes_shape(a, b))
 
 
 def mont_mul(fk, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

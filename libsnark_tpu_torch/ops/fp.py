@@ -18,7 +18,9 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .cuda_fp import cond_sub_p, mont_mul, mont_mul_plain, normalize, redc
+from .cuda_fp import (cond_sub_p, ints_lanes, lane_ints, lanes_shape,
+                      mont_mul, mont_mul_plain, normalize, redc,
+                      small_lanes)
 from .limbs import LIMB_BITS, LIMB_MASK, int_to_limbs, ints_to_limbs
 
 I32 = torch.int32
@@ -97,11 +99,25 @@ class FpKernel:
 
     # --------------------------------------------------------------- arithmetic
     def add(self, a, b):
+        if small_lanes(a, b):
+            vals = lane_ints(self, a, b)
+            if vals is not None:        # the value the limb columns give
+                p = self.p
+                return ints_lanes(self, [x + y - p if x + y >= p else x + y
+                                         for x, y in zip(*vals)],
+                                  lanes_shape(a, b))
         r, c = normalize(a.to(I64) + b.to(I64))
         r = torch.cat([r, c.unsqueeze(0)], dim=0)
         return cond_sub_p(self, r).to(I32)
 
     def sub(self, a, b):
+        if small_lanes(a, b):
+            vals = lane_ints(self, a, b)
+            if vals is not None:        # the value the limb columns give
+                p = self.p
+                return ints_lanes(self, [x - y + p if x < y else x - y
+                                         for x, y in zip(*vals)],
+                                  lanes_shape(a, b))
         d, c = normalize(a.to(I64) - b.to(I64))
         p = self.p_col(d.device, d.dim() - 1)
         fixed, _ = normalize(d + p)

@@ -245,7 +245,8 @@ class ADSNARK(PairingSystem):
         curve, r = self.curve, self.curve.r
         cs.swap_AB_if_beneficial()
         domain = self.domain_for(qap_domain, cs)
-        qap = qap_instance_map_with_evaluation(cs, domain, t)
+        compacted = cs.compacted()
+        qap = qap_instance_map_with_evaluation(cs, domain, t, compacted)
         nv, k = qap.num_variables, qap.num_inputs
         rC = rA * rB % r
         G1, G2 = curve.G1.one(), curve.G2.one()
@@ -272,7 +273,8 @@ class ADSNARK(PairingSystem):
         clock.lap("keygen_fixed_base")
 
         pk = ADSNARKProvingKey(rA_i_Z_g1=prms.I1 * (rA * qap.Zt % r),
-                               r1cs_dev=cs.to_device(self.fr), **queries)
+                               r1cs_dev=cs.to_device(self.fr, compacted),
+                               **queries)
         vk = ADSNARKVerificationKey(
             alphaA_g2=G2 * alphaA, alphaB_g1=G1 * alphaB,
             alphaC_g2=G2 * alphaC, gamma_g2=G2 * gamma,

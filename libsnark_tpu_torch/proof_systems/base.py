@@ -131,6 +131,14 @@ class PairingSystem:
             return self._fixed_base_host(self.g1, base_host, scalars)
         return self._fixed_base(self.g1, self.msm_g1, base_host, scalars)
 
+    def fixed_base_points_g1(self, base_host, scalars) -> list:
+        """[s * base for s in scalars] as host G1 points, through
+        fixed_base_g1 (the device path unless host_keygen)."""
+        aff = self.fixed_base_g1(base_host, scalars)
+        n = len(scalars)
+        return self.g1.decode_affine(tuple(a[..., :n] for a in aff),
+                                     self.curve.G1)
+
     def fixed_base_g2(self, base_host, scalars):
         if self.host_keygen:
             return self._fixed_base_host(self.g2, base_host, scalars)
@@ -140,11 +148,17 @@ class PairingSystem:
     # as in the JAX package; the same affine points as the device path.
     host_keygen = False
 
-    def _fixed_base_host(self, ck, base_host, scalars, c=8):
+    def _fixed_base_host(self, ck, base_host, scalars):
         """Windowed fixed-base on the host: one shared table, then
-        ~ceil(bits/c) table adds per scalar."""
+        ~ceil(bits/c) table adds per scalar. The window c (2-10) takes the
+        fewest adds for this many scalars, about W 2^c for the table and W
+        a scalar: any c gives the same points."""
         r = self.curve.r
-        W = -(-r.bit_length() // c)
+        scalars = list(scalars)
+        bits = r.bit_length()
+        c = min(range(2, 11), key=lambda c: -(-bits // c) * (
+            (1 << c) + len(scalars)))
+        W = -(-bits // c)
         zero = base_host.group.zero()
         table = []
         B = base_host

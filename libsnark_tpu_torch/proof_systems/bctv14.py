@@ -100,7 +100,8 @@ class BCTV14(PairingSystem):
         curve, r = self.curve, self.curve.r
         cs.swap_AB_if_beneficial()
         domain = self.domain_for(qap_domain, cs)
-        qap = qap_instance_map_with_evaluation(cs, domain, t)
+        compacted = cs.compacted()
+        qap = qap_instance_map_with_evaluation(cs, domain, t, compacted)
         nv, k = qap.num_variables, qap.num_inputs
         rC = rA * rB % r
         G1, G2 = curve.G1.one(), curve.G2.one()
@@ -129,7 +130,8 @@ class BCTV14(PairingSystem):
             K_query=fb1(G1, Kt))
         clock.lap("keygen_fixed_base")
 
-        pk = BCTV14ProvingKey(r1cs_dev=cs.to_device(self.fr), **queries)
+        pk = BCTV14ProvingKey(r1cs_dev=cs.to_device(self.fr, compacted),
+                              **queries)
         vk = BCTV14VerificationKey(
             alphaA_g2=G2 * alphaA, alphaB_g1=G1 * alphaB,
             alphaC_g2=G2 * alphaC, gamma_g2=G2 * gamma,

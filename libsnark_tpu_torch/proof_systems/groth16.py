@@ -3,8 +3,8 @@ libsnark_tpu/proof_systems/groth16.py; reference r1cs_gg_ppzksnark.tcc:
 generator :226/:430, prover :464, verifiers :605-745).
 
 * generator: secrets + QAP evaluation on the host (once per circuit), all
-  query exponentiations as device fixed-base batch exp over window tables
-  built on the device;
+  query exponentiations and the verification key's gamma_ABC as device
+  fixed-base batch exp over window tables built on the device;
 * prover: QAP witness map on the device (mont_mul kernel under the NTT and
   the mat-vecs), the A / B1 / H / L G1 MSMs and the B G2 MSM (bucket
   accumulation by ``msm_strategy``, then the Horner kernel), then a few
@@ -105,7 +105,8 @@ class Groth16(PairingSystem):
         curve, r = self.curve, self.curve.r
         cs.swap_AB_if_beneficial()
         domain = self.domain_for(qap_domain, cs)
-        qap = qap_instance_map_with_evaluation(cs, domain, t)
+        compacted = cs.compacted()
+        qap = qap_instance_map_with_evaluation(cs, domain, t, compacted)
         m, nv, k = qap.degree, qap.num_variables, qap.num_inputs
 
         gamma_inv = pow(gamma, -1, r)
@@ -123,15 +124,15 @@ class Groth16(PairingSystem):
         B_query_g1 = self.fixed_base_g1(G1, qap.Bt)
         H_query = self.fixed_base_g1(G1, H_s)
         L_query = self.fixed_base_g1(G1, L_s)
+        gamma_ABC = self.fixed_base_points_g1(G1, gamma_ABC_s)
         clock.lap("keygen_fixed_base")
-        gamma_ABC = [G1 * s for s in gamma_ABC_s]
 
         pk = Groth16ProvingKey(
             alpha_g1=G1 * alpha, beta_g1=G1 * beta, beta_g2=G2 * beta,
             delta_g1=G1 * delta, delta_g2=G2 * delta,
             A_query=A_query, B_query_g2=B_query_g2, B_query_g1=B_query_g1,
             H_query=H_query, L_query=L_query,
-            r1cs_dev=cs.to_device(self.fr))
+            r1cs_dev=cs.to_device(self.fr, compacted))
         vk = Groth16VerificationKey(
             alpha_g1=G1 * alpha, beta_g2=G2 * beta, gamma_g2=G2 * gamma,
             delta_g2=G2 * delta, gamma_ABC=gamma_ABC)

@@ -45,24 +45,25 @@ class QAPInstanceEvaluation:
     num_variables: int
 
 
-def qap_instance_map_with_evaluation(cs, domain, t: int):
+def qap_instance_map_with_evaluation(cs, domain, t: int, compacted=None):
+    """compacted: cs.compacted(), if the caller has it (the device form
+    reads it too). The sums are reduced mod p once each, at the end: the
+    same values as a reduction a term."""
     p = cs.p
     nv = cs.num_variables
     u = domain.lagrange_coeffs_at(t)
+    if compacted is None:
+        compacted = cs.compacted()
     At = [0] * (nv + 1)
     Bt = [0] * (nv + 1)
     Ct = [0] * (nv + 1)
     # input consistency: A_i(t) += L_{n + i}(t) for i = 0..num_inputs
     for i in range(cs.num_inputs + 1):
         At[i] = u[cs.num_constraints + i]
-    for j, con in enumerate(cs.constraints):
-        uj = u[j]
-        for term in con.a.compact(p).terms:
-            At[term.index] = (At[term.index] + term.coeff * uj) % p
-        for term in con.b.compact(p).terms:
-            Bt[term.index] = (Bt[term.index] + term.coeff * uj) % p
-        for term in con.c.compact(p).terms:
-            Ct[term.index] = (Ct[term.index] + term.coeff * uj) % p
+    for out, (rows, cols, coeffs) in zip((At, Bt, Ct), compacted):
+        for j, i, c in zip(rows, cols, coeffs):
+            out[i] += c * u[j]
+    At, Bt, Ct = ([x % p for x in v] for v in (At, Bt, Ct))
     Ht = [1] * (domain.m + 1)
     for i in range(1, domain.m + 1):
         Ht[i] = Ht[i - 1] * t % p

@@ -16,7 +16,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .variable import LinearCombination, LinearTerm
+from .variable import LinearCombination, LinearTerm, compact_terms
 
 
 class R1CSConstraint:
@@ -88,9 +88,27 @@ class R1CSConstraintSystem:
             return True
         return False
 
+    def compacted(self) -> tuple:
+        """The A, B and C matrices as flat (rows, cols, coeffs) lists, each
+        constraint's terms merged by index, reduced mod p, zeros dropped,
+        in index order (variable.compact_terms, LinearCombination.compact's
+        terms): what the QAP evaluation and the device form read, made once
+        for both. Flat lists of integers hold no object the collector
+        tracks, at any size."""
+        p = self.p
+        mats = tuple(([], [], []) for _ in range(3))
+        for j, con in enumerate(self.constraints):
+            for (rows, cols, coeffs), lc in zip(mats, (con.a, con.b, con.c)):
+                idx, cf = compact_terms(lc.terms, p)
+                rows.extend([j] * len(idx))
+                cols.extend(idx)
+                coeffs.extend(cf)
+        return mats
+
     # -- device compilation ----------------------------------------------------------
-    def to_device(self, fr_kernel):
-        return R1CSDevice.build(self, fr_kernel)
+    def to_device(self, fr_kernel, compacted=None):
+        """compacted: this system's compacted(), if the caller has it."""
+        return R1CSDevice.build(self, fr_kernel, compacted)
 
     def __eq__(self, o):
         if not isinstance(o, R1CSConstraintSystem):
@@ -154,17 +172,13 @@ class R1CSDevice:
     p: int
 
     @classmethod
-    def build(cls, cs: R1CSConstraintSystem, fk):
+    def build(cls, cs: R1CSConstraintSystem, fk, compacted=None):
         import torch
+        if compacted is None:
+            compacted = cs.compacted()
 
-        def mat(select):
-            rows, cols, coefs = [], [], []
-            for j, con in enumerate(cs.constraints):
-                lc = select(con).compact(cs.p)
-                for t in lc.terms:
-                    rows.append(j)
-                    cols.append(t.index)
-                    coefs.append(t.coeff)
+        def mat(k):
+            rows, cols, coefs = compacted[k]
             if not rows:  # keep shapes non-empty
                 rows, cols, coefs = [0], [0], [0]
             dev = fk.device
@@ -174,8 +188,7 @@ class R1CSDevice:
                 coeffs=fk.encode(coefs),
                 num_rows=cs.num_constraints,
                 num_cols=cs.num_variables + 1)
-        return cls(A=mat(lambda c: c.a), B=mat(lambda c: c.b),
-                   C=mat(lambda c: c.c),
+        return cls(A=mat(0), B=mat(1), C=mat(2),
                    num_constraints=cs.num_constraints,
                    num_inputs=cs.num_inputs,
                    num_variables=cs.num_variables, p=cs.p)

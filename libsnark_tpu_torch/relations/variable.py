@@ -9,6 +9,8 @@ the device).
 """
 from __future__ import annotations
 
+import operator
+
 
 class Variable:
     __slots__ = ("index",)
@@ -51,6 +53,28 @@ class LinearTerm:
 
     def __repr__(self):
         return f"{self.coeff}*x_{self.index}"
+
+
+_INDEX = operator.attrgetter("index")
+_COEFF = operator.attrgetter("coeff")
+
+
+def compact_terms(terms, p: int):
+    """(indices, coefficients) of the terms with duplicate indices merged,
+    in index order, coefficients reduced mod p, zeros dropped. Each sum is
+    reduced once, at its end: the same value as a reduction a term."""
+    acc = {}
+    get = acc.get
+    for t in terms:
+        i = t.index
+        acc[i] = get(i, 0) + t.coeff
+    idx, coeffs = [], []
+    for i in sorted(acc):
+        c = acc[i] % p
+        if c:
+            idx.append(i)
+            coeffs.append(c)
+    return idx, coeffs
 
 
 class LinearCombination:
@@ -106,16 +130,15 @@ class LinearCombination:
 
     def compact(self, p: int):
         """Merge duplicate indices and reduce coefficients mod p."""
-        acc = {}
-        for t in self.terms:
-            acc[t.index] = (acc.get(t.index, 0) + t.coeff) % p
         out = LinearCombination()
-        out.terms = [LinearTerm(i, c) for i, c in sorted(acc.items()) if c]
+        out.terms = list(map(LinearTerm, *compact_terms(self.terms, p)))
         return out
 
     def evaluate(self, assignment, p: int) -> int:
         """assignment: full vector [1, primary, aux] of ints."""
-        return sum(t.coeff * assignment[t.index] for t in self.terms) % p
+        return sum(map(operator.mul, map(_COEFF, self.terms),
+                       map(assignment.__getitem__,
+                           map(_INDEX, self.terms)))) % p
 
     def is_valid(self, num_vars: int) -> bool:
         return all(0 <= t.index <= num_vars for t in self.terms)

@@ -66,3 +66,89 @@ def numpy_queries(jpk, names):
 def numpy_matrices(jdev, names):
     return {n: (getattr(jdev, n).rows, getattr(jdev, n).cols,
                 getattr(jdev, n).coeffs) for n in names}
+
+
+def trapdoor_groth16(curve, cs, primary, aux, seed=99):
+    """(vk, proof) of the port's Groth16 made on the host from the
+    trusted-setup trapdoor: a valid proof without the prover (the port's
+    copy of tests/test_verifier_gadget.py::_trapdoor_groth16, on the
+    port's QAP code)."""
+    import random
+    from libsnark_tpu_torch.ops.fp import FpKernel
+    from libsnark_tpu_torch.proof_systems.groth16 import (
+        Groth16Proof, Groth16VerificationKey)
+    from libsnark_tpu_torch.reductions.r1cs_to_qap import (
+        qap_domain, qap_instance_map_with_evaluation)
+    rng = random.Random(seed)
+    r = curve.r
+    t, alpha, beta, gamma, delta, rr, ss = (
+        rng.randrange(1, r) for _ in range(7))
+    fr = FpKernel(curve.fr_params, "cpu")
+    domain = qap_domain(fr, curve.fr_params, cs)
+    qap = qap_instance_map_with_evaluation(cs, domain, t)
+    full = [1] + [v % r for v in primary] + [v % r for v in aux]
+    k = cs.num_inputs
+    A_e = (alpha + sum(s * a for s, a in zip(full, qap.At)) + rr * delta) % r
+    B_e = (beta + sum(s * b for s, b in zip(full, qap.Bt)) + ss * delta) % r
+    pub_e = sum(full[i] * (beta * qap.At[i] + alpha * qap.Bt[i] + qap.Ct[i])
+                for i in range(k + 1)) % r
+    C_e = (A_e * B_e - alpha * beta - pub_e) * pow(delta, -1, r) % r
+    G1, G2 = curve.G1.one(), curve.G2.one()
+    gamma_inv = pow(gamma, -1, r)
+    vk = Groth16VerificationKey(
+        alpha_g1=G1 * alpha, beta_g2=G2 * beta, gamma_g2=G2 * gamma,
+        delta_g2=G2 * delta,
+        gamma_ABC=[G1 * ((beta * qap.At[i] + alpha * qap.Bt[i] + qap.Ct[i])
+                         * gamma_inv % r) for i in range(k + 1)])
+    proof = Groth16Proof(g_A=G1 * A_e, g_B=G2 * B_e, g_C=G1 * C_e)
+    return vk, proof
+
+
+def host_point(curve, group, xy):
+    """coords' inverse for one point of ``group`` (curve.G1 or curve.G2)
+    of either package's curve."""
+    if xy is None:
+        return group.zero()
+    if isinstance(xy[0], tuple):
+        return group.point(curve.Fq2(*xy[0]), curve.Fq2(*xy[1]))
+    return group.point(*xy)
+
+
+def carry_vk(jcurve, vk):
+    """The port's Groth16 verification key as the JAX package's, through
+    plain integer coordinates."""
+    from libsnark_tpu.proof_systems.groth16 import (
+        Groth16VerificationKey as JaxVK)
+    G1, G2 = jcurve.G1, jcurve.G2
+    return JaxVK(
+        alpha_g1=host_point(jcurve, G1, coords(vk.alpha_g1)),
+        beta_g2=host_point(jcurve, G2, coords(vk.beta_g2)),
+        gamma_g2=host_point(jcurve, G2, coords(vk.gamma_g2)),
+        delta_g2=host_point(jcurve, G2, coords(vk.delta_g2)),
+        gamma_ABC=[host_point(jcurve, G1, coords(P)) for P in vk.gamma_ABC])
+
+
+def carry_vk_and_proof(jcurve, vk, proof):
+    """The port's Groth16 (vk, proof) as the JAX package's."""
+    from libsnark_tpu.proof_systems.groth16 import Groth16Proof as JaxProof
+    G1, G2 = jcurve.G1, jcurve.G2
+    jproof = JaxProof(g_A=host_point(jcurve, G1, coords(proof.g_A)),
+                      g_B=host_point(jcurve, G2, coords(proof.g_B)),
+                      g_C=host_point(jcurve, G1, coords(proof.g_C)))
+    return carry_vk(jcurve, vk), jproof
+
+
+def r1cs_terms(pb):
+    """A protoboard's constraints as plain integers: ((index, coeff) terms
+    of a, b and c, annotation) each."""
+    return [tuple(tuple((t.index, t.coeff) for t in lc.terms)
+                  for lc in (a, b, c)) + (ann,)
+            for a, b, c, ann in pb.constraints]
+
+
+def board(pb):
+    """Everything of a protoboard as plain integers and strings: the
+    constraints (r1cs_terms), the variable values (the witness), the
+    annotations and the input size."""
+    return (r1cs_terms(pb), list(pb._values), list(pb._annotations),
+            pb.num_inputs)

@@ -179,9 +179,9 @@ def test_proof_from_own_generator_equals_jax(port_own, jax_run):
     assert coords(proof) == coords(jax_run["proof"])
 
 
-def test_proof_from_carried_pk_equals_jax(curve, jax_run):
+def test_proof_from_carried_pk_equals_jax(curve, jax_run, port_own):
     which = jax_run["which"]
-    ps = _system(which, curve)
+    ps = port_own[0]              # its domain and tables made once a case
     jpk = jax_run["kp"].pk
     circuit = _example(examples, which, curve.r, jax_run["gates"])[0]
     if which == "bacs":

@@ -22,7 +22,7 @@ from libsnark_tpu.ops.fp2 import Fp2Kernel as JaxFp2
 from libsnark_tpu_torch import get_curve
 from libsnark_tpu_torch.ops.fp import FpKernel
 from libsnark_tpu_torch.ops.fp2 import Fp2Kernel
-from libsnark_tpu_torch.ops.limbs import from_torch, to_torch
+from libsnark_tpu_torch.ops.limbs import from_torch, ints_to_limbs, to_torch
 
 FIELDS = ["fr", "fq"]
 UNARY = {"sqr", "neg", "inv", "to_mont", "from_mont", "double"}
@@ -117,3 +117,32 @@ def test_fp2_op_matches_jax(kernels, op):
         got = getattr(tfk, op)(to_torch(a, "cpu"), to_torch(b, "cpu"))
     np.testing.assert_array_equal(from_torch(got), np.asarray(want))
 
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "sub"])
+@pytest.mark.parametrize("curve_name", ["alt_bn128", "bls12_377", "bw6_761"])
+def test_small_lane_forms_equal_the_limb_columns(curve_name, op, monkeypatch):
+    """Up to SMALL_LANES lanes on the CPU, mul, add and sub take Python
+    integers (cuda_fp.mont_mul_ints, lane_ints): the same limbs as the
+    limb-column forms, for canonical inputs, inputs in [p, R) and R - 1,
+    at 1, 2 and 8 lanes, with a broadcast operand."""
+    from libsnark_tpu_torch.ops import cuda_fp
+    tc = get_curve(curve_name)
+    rng = random.Random(9)
+    for params in (tc.fq_params, tc.fr_params):
+        fk = FpKernel(params, device="cpu")
+        R = 1 << (16 * fk.N)
+        for lanes in (1, 2, 8):
+            vals = lambda: [rng.choice([rng.randrange(fk.p), rng.randrange(R),
+                                        R - 1, 0, fk.p - 1, fk.p])
+                            for _ in range(lanes)]
+            a = torch.from_numpy(ints_to_limbs(vals(), fk.N).astype(np.int32))
+            b = torch.from_numpy(ints_to_limbs(vals(), fk.N).astype(np.int32))
+            for x, y in ((a, b), (a, b[:, :1])):
+                assert cuda_fp.small_lanes(x, y)
+                got = getattr(fk, op)(x, y)
+                with monkeypatch.context() as m:
+                    m.setattr(cuda_fp, "SMALL_LANES", 0)
+                    want = getattr(fk, op)(x, y)
+                assert got.dtype == want.dtype == torch.int32
+                assert torch.equal(got, want)

@@ -99,8 +99,8 @@ def test_proof_from_own_generator_equals_jax(port_own, jax_run):
     assert coords(proof) == coords(jax_run["proof"])
 
 
-def test_proof_from_carried_pk_equals_jax(curve, jax_run):
-    ps = GM17(curve, device="cpu")
+def test_proof_from_carried_pk_equals_jax(port_own, jax_run):
+    ps = port_own[0]              # its domain and tables made once a size
     jpk = jax_run["kp"].pk
     jdev = jpk.sap_dev
     pk = gm17_proving_key_from_numpy(

@@ -7,6 +7,7 @@ machine that has PyTorch for CUDA and nvcc but no JAX:
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 """
 import random
+import time
 
 import pytest
 import torch
@@ -642,3 +643,100 @@ def test_fp2_at_48_limbs_is_refused_on_card():
     P = (torch.stack([x, x]),) * 3
     with pytest.raises(ValueError, match="degree 2 at 24"):
         cuda_ec.dbl(f2, P)
+
+
+def _pcd_log(label, t0, timings):
+    """One line of a PCD test's phases (run with -s to see it)."""
+    torch.cuda.synchronize()
+    print(f"{label}: {time.perf_counter() - t0:.2f} s; "
+          + ", ".join(f"{k} {v:.2f}" for k, v in timings.items())
+          + f"; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+
+def test_sp_pcd_one_proof_on_card():
+    """SpPCD over BLS12-377 -> BW6-761 with one inner proof (the tally
+    predicate of arity 2): device keygen, a real inner step proof, the
+    aggregation (69,527 constraints) proved over BW6-761 on the card; the
+    verifier accepts and rejects a changed statement."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from libsnark_tpu_torch.proof_systems.compliance_predicate import (
+        PCDLocalData, PCDMessage, TallyCompliancePredicate)
+    from libsnark_tpu_torch.proof_systems.pcd import SpPCD
+    bls, bw6 = get_curve("bls12_377"), get_curve("bw6_761")
+    cp = TallyCompliancePredicate(bls.r, max_arity=2)
+    cp.generate_r1cs_constraints()
+    pcd = SpPCD(bls, bw6)
+    torch.cuda.reset_peak_memory_stats()
+    t0, t = time.perf_counter(), {}
+    pk, vk = pcd.generator(cp, num_proofs=1, seed=77, timings=t)
+    _pcd_log("sp_pcd generator", t0, t)
+    assert pk.outer_keypair.pk.r1cs_dev.num_constraints == 69527
+    t0 = time.perf_counter()
+    stmt, inner = pcd.prove_step(
+        pk, cp, [PCDMessage(1, [10, 1]), PCDMessage(1, [20, 2])],
+        PCDLocalData([5]), seed=5)
+    assert stmt[1:3] == [35, 4]
+    assert pcd.g16_inner.verifier_strong_IC(pk.inner_keypair.vk, stmt, inner)
+    _pcd_log("sp_pcd prove_step + inner verify", t0, {})
+    t0, t = time.perf_counter(), {}
+    proof = pcd.prover(pk, [stmt], [inner], seed=9, timings=t)
+    _pcd_log("sp_pcd prover", t0, t)
+    t0 = time.perf_counter()
+    assert pcd.verifier(vk, [stmt], proof)
+    bad = list(stmt)
+    bad[1] = (bad[1] + 1) % bls.r
+    assert not pcd.verifier(vk, [bad], proof)
+    _pcd_log("sp_pcd verifier (accept, reject)", t0, {})
+
+
+def test_mp_pcd_two_predicates_one_proof_on_card():
+    """MpPCD with two compliance predicates (the tally of arity 2 and of
+    arity 1: both statements of 4 inputs), one proof, max_vks 8: generator
+    (two inner keys, the committed vk set, the outer key on the card), a
+    real inner proof under one predicate, prover, verifier accepts and
+    rejects a changed statement; a proof under a key outside the committed
+    set has no membership proof, so the prover refuses it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+    from libsnark_tpu_torch.proof_systems.compliance_predicate import (
+        PCDLocalData, PCDMessage, TallyCompliancePredicate)
+    from libsnark_tpu_torch.proof_systems.mp_pcd import MpPCD
+    bls, bw6 = get_curve("bls12_377"), get_curve("bw6_761")
+    handlers = {}
+    for name, arity in (("tally2", 2), ("tally1", 1)):
+        handlers[name] = TallyCompliancePredicate(bls.r, max_arity=arity)
+        handlers[name].generate_r1cs_constraints()
+    mp = MpPCD(bls, bw6)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pk, vk = mp.generator(handlers, num_proofs=1, max_vks=8, seed=41)
+    _pcd_log("mp_pcd generator", t0, {})
+    print(f"mp_pcd outer circuit: "
+          f"{pk.outer_keypair.pk.r1cs_dev.num_constraints} constraints",
+          flush=True)
+    h = handlers["tally2"]
+    h.generate_r1cs_witness([PCDMessage(1, [10, 1]), PCDMessage(1, [20, 2])],
+                            PCDLocalData([5]))
+    stmt = h.pb.primary_input()
+    inner = mp.g16_inner.prover(pk.inner_keypairs["tally2"].pk, stmt,
+                                h.pb.auxiliary_input(), seed=5)
+    t0 = time.perf_counter()
+    proof = mp.prover(pk, [("tally2", stmt, inner)], seed=9)
+    _pcd_log("mp_pcd prover", t0, {})
+    t0 = time.perf_counter()
+    assert mp.verifier(vk, [stmt], proof)
+    bad = list(stmt)
+    bad[1] = (bad[1] + 1) % bls.r
+    assert not mp.verifier(vk, [bad], proof)
+    _pcd_log("mp_pcd verifier (accept, reject)", t0, {})
+    # a third key, outside the committed set
+    mp.g16_inner.host_keygen = True
+    foreign = mp.g16_inner.generator(h.pb.get_constraint_system(), seed=99)
+    outside = dataclasses.replace(pk, inner_keypairs={"foreign": foreign})
+    inner = mp.g16_inner.prover(foreign.pk, stmt, h.pb.auxiliary_input(),
+                                seed=5)
+    with pytest.raises(KeyError):
+        mp.prover(outside, [("foreign", stmt, inner)], seed=9)

@@ -142,6 +142,10 @@ def _imports(path: Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "libsnark_tpu_torch").rglob("*.py"))
+    # the gadget layer and the PCD systems among them
+    for sub in ("gadgets/verifier_gadgets.py", "gadgets/hashes/knapsack.py",
+                "proof_systems/pcd.py", "proof_systems/mp_pcd.py"):
+        assert REPO / "libsnark_tpu_torch" / sub in files, sub
     files.append(REPO / "chip_smoke.py")
     files.append(REPO / "scripts" / "probe_h100.py")
     for f in files:

@@ -7,6 +7,8 @@ CPU) is accepted by verifier_strong_IC, online_verifier_strong_IC,
 online_verifier_weak_IC (over verifier_process_vk) and verifier_affine; a
 wrong input and a short input are rejected.
 """
+import random
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -74,3 +76,20 @@ def test_bn128_is_alt_bn128():
                         int(c.G2.one().y.c0), int(c.G2.one().y.c1))
     assert bn.name == "alt_bn128"
     assert coords(bn) == coords(alt)
+
+
+def test_fixed_base_points_equal_host_points():
+    """gamma_ABC's path: fixed_base_points_g1 on the device path (the plain
+    versions here) and on the host path give the same points for a few
+    hundred scalars (0, 1 and r - 1 among them), each s * G1."""
+    bn = get_curve("alt_bn128")
+    rng = random.Random(3)
+    scalars = [0, 1, bn.r - 1] + [rng.randrange(bn.r) for _ in range(247)]
+    dev = Groth16(bn, device="cpu")
+    host = Groth16(bn, device="cpu")
+    host.host_keygen = True
+    G1 = bn.G1.one()
+    got = dev.fixed_base_points_g1(G1, scalars)
+    assert got == host.fixed_base_points_g1(G1, scalars)
+    assert got[:3] == [bn.G1.zero(), G1, -G1]
+    assert got[3:8] == [G1 * s for s in scalars[3:8]]

@@ -50,10 +50,14 @@ def test_port_callers_label_each_operation_with_the_port_functions():
     """Under PortCallers every operator of a field add sits below one label
     naming the port's innermost function above it (the carry
     normalisation) and the functions that called it; an operator issued
-    outside the port carries none."""
+    outside the port carries none. (More lanes than cuda_fp.SMALL_LANES:
+    fewer take the Python-integer form on the CPU, as no card tensor
+    does.)"""
     from torch.profiler import ProfilerActivity, profile
+    from libsnark_tpu_torch.ops import cuda_fp
     fk = FpKernel(get_curve("alt_bn128").fq_params, device="cpu")
-    a, b = fk.encode([1, 2, 3]), fk.encode([4, 5, 6])
+    n = 2 * cuda_fp.SMALL_LANES
+    a, b = fk.encode(range(1, n + 1)), fk.encode(range(n + 1, 2 * n + 1))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with chip_smoke.PortCallers():
             fk.add(a, b)
@@ -66,36 +70,51 @@ def test_port_callers_label_each_operation_with_the_port_functions():
 
 
 def test_pairing_pool_gives_the_port_checks_verdicts():
-    """PairingPool: while active, a curve's pairing_check sends its pairs
-    to a worker process and returns a LazyCheck whose truth is the port's
-    own verdict (G2 over Fq2 and over Fq, infinity, a false check); after
-    shutdown the curve's own method is back."""
-    pool = chip_smoke.PairingPool(2)
+    """VerifierPool: whole verifier calls run in worker processes, on a
+    system made over the same curve, and come back as plain bools (the
+    port's own verdicts: a proof accepted, a wrong input and a moved point
+    rejected, G2 over Fq2 and over Fq); no curve's pairing_check is
+    replaced."""
+    from _torch_port import trapdoor_groth16
+    from libsnark_tpu_torch.proof_systems.groth16 import Groth16
+    from libsnark_tpu_torch.relations.examples import generate_r1cs_example
+    pool = chip_smoke.VerifierPool(2)
     curves = [get_curve(name) for name in ("alt_bn128", "bw6_761")]
     try:
-        pool.activate(*curves)
         for curve in curves:
-            P, Q = curve.G1.one(), curve.G2.one()
-            good = curve.pairing_check([(P * 6, Q), (-(P * 2), Q * 3)])
-            bad = curve.pairing_check([(P * 6, Q), (-(P * 2), Q * 4)])
-            zero = curve.pairing_check([(curve.G1.zero(), Q)])
-            assert isinstance(good, chip_smoke.LazyCheck)
-            assert good and not bad and zero
-            assert f"{good} {bad}" == "True False"
-            assert (good and bad) is bad and not all([good, bad])
+            cs, primary, aux = generate_r1cs_example(curve.r, 4, 2)
+            vk, proof = trapdoor_groth16(curve, cs, primary, aux, seed=3)
+            bad = [(primary[0] + 1) % curve.r] + primary[1:]
+            moved = type(proof)(g_A=proof.g_A, g_B=proof.g_B,
+                                g_C=proof.g_C + curve.G1.one())
+            got = pool.verdicts(Groth16(curve, device="cpu"), [
+                ("verifier_strong_IC", (vk, primary, proof)),
+                ("verifier_strong_IC", (vk, bad, proof)),
+                ("verifier_strong_IC", (vk, primary, moved))])
+            assert got == [True, False, False]
+            assert all(type(v) is bool for v in got)
     finally:
         pool.shutdown()
     assert all("pairing_check" not in c.__dict__ for c in curves)
-    assert curves[0].pairing_check([(curves[0].G1.one(),
-                                     curves[0].G2.one())]) is False
 
 
 def test_point_coords_round_trip():
-    """point_coords / coords_point over G1, G2 over Fq2, G2 over Fq and
-    infinity."""
+    """Host points (G1, G2 over Fq2 and over Fq, infinity) and field
+    elements of every tower level cross to a worker through HostPickler:
+    the same points and elements after pickle.loads, and point_coords reads
+    the same integers on both sides."""
+    import pickle
     for name in ("alt_bn128", "bw6_761"):
         curve = get_curve(name)
         for group in (curve.G1, curve.G2):
             for P in (group.one() * 5, group.zero()):
-                assert chip_smoke.coords_point(
-                    curve, group, chip_smoke.point_coords(P)) == P
+                Q = pickle.loads(chip_smoke.host_dumps(P))
+                assert Q == P and Q.group is P.group
+                assert chip_smoke.point_coords(Q) == \
+                    chip_smoke.point_coords(P)
+    bls = get_curve("bls12_377")
+    e = bls.pairing_engine.miller_loop(
+        bls.pairing_engine.embed_g2(bls.G2.one() * 3),
+        bls.pairing_engine.embed_g1(bls.G1.one() * 2))
+    assert pickle.loads(chip_smoke.host_dumps([e, bls.Fq(7)])) == [
+        e, bls.Fq(7)]
