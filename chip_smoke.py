@@ -25,9 +25,13 @@
    Fq, G2 over Fq: its G2 checks run the G1 kernels again), G1 and G2,
    holds every kernel against its plain PyTorch version on the card at
    main-path shapes, bit-exact (tolerance 0; at 48 limbs the plain
-   versions run on part of a check: mont_mul and madd_win on 2^16 of the
+   versions run on part of a check: mont_mul, fp_addsub and madd_win on
+   2^16 of the
    lanes, dbl_chain over the first 8 bases, aadd_rows over the chunk's
-   first 4 windows, bucket_reduce on a 2^14-point MSM): mont_mul at 2^20 lanes;
+   first 4 windows, bucket_reduce on a 2^14-point MSM): mont_mul at 2^20
+   lanes; fp_addsub (the field addition and subtraction, what FpKernel.add
+   and sub launch on the card) at 2^20 lanes and on 4096 lanes of any
+   16-bit limbs;
    dbl / add / madd / aadd at 2^16 lanes with planted infinity, P == Q
    and P == -Q lanes, add also at 294,930 lanes (one suffix-scan launch of
    a 2^20-point MSM), timed in a replayed CUDA graph (the wrapper called
@@ -61,10 +65,11 @@
    same proof made by the plain versions on the CPU, for Groth16, BCTV14,
    GM17, DFGK14, BACS (19 gates and an output: 20 constraints), TBCS (8
    gates: 19 constraints) and ADSNARK (Schnorr) over alt_bn128 and Groth16
-   over BW6-761; the CPU proofs run in worker processes, all at once,
-   beside the card's. Each card proof must verify (ADSNARK: both
-   verifiers); BCTV14's, GM17's, DFGK14's, ADSNARK's and BW6-761's with one
-   point moved must not.
+   over BW6-761, MNT4, MNT6 and edwards; the CPU proofs run in worker
+   processes, all at once, beside the card's. Each card proof must
+   verify (ADSNARK: both verifiers); BCTV14's, GM17's, DFGK14's,
+   ADSNARK's and the Groth16 proofs over BW6-761, MNT4, MNT6 and edwards
+   with one point moved must not.
 6. Runs seeded Groth16 generator -> prover -> verifier through the entry
    points: over alt_bn128 and over BLS12-377, both at 2^20 constraints
    (generate_r1cs_example(r, 2^k - 3, 2), generator(seed=5) on the device
@@ -111,7 +116,7 @@
    horner_combine (G1 and G2) must each have launched on the path. Then
    BACS and TBCS round trips at 2^12 gates.
 6c. Runs ADSNARK over alt_bn128 through its entry points on
-   generate_r1cs_example(r, 2^19 - 3, 16) (--adsnark-log2; a worker
+   generate_r1cs_example(r, 2^18 - 3, 16) (--adsnark-log2; a worker
    process makes it):
    the authority's seeded keys and the 16 inputs' signed data, a seeded
    keygen under torch.profiler with its phases, a prove with its phases
@@ -120,11 +125,28 @@
    made over the same input from a changed input's authenticated data and
    verifier_sec the proof under wrong labels; every path kernel must have
    launched; then an Ed25519 round trip at 20 constraints. Then Groth16
-   over BW6-761 on generate_r1cs_example(r, 2^20 - 3, 2) (a worker process
-   makes it) as in 6, both strategies with equal proofs, verified and
+   over BW6-761 on generate_r1cs_example(r, 2^19 - 3, 2) (--new-log2; a
+   worker process makes it) as in 6, both strategies with equal proofs, verified and
    rejected, profiled, with the keygen's fixed base and window tables once
    more in their earlier forms and a dense prove with the gathered level
    0 (the yardsticks of the public madd, dbl and aadd at 48 limbs).
+   Then the mnt path (mnt_path), the curves with an a-coefficient, whose
+   group law is the torch formulas over the product and add kernels:
+   mont_mul and fp_addsub at 19 limbs (MNT4's and MNT6's Fq and Fr, R =
+   2^304) and at 12 limbs (edwards) on 2^20 lanes against their plain
+   versions, bit-exact; then
+   Groth16 over MNT4 and MNT6 at 2^17 - 3 constraints (--mnt-log2; at
+   2^18 - 3 MNT6's witness map takes its extended domain of 2 x 2^17)
+   and over edwards at 2^15 - 3 (--edwards-log2), each with 2 inputs (a
+   worker process makes the circuit): one scalar_mul_const a group
+   against the host, a seeded keygen and a prove under the default
+   strategy name, each profiled as in 6 (the prove takes the dense layout
+   and the Horner loop: no bucket_reduce or horner_combine launches),
+   verified and a wrong input rejected (the verifier calls run in workers
+   beside the next curves' paths); mont_mul and fp_addsub must launch and
+   no group kernel may (bucket_reduce, horner_combine, dbl_chain, madd_win,
+   aadd_rows and the public dbl, add, madd, aadd hard-code a = 0). Their
+   20-constraint card proofs are held against the CPU's in 5.
 6d. Runs a two-step SpPCD over BLS12-377 -> BW6-761 through its entry
    points (pcd_path): the tally compliance predicate of arity 2, the
    generator (device keygen of the inner key over BLS12-377 and of the
@@ -167,7 +189,8 @@ read before the time it is logged under is taken.
 Prints the kernel table as one JSON line, the card line, and last the
 line {"ok": true, "device": {...}}. Each row of the table names in "path"
 the run its "launches" were counted in: the alt_bn128, the bls12_377 or the
-bw6_761 Groth16 path (keygen + both proves), "<system>_alt_bn128" (the
+bw6_761 Groth16 path (keygen + both proves), the mnt4 or edwards Groth16
+path (the n19 and n12 rows: keygen + both proves), "<system>_alt_bn128" (the
 BCTV14, GM17, DFGK14 and ADSNARK paths: keygen + prove), "pcd" (the
 SpPCD's outer prove over BW6-761),
 "fixed_base_loop_<curve>" (the
@@ -258,14 +281,17 @@ PRODUCT_LATENCY_MS = {}
 
 
 def wide_mads(fk) -> int:
-    """Wide multiply-adds of one Montgomery product over NW = N/2 words:
-    NW^2 (a*b) + NW (m) + NW^2 (m*p)."""
-    nw = fk.N // 2
+    """Wide multiply-adds of one Montgomery product over NW = ceil(N/2)
+    words: NW^2 (a*b) + NW (m) + NW^2 (m*p)."""
+    nw = -(-fk.N // 2)
     return 2 * nw * nw + nw
 
 
 TPU_KERNEL = {
     "mont_mul": "libsnark_tpu/ops/pallas_fp.py:291",
+    # the field addition and subtraction: jnp code that XLA fuses on the
+    # TPU (FpKernel.add / sub), no Pallas kernel
+    "fp_addsub": "libsnark_tpu/ops/fp.py:144",
     "dbl": "libsnark_tpu/ops/pallas_ec.py:355",
     "madd": "libsnark_tpu/ops/pallas_ec.py:255",
     # the fixed-base scan of the JAX batch_exp (libsnark_tpu/ops/msm.py:
@@ -297,6 +323,7 @@ TPU_KERNEL = {
 }
 SOURCE = {
     "mont_mul": "libsnark_tpu_torch/csrc/fp.cu",
+    "fp_addsub": "libsnark_tpu_torch/csrc/fp.cu",
     "dbl": "libsnark_tpu_torch/csrc/ec.cu",
     "madd": "libsnark_tpu_torch/csrc/ec.cu",
     "madd_win": "libsnark_tpu_torch/csrc/ec.cu",
@@ -612,6 +639,41 @@ def check_mont_mul(fr, fq, K, gen, plain_lanes=None):
                   wide_mads(fk) * L, plain_lanes=P)
         elif err:
             raise AssertionError(f"mont_mul ({key}) differs: {err}")
+
+
+def check_fp_addsub(fr, fq, K, gen, plain_lanes=None):
+    """fp_addsub (add and subtract) at 2^20 lanes against its plain version
+    (FpKernel.add / sub over int64 limb passes) on the first plain_lanes of
+    them (all by default), with 0, 1 and p - 1 planted, and once on limbs
+    outside [0, p) (any 16-bit limbs: the same single correction by p);
+    the row times the add."""
+    from libsnark_tpu_torch.ops import cuda_fp
+    L = 1 << 20
+    P = plain_lanes or L
+    for fk in (fq, fr):
+        key = f"fp_addsub_n{fk.N}"
+        a = plant_edges(fk, rand_field(fk, (L,), gen))
+        b = plant_edges(fk, rand_field(fk, (L,), gen)).flip(-1).contiguous()
+        wild = torch.randint(0, 1 << 16, (fk.N, 1 << 12), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        plain = fk.as_plain()
+        err = 0
+        for sub in (False, True):
+            op = "sub" if sub else "add"
+            err = max(err, max_abs_err(
+                [cuda_fp.add_sub(fk, a, b, sub)[:, :P]],
+                [getattr(plain, op)(a[:, :P], b[:, :P])]))
+            err = max(err, max_abs_err(
+                [cuda_fp.add_sub(fk, wild, wild.flip(-1), sub)],
+                [getattr(plain, op)(wild, wild.flip(-1))]))
+        if key in K.rows:
+            if err:
+                raise AssertionError(f"fp_addsub ({key}) differs: {err}")
+            continue
+        ms = cuda_ms(lambda: cuda_fp.add_sub(fk, a, b, False), 50)
+        pms = cuda_ms(lambda: plain.add(a[:, :P], b[:, :P]), 2)
+        K.add("fp_addsub", key, err, ms, pms, 3 * 4 * fk.N * L, 0,
+              plain_lanes=P)
 
 
 def ec_inputs(curve, ck, group, L, gen, rng):
@@ -1266,7 +1328,7 @@ def small_systems(curve_name: str, r: int):
     calls (the (method, args) whose verdicts must all be true), corrupt (a
     proof with one point moved, or None)). alt_bn128: Groth16,
     BCTV14, GM17, DFGK14, BACS, TBCS, ADSNARK (Schnorr); BW6-761:
-    Groth16."""
+    Groth16; MNT4, MNT6, edwards: Groth16."""
     from libsnark_tpu_torch.proof_systems.adsnark import ADSNARK
     from libsnark_tpu_torch.proof_systems.bacs_ppzksnark import BACSPpzksnark
     from libsnark_tpu_torch.proof_systems.bctv14 import BCTV14
@@ -1287,7 +1349,7 @@ def small_systems(curve_name: str, r: int):
              lambda ps, kp, p, a: ps.prover(kp.pk, p, a, seed=9),
              lambda ps, kp, p, proof: [("verifier_strong_IC",
                                         (kp.vk, p, proof))])
-    if curve_name == "bw6_761":
+    if curve_name in ("bw6_761",) + GENERIC_A_CURVES:
         return (("Groth16", Groth16, r1cs) + plain + (moved("g_C"),),)
     return (
         ("Groth16", Groth16, r1cs) + plain + (None,),
@@ -1313,7 +1375,9 @@ def small_systems(curve_name: str, r: int):
          adsnark_verify, moved("g_H")))
 
 
-SMALL_CURVES = ("alt_bn128", "bw6_761")
+# the curves with an a-coefficient (the mnt path)
+GENERIC_A_CURVES = ("mnt4", "mnt6", "edwards")
+SMALL_CURVES = ("alt_bn128", "bw6_761") + GENERIC_A_CURVES
 
 
 def proof_coords(x):
@@ -1330,17 +1394,20 @@ def proof_coords(x):
 
 def point_coords(P):
     """A host point of G1 or G2 as integers (None: infinity), what a worker
-    process can take: (x, y) over Fq, ((x0, x1), (y0, y1)) over Fq2."""
+    process can take: (x, y) over Fq, ((x0, x1), (y0, y1)) over Fq2,
+    ((x0, x1, x2), (y0, y1, y2)) over Fq3."""
     if P.is_zero():
         return None
     if hasattr(P.x, "c0"):
-        return ((int(P.x.c0), int(P.x.c1)), (int(P.y.c0), int(P.y.c1)))
+        cs = ("c0", "c1", "c2") if hasattr(P.x, "c2") else ("c0", "c1")
+        return tuple(tuple(int(getattr(v, c)) for c in cs)
+                     for v in (P.x, P.y))
     return (int(P.x), int(P.y))
 
 
 # the curves whose host points and field elements cross to VerifierPool's
 # workers
-HOST_CURVES = ("alt_bn128", "bls12_377", "bw6_761")
+HOST_CURVES = ("alt_bn128", "bls12_377", "bw6_761") + GENERIC_A_CURVES
 
 
 def host_field_element(curve_name: str, attr: str, comps):
@@ -1714,11 +1781,14 @@ VERIFIER_WORKERS = 6
 
 
 def systems_circuits(systems_log2: int, new_log2: int,
-                     adsnark_log2: int) -> dict:
+                     adsnark_log2: int, mnt_log2: int,
+                     edwards_log2: int) -> dict:
     """The circuits of proof_systems_path (alt_bn128, domains of
     2^systems_log2), of adsnark_path (alt_bn128, 2^adsnark_log2 - 3
-    constraints, 16 inputs) and of the BW6-761 Groth16 path (2^new_log2 -
-    3 constraints), each made in a worker process of its own while the
+    constraints, 16 inputs), of the BW6-761 Groth16 path (2^new_log2 -
+    3 constraints) and of the mnt path (MNT4 and MNT6 at 2^mnt_log2 - 3
+    constraints, edwards at 2^edwards_log2 - 3), each made in a worker
+    process of its own while the
     earlier paths run: {name: (process, the pipe's read end)}. A circuit
     crosses to this process only when receive_circuit reads it (a
     background receiver would unpickle it under the interpreter lock in
@@ -1734,7 +1804,10 @@ def systems_circuits(systems_log2: int, new_log2: int,
             ("dfgk14", "uscs", r, 1 << log2, 2),
             ("adsnark", "r1cs", r, (1 << adsnark_log2) - 3,
              ADSNARK_INPUTS),
-            ("bw6_761", "r1cs", r6, (1 << new_log2) - 3, 2)):
+            ("bw6_761", "r1cs", r6, (1 << new_log2) - 3, 2)) + tuple(
+                (name, "r1cs", get_curve(name).r,
+                 (1 << (edwards_log2 if name == "edwards" else mnt_log2))
+                 - 3, 2) for name in GENERIC_A_CURVES):
         recv, send = ctx.Pipe(duplex=False)
         proc = ctx.Process(target=make_circuit, args=(send, kind, rr, n, k),
                            daemon=True)
@@ -1762,6 +1835,104 @@ def stop_workers(circuits: dict):
         if proc.is_alive():
             proc.terminate()
         proc.join()
+
+
+def generic_a_path(curve, log2: int, paths: dict, circuit) -> dict:
+    """Groth16 over a curve with an a-coefficient (MNT4, MNT6, edwards) on
+    generate_r1cs_example(r, 2^log2 - 3, 2) (circuit: its worker's entry)
+    through the entry points: a seeded keygen (device fixed-base path)
+    profiled as it runs (paths["keygen_<curve>"]), a prove under the
+    default strategy name, which takes the dense layout and the Horner
+    loop (bucket_reduce and horner_combine must not launch), profiled
+    (paths["prove_<curve>"]), the verifier calls (accepted, a wrong input
+    rejected) started in VERIFIERS' workers, and one scalar_mul_const per
+    group against the host. The group law is the torch formulas over the product
+    and add kernels: mont_mul and fp_addsub at Fq's and Fr's width must
+    launch, and no group kernel may. Returns the path's launches per kernel
+    and the futures of the two verifier calls (the proof, then a wrong
+    input), submitted to VERIFIERS."""
+    from libsnark_tpu_torch.proof_systems.groth16 import Groth16
+    from libsnark_tpu_torch.reductions.r1cs_to_qap import qap_domain
+    (cs, primary, aux), secs = receive_circuit(circuit)
+    log(f"mnt path {curve.name}: generate_r1cs_example(r, 2^{log2} - 3, 2) "
+        f"(host, a worker process: {secs:.2f} s)")
+    g16 = Groth16(curve)            # device="cuda", msm_strategy="segments"
+    for ck, group, k in ((g16.g1, curve.G1, 37), (g16.g2, curve.G2, 91)):
+        P = ck.encode_points([group.one(), group.zero()])
+        if ck.decode_points(ck.scalar_mul_const(P, k), group) != [
+                group.one() * k, group.zero()]:
+            raise AssertionError(f"scalar_mul_const {curve.name} "
+                                 f"{group.name} differs from the host")
+    log(f"  scalar_mul_const G1 (37) and G2 (91) == host multiples "
+        f"(G2 over Fq{g16.fq2.ext_degree})")
+    phases = {}
+    kp = timed_phase(phases, "keygen", lambda t: path_timing(
+        f"keygen_{curve.name}", lambda: g16.generator(cs, seed=5,
+                                                      timings=t), paths))
+    domain = g16.domain_for(qap_domain, cs)
+    log(f"  domain m = {domain.m} ({type(domain).__name__}"
+        + (f", {domain.kind}" if hasattr(domain, "kind") else "") + ")")
+    proof = timed_phase(phases, "prove[segments]", lambda t: path_timing(
+        f"prove_{curve.name}", lambda: g16.prover(
+            kp.pk, primary, aux, seed=9, timings=t), paths))
+    bad_input = [(primary[0] + 1) % curve.r] + list(primary[1:])
+    # the verdicts are read once the next curve's path has run
+    verdicts = [VERIFIERS.submit(g16, "verifier_strong_IC", kp.vk, x, proof)
+                for x in (primary, bad_input)]
+    total = {}
+    for counts in phases.values():
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+    group_kernels = [key for key, n in total.items()
+                     if n and not key.startswith(("mont_mul_", "fp_addsub_"))]
+    if group_kernels:
+        raise AssertionError(f"{curve.name}: group kernels launched for a "
+                             f"curve with an a-coefficient: {group_kernels}")
+    missing = [key for key in {f"{k}_n{fk.N}" for k in ("mont_mul",
+                                                         "fp_addsub")
+                               for fk in (g16.fq, g16.fr)}
+               if not total.get(key)]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {curve.name} "
+                             f"path: {missing}")
+    return total, verdicts
+
+
+def mnt_path(args, K, gen, paths: dict, circuits: dict) -> dict:
+    """The curves with an a-coefficient: mont_mul and fp_addsub at 19 limbs
+    (MNT4's and MNT6's Fq and Fr) and 12 limbs (edwards) at 2^20 lanes
+    against their plain versions, then generic_a_path over MNT4 and MNT6
+    at 2^mnt_log2 - 3 constraints (MNT6's Fr has two-adicity 17: 2^18 is
+    its extended domain of two cosets of 2^17) and edwards at
+    2^edwards_log2 - 3; the verdicts of every curve's verifier calls are
+    read at the end. Returns {curve: the path's launches}."""
+    from libsnark_tpu_torch import get_curve
+    from libsnark_tpu_torch.proof_systems.groth16 import Groth16
+    t0 = time.perf_counter()
+    for name in GENERIC_A_CURVES:
+        g16 = Groth16(get_curve(name))
+        check_mont_mul(g16.fr, g16.fq, K, gen)
+        check_fp_addsub(g16.fr, g16.fq, K, gen)
+    log(f"  check mont_mul and fp_addsub at n19 / n12: "
+        f"{time.perf_counter() - t0:.1f} s")
+    out, pending = {}, {}
+    for name in GENERIC_A_CURVES:
+        t1 = time.perf_counter()
+        log2 = args.edwards_log2 if name == "edwards" else args.mnt_log2
+        out[name], pending[name] = generic_a_path(
+            get_curve(name), log2, paths, circuits.pop(name))
+        log(f"  mnt path {name}: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    for name, (ok, bad) in pending.items():
+        accepted, rejected = ok.result(), not bad.result()
+        log(f"  {name}: verify (host, in workers beside the later curves' "
+            f"paths): accepted={accepted} wrong-input-rejected={rejected}")
+        if not (accepted and rejected):
+            raise AssertionError(f"{name}: Groth16 verification checks "
+                                 "failed")
+    log(f"  verdicts read in {time.perf_counter() - t1:.2f} s")
+    log(f"mnt path: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def proof_systems_path(curve, log2: int, paths: dict,
@@ -2456,7 +2627,8 @@ def kzg_path(curve, log2: int, small_log2=None, paths=None) -> dict:
 # profiler kernel names (demangled or mangled) -> launch-counter families
 _KERNEL_NAME = re.compile(r"(?:^|[\s:]|_Z\d+)([a-z_]+)_kernel(?:<(\d+)(?:, (\d+))?"
                           r"(?:, \d+)*>|ILi(\d+)E(?:Li(\d+)E)?)")
-_FAMILY = {"mont_mul": "mont_mul", "dbl": "dbl", "add": "add", "madd": "madd",
+_FAMILY = {"mont_mul": "mont_mul", "fp_addsub": "fp_addsub", "dbl": "dbl",
+           "add": "add", "madd": "madd",
            "madd_windows": "madd_win", "aadd": "aadd",
            "aadd_rows": "aadd_rows", "dbl_chain": "dbl_chain",
            "bucket_reduce": "bucket_reduce", "horner": "horner_combine"}
@@ -2469,8 +2641,8 @@ def kernel_key(name: str):
         return None
     fam = _FAMILY[m.group(1)]
     nw = int(m.group(2) or m.group(4))
-    if fam == "mont_mul":
-        return f"mont_mul_n{2 * nw}"
+    if fam in ("mont_mul", "fp_addsub"):    # <NW, NL, ..>: NL limbs
+        return f"{fam}_n{int(m.group(3) or m.group(5))}"
     ext = int(m.group(3) or m.group(5))
     return f"{fam}_{'fp2' if ext == 2 else 'fp'}_n{2 * nw}"
 
@@ -2489,11 +2661,14 @@ def unit_cost(key: str):
     doubling, a madd_win madd (a lane's windows after its first)."""
     fam, f, n = re.match(r"(.+?)_(?:(fp2?)_)?n(\d+)$", key).groups()
     N = int(n)
-    wm = 2 * (N // 2) ** 2 + N // 2
+    nw = -(-N // 2)
+    wm = 2 * nw * nw + nw
     e = 2 if f == "fp2" else 1
     FW, per = e * N, (3 if e == 2 else 1)
     if fam == "mont_mul":
         return 12 * N, wm
+    if fam == "fp_addsub":
+        return 12 * N, 0
     if fam == "bucket_reduce":
         return 4 * FW + 4, PRODUCTS["madd"] * per * wm
     if fam == "horner_combine":      # throughput; latency: latency_bound_ms
@@ -2538,17 +2713,27 @@ PROFILE_WARMUP_LAUNCHES = 32
 def unmatched_launches(prof):
     """The runtime API's kernel launches (cudaLaunchKernel and kin) whose
     correlation id no device event carries: kernels the profiler's records
-    lost. None if the profiler's raw events do not say."""
-    try:
-        launches, device = set(), set()
-        for e in prof.profiler.kineto_results.events():
-            if e.device_type() == torch.autograd.DeviceType.CUDA:
-                device.add(e.correlation_id())
-            elif "LaunchKernel" in e.name():
-                launches.add(e.correlation_id())
-        return len(launches - device)
-    except (AttributeError, RuntimeError, TypeError):
-        return None
+    lost."""
+    launches, device = set(), set()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            device.add(e.correlation_id())
+        elif "LaunchKernel" in e.name():
+            launches.add(e.correlation_id())
+    return len(launches - device)
+
+
+def device_events(prof) -> list:
+    """(name, start us, end us) of every device event of a finished
+    torch.profiler run, from its raw records: one pass over the list the
+    profiler already holds. Its function events (prof.events()) are built
+    first, some thirty times the cost: most of the wall time of a profiled
+    path of ~10^5 launches."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.start_ns() / 1e3,
+             (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
 
 
 def device_profile(fn):
@@ -2572,17 +2757,14 @@ def device_profile(fn):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     per, spans, warm = {}, [], 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if "empty_kernel" in e.name:
+    for name, start, end in device_events(prof):
+        if "empty_kernel" in name:
             warm += 1
             continue
-        us = e.time_range.end - e.time_range.start
-        row = per.setdefault(e.name, [0, 0.0])
+        row = per.setdefault(name, [0, 0.0])
         row[0] += 1
-        row[1] += us / 1e3
-        spans.append((e.time_range.start, e.time_range.end))
+        row[1] += (end - start) / 1e3
+        spans.append((start, end))
     if not spans:
         raise AssertionError("torch.profiler recorded no device activity")
     busy, end = 0.0, None
@@ -2593,9 +2775,8 @@ def device_profile(fn):
         elif b > end:
             busy += b - end
             end = b
-    lost = unmatched_launches(prof)
-    if lost is not None:        # not the warm-up's own lost records
-        lost -= PROFILE_WARMUP_LAUNCHES - warm
+    # not the warm-up's own lost records
+    lost = unmatched_launches(prof) - (PROFILE_WARMUP_LAUNCHES - warm)
     return out, per, busy / 1e3, wall, lost
 
 
@@ -2659,7 +2840,7 @@ def path_timing(label: str, fn, paths: dict):
         out, rows, busy, wall, differ, lost, others = profiled_rows(fn)
     if differ:
         unrecorded = sum(n - p for p, n in differ.values())
-        if lost is None or unrecorded > lost or any(
+        if unrecorded > lost or any(
                 p > n for p, n in differ.values()):
             raise AssertionError(
                 f"{label}: profiled kernels / wrapper launches differ twice: "
@@ -2861,12 +3042,20 @@ def main(argv=None) -> int:
                     help="BCTV14, GM17 and DFGK14 over alt_bn128: witness "
                          "map on a domain of 2^k (18: the run's time limit "
                          "leaves 2^20 to the ADSNARK and BW6-761 paths)")
-    ap.add_argument("--new-log2", type=int, default=20,
-                    help="Groth16 over BW6-761: 2^k - 3 constraints (20)")
-    ap.add_argument("--adsnark-log2", type=int, default=19,
+    ap.add_argument("--new-log2", type=int, default=19,
+                    help="Groth16 over BW6-761: 2^k - 3 constraints (19: "
+                         "the run's time limit, with the PCD and mnt "
+                         "paths)")
+    ap.add_argument("--adsnark-log2", type=int, default=18,
                     help="ADSNARK over alt_bn128 (16 authenticated inputs): "
-                         "2^k - 3 constraints (19: the run's time limit, "
-                         "with the PCD path, leaves 2^20 to BW6-761)")
+                         "2^k - 3 constraints (18: the run's time limit)")
+    ap.add_argument("--mnt-log2", type=int, default=17,
+                    help="Groth16 over MNT4 and MNT6: 2^k - 3 constraints "
+                         "(17: the run's time limit; 18 gives MNT6 its "
+                         "extended domain of 2 x 2^17)")
+    ap.add_argument("--edwards-log2", type=int, default=15,
+                    help="Groth16 over edwards: 2^k - 3 constraints (15: "
+                         "the run's time limit)")
     ap.add_argument("--kzg-log2", type=int, default=22,
                     help="KZG10 over BLS12-377: degree 2^k - 1 (22); over "
                          "alt_bn128 the degree is 2^min(k, 18) - 1")
@@ -2937,6 +3126,9 @@ def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
             ("mont_mul", lambda: check_mont_mul(
                 g16.fr, g16.fq, K, gen,
                 plain_lanes=1 << 16 if small else None)),
+            ("fp_addsub", lambda: check_fp_addsub(
+                g16.fr, g16.fq, K, gen,
+                plain_lanes=1 << 16 if small else None)),
             ("ec", lambda: check_ec(g16.curve, g16, K, gen, rng)),
             ("madd_windows", lambda: check_madd_windows(
                 g16.curve, g16, K, gen, rng,
@@ -2967,7 +3159,8 @@ def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
     paths = {}
     # the later paths' circuits are made beside the Groth16 paths
     circuits = systems_circuits(args.systems_log2, args.new_log2,
-                                args.adsnark_log2)
+                                args.adsnark_log2, args.mnt_log2,
+                                args.edwards_log2)
     try:
         for name, log2 in curves.items():
             counts, yardsticks = main_path(get_curve(name), log2, paths)
@@ -3003,6 +3196,11 @@ def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
         for label, yard in yardsticks.items():
             for key, n in yard.items():
                 K.count(key, label, n)
+        log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
+        for name, counts in mnt_path(args, K, gen, paths, circuits).items():
+            for key, n in counts.items():
+                # mont_mul_n19 keeps the MNT4 path's count
+                K.count(key, name, n)
     finally:
         stop_workers(circuits)
     log(f"  elapsed {time.perf_counter() - t_start:.1f} s")

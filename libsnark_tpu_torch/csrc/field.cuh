@@ -5,24 +5,28 @@
 // Interface layout (what the wrappers pass): 16-bit limbs in int32 words,
 // limbs leading, so limb k of element t of a length-L batch is at k*L + t
 // and neighbouring threads read neighbouring words. In registers an element
-// is NW words of 32 bits (a template parameter: 8 for a 256-bit modulus,
-// 12 for a 384-bit one, 24 for a 768-bit one; the interface has NL = 2*NW
-// limbs); products are
-// 64-bit. R = 2^(32*NW) is the JAX package's 2^(16*N), so the Montgomery
-// form is the same; only the REDC constant differs: n0inv = -p^-1 mod 2^32
-// here (mod 2^16 in the JAX code). The product (fp_mul, a carry chain)
-// needs p < R/2, which every curve of the repository meets and
-// ops/cuda_lib.make_mod checks; fp_reduce_once takes a carry word beside the
-// NW words for fp_add.
+// is NW words of 32 bits (a template parameter: 6 for a 192-bit modulus, 8
+// for a 256-bit one, 10 for a 298-bit one, 12 for a 384-bit one, 24 for a
+// 768-bit one; the interface has NL = 2*NW limbs, or 2*NW - 1); products
+// are 64-bit. R = 2^(16*NL) is the JAX package's 2^(16*N), so the
+// Montgomery form is the same; only the REDC constant differs: n0inv =
+// -p^-1 mod 2^32 here (mod 2^16 in the JAX code). With an even NL, R =
+// 2^(32*NW) and the product (fp_mul, a carry chain) needs p < R/2, which
+// every curve of the repository meets and ops/cuda_lib.make_mod checks;
+// with an odd NL (19 limbs: MNT4 and MNT6) R = 2^(32*NW - 16) and the
+// product is fp_mul_half, whose last round is a half word.
+// fp_reduce_once takes a carry word beside the NW words for fp_add.
 //
 // Every value a function returns is canonical (< p), so any correct
 // formula gives the JAX package's bits exactly.
 //
-// Every function is a template over NW. Each source instantiates its
-// kernels for NW = 8 and NW = 12 (G1 and G2 over Fp2) and NW = 24 (G1 and
-// G2 over Fp only: no curve of either package has an Fp2 over a 761-bit
-// field), and its C entries take the width as their first argument (nw);
-// one more width is one more case in each source's launch switch.
+// Every function is a template over NW. The group sources instantiate
+// their kernels for NW = 8 and NW = 12 (G1 and G2 over Fp2) and NW = 24 (G1
+// and G2 over Fp only: no curve of either package has an Fp2 over a
+// 761-bit field); fp.cu's product also for NL = 12 and NL = 19 (edwards,
+// MNT4, MNT6: curves with an a-coefficient, whose group law runs as torch
+// formulas over that product). The C entries take the width as their first
+// argument; one more width is one more case in a source's launch switch.
 #pragma once
 #include <stdint.h>
 
@@ -41,27 +45,32 @@ struct Fp {
 };
 
 // ---------------------------------------------------------------- load/store
-template <int NW>
+// NL limbs (2 NW, or 2 NW - 1 for an odd limb count: the top half-word is
+// then zero in registers and neither read nor written)
+template <int NW, int NL = 2 * NW>
 __device__ __forceinline__ Fp<NW> fp_load(const int32_t* __restrict__ base,
                                           int64_t stride, int64_t idx) {
+  static_assert(NL == 2 * NW || NL == 2 * NW - 1, "NL limbs in NW words");
   Fp<NW> r;
 #pragma unroll
   for (int k = 0; k < NW; ++k) {
     uint32_t lo = (uint32_t)base[(2 * k) * stride + idx];
-    uint32_t hi = (uint32_t)base[(2 * k + 1) * stride + idx];
+    uint32_t hi = 2 * k + 1 < NL
+        ? (uint32_t)base[(2 * k + 1) * stride + idx] : 0u;
     r.w[k] = (lo & 0xFFFFu) | (hi << 16);
   }
   return r;
 }
 
-template <int NW>
+template <int NW, int NL = 2 * NW>
 __device__ __forceinline__ void fp_store(int32_t* __restrict__ base,
                                          int64_t stride, int64_t idx,
                                          const Fp<NW>& a) {
 #pragma unroll
   for (int k = 0; k < NW; ++k) {
     base[(2 * k) * stride + idx] = (int32_t)(a.w[k] & 0xFFFFu);
-    base[(2 * k + 1) * stride + idx] = (int32_t)(a.w[k] >> 16);
+    if (2 * k + 1 < NL)
+      base[(2 * k + 1) * stride + idx] = (int32_t)(a.w[k] >> 16);
   }
 }
 
@@ -313,6 +322,70 @@ template <int NW>
 __device__ __noinline__ Fp<NW> fp_mul_call(const Fp<NW>& a, const Fp<NW>& b,
                                            const Mod<NW>& M) {
   return fp_mul<NW>(a, b, M);
+}
+
+// ------------------------------------------------ odd limb count
+// The Montgomery product for R = 2^(32 NW - 16): an odd count of 16-bit
+// limbs (19 limbs in NW = 10 words, the MNT4/MNT6 fields), where R is no
+// power of 2^32. CIOS with 64-bit temporaries: NW - 1 rounds of a word of
+// b each, t = (t + a b_i + m p) / 2^32 with m = t_0 (-p^-1) mod 2^32, then
+// one half round on b's top word (below 2^16): t = (t + a b_top + m p) /
+// 2^16 with m = t_0 (-p^-1) mod 2^16, the low half of n0inv. That is REDC
+// with R = 2^(32 NW - 16): the value stays below a + p < 2p and ends below
+// 2p, so one conditional subtraction leaves the canonical product.
+template <int NW>
+__device__ __forceinline__ void cios_mad(uint32_t* t, const uint32_t* a,
+                                         uint32_t bi) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    uint64_t s = (uint64_t)a[j] * bi + t[j] + c;
+    t[j] = (uint32_t)s;
+    c = s >> 32;
+  }
+  uint64_t s = (uint64_t)t[NW] + c;
+  t[NW] = (uint32_t)s;
+  t[NW + 1] = (uint32_t)(s >> 32);
+}
+
+template <int NW>
+__device__ __forceinline__ Fp<NW> fp_mul_half(const Fp<NW>& a,
+                                              const Fp<NW>& b,
+                                              const Mod<NW>& M) {
+  uint32_t t[NW + 2];
+#pragma unroll
+  for (int k = 0; k < NW + 2; ++k) t[k] = 0;
+#pragma unroll 1
+  for (int i = 0; i < NW - 1; ++i) {
+    cios_mad<NW>(t, a.w, b.w[i]);
+    uint32_t m = t[0] * M.n0inv;
+    uint64_t c = ((uint64_t)m * M.p[0] + t[0]) >> 32;
+#pragma unroll
+    for (int j = 1; j < NW; ++j) {
+      uint64_t s = (uint64_t)m * M.p[j] + t[j] + c;
+      t[j - 1] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[NW] + c;
+    t[NW - 1] = (uint32_t)s;
+    t[NW] = t[NW + 1] + (uint32_t)(s >> 32);
+  }
+  cios_mad<NW>(t, a.w, b.w[NW - 1]);
+  uint32_t m = (t[0] * M.n0inv) & 0xFFFFu;
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    uint64_t s = (uint64_t)m * M.p[j] + t[j] + c;
+    t[j] = (uint32_t)s;
+    c = s >> 32;
+  }
+  uint64_t s = (uint64_t)t[NW] + c;
+  t[NW] = (uint32_t)s;
+  // t_0's low half is zero: divide by 2^16 (the value is below 2p < R)
+  Fp<NW> r;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) r.w[j] = (t[j] >> 16) | (t[j + 1] << 16);
+  return fp_reduce_once<NW>(r, 0, M);
 }
 
 // ------------------------------------------------ lane-split product

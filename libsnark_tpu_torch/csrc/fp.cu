@@ -1,47 +1,106 @@
 // Batched Montgomery multiplication: replaces the Pallas kernel
 // libsnark_tpu/ops/pallas_fp.py:_build_mul (public mont_mul), for fields
-// of NW = 8 (16 limbs), NW = 12 (24 limbs) and NW = 24 (48 limbs) 32-bit
-// words.
+// of NL = 12, 16, 19, 24 and 48 16-bit limbs (NW = 6, 8, 10, 12 and 24
+// 32-bit words). Beside it the field addition and subtraction
+// (fp_addsub_kernel: the JAX package's FpKernel.add / sub, jnp code that
+// XLA fuses on the TPU), one launch where torch's int64 limb passes take
+// some twenty kernels and a host read of their carries.
 //
-// One thread per lane: load a and b (2 NW limbs each, coalesced across the
-// warp), run the NW x 32-bit carry-chain product of field.cuh, store 2 NW
-// limbs.
+// One thread per lane: load a and b (NL limbs each, coalesced across the
+// warp), run the NW x 32-bit product of field.cuh (the carry chain at an
+// even NL; at NL = 19, where R = 2^304 is no power of 2^32, fp_mul_half:
+// nine word rounds and a half-word round), store NL limbs.
 // Bound on the card: 2 NW^2 + NW wide multiply-adds per product against
-// 24 NW bytes moved per lane, so at 2^20 lanes it sits near the memory
+// 12 NL bytes moved per lane, so at 2^20 lanes it sits near the memory
 // bound; the design keeps every intermediate in registers and touches each
 // input and output word once.
 #include "field.cuh"
 
-template <int NW>
+template <int NW, int NL>
 __global__ void __launch_bounds__(256)
 mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                 int32_t* __restrict__ out, int64_t L,
                 const __grid_constant__ Mod<NW> M) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= L) return;
-  Fp<NW> x = fp_load<NW>(a, L, i);
-  Fp<NW> y = fp_load<NW>(b, L, i);
-  fp_store<NW>(out, L, i, fp_mul<NW>(x, y, M));
+  Fp<NW> x = fp_load<NW, NL>(a, L, i);
+  Fp<NW> y = fp_load<NW, NL>(b, L, i);
+  if constexpr (NL == 2 * NW)
+    fp_store<NW, NL>(out, L, i, fp_mul<NW>(x, y, M));
+  else
+    fp_store<NW, NL>(out, L, i, fp_mul_half<NW>(x, y, M));
 }
 
-template <int NW>
+template <int NW, int NL>
 static void mont_mul_launch(const void* a, const void* b, void* out,
                             long long L, const void* M, void* stream) {
   int threads = 256;
   long long blocks = (L + threads - 1) / threads;
-  mont_mul_kernel<NW><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)a, (const int32_t*)b, (int32_t*)out, (int64_t)L,
-      *(const Mod<NW>*)M);
+  mont_mul_kernel<NW, NL>
+      <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+          (const int32_t*)a, (const int32_t*)b, (int32_t*)out, (int64_t)L,
+          *(const Mod<NW>*)M);
 }
 
-// nw: 32-bit words per element; M: the Mod<nw> of that width
-extern "C" int lsn_mont_mul(int nw, const void* a, const void* b, void* out,
+// a + b (SUB = 0) or a - b (SUB = 1) mod p, one thread per lane: for any
+// 16-bit limbs, the value torch's limb passes give (one conditional
+// subtraction of p after an add, one addition of p after a borrow; the low
+// NL limbs). Bound: 12 NL bytes a lane, no products.
+template <int NW, int NL, int SUB>
+__global__ void __launch_bounds__(256)
+fp_addsub_kernel(const int32_t* __restrict__ a,
+                 const int32_t* __restrict__ b, int32_t* __restrict__ out,
+                 int64_t L, const __grid_constant__ Mod<NW> M) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= L) return;
+  Fp<NW> x = fp_load<NW, NL>(a, L, i);
+  Fp<NW> y = fp_load<NW, NL>(b, L, i);
+  fp_store<NW, NL>(out, L, i, SUB ? fp_sub<NW>(x, y, M) : fp_add<NW>(x, y, M));
+}
+
+template <int NW, int NL>
+static void addsub_launch(int sub, const void* a, const void* b, void* out,
+                          long long L, const void* M, void* stream) {
+  int threads = 256;
+  unsigned blocks = (unsigned)((L + threads - 1) / threads);
+  cudaStream_t s = (cudaStream_t)stream;
+  const Mod<NW>& m = *(const Mod<NW>*)M;
+  if (sub)
+    fp_addsub_kernel<NW, NL, 1><<<blocks, threads, 0, s>>>(
+        (const int32_t*)a, (const int32_t*)b, (int32_t*)out, (int64_t)L, m);
+  else
+    fp_addsub_kernel<NW, NL, 0><<<blocks, threads, 0, s>>>(
+        (const int32_t*)a, (const int32_t*)b, (int32_t*)out, (int64_t)L, m);
+}
+
+// nl: 16-bit limbs per element; sub: 0 add, 1 subtract; M: the
+// Mod<(nl + 1) / 2> of that width
+extern "C" int lsn_fp_addsub(int nl, int sub, const void* a, const void* b,
+                             void* out, long long L, const void* M,
+                             void* stream) {
+  if (L > 0) {
+    switch (nl) {
+      case 12: addsub_launch<6, 12>(sub, a, b, out, L, M, stream); break;
+      case 16: addsub_launch<8, 16>(sub, a, b, out, L, M, stream); break;
+      case 19: addsub_launch<10, 19>(sub, a, b, out, L, M, stream); break;
+      case 24: addsub_launch<12, 24>(sub, a, b, out, L, M, stream); break;
+      case 48: addsub_launch<24, 48>(sub, a, b, out, L, M, stream); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// nl: 16-bit limbs per element; M: the Mod<(nl + 1) / 2> of that width
+extern "C" int lsn_mont_mul(int nl, const void* a, const void* b, void* out,
                             long long L, const void* M, void* stream) {
   if (L > 0) {
-    switch (nw) {
-      case 8: mont_mul_launch<8>(a, b, out, L, M, stream); break;
-      case 12: mont_mul_launch<12>(a, b, out, L, M, stream); break;
-      case 24: mont_mul_launch<24>(a, b, out, L, M, stream); break;
+    switch (nl) {
+      case 12: mont_mul_launch<6, 12>(a, b, out, L, M, stream); break;
+      case 16: mont_mul_launch<8, 16>(a, b, out, L, M, stream); break;
+      case 19: mont_mul_launch<10, 19>(a, b, out, L, M, stream); break;
+      case 24: mont_mul_launch<12, 24>(a, b, out, L, M, stream); break;
+      case 48: mont_mul_launch<24, 48>(a, b, out, L, M, stream); break;
       default: return (int)cudaErrorInvalidValue;
     }
   }

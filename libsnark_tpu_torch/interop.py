@@ -4,13 +4,15 @@ into the port from plain numpy data.
 ``proving_key_from_numpy`` builds the port's ``Groth16ProvingKey`` from:
 
 * queries: name -> (x, y, inf) numpy triples -- uint32 limbs, limbs leading
-  ((N, n) for G1, (2, N, n) for G2; N = 16 for alt_bn128, 24 for
-  BLS12-377), in Montgomery form, padded to the
+  ((N, n) for G1, (2, N, n) for G2 over Fq2, (3, N, n) over Fq3; N = 16
+  for alt_bn128, 24 for BLS12-377, 48 for BW6-761, 19 for MNT4 and MNT6,
+  12 for edwards), in Montgomery form, padded to the
   power-of-two bucket, and a bool infinity mask (the layout of the JAX
   package's device arrays);
 * points: name -> integer affine coordinates of the host points
   (alpha_g1, beta_g1, delta_g1 as (x, y); beta_g2, delta_g2 as
-  ((x0, x1), (y0, y1)), or (x, y) where G2 lies over Fq: BW6-761);
+  ((x0, x1), (y0, y1)) over Fq2, ((x0, x1, x2), (y0, y1, y2)) over Fq3
+  (MNT6, edwards), or (x, y) where G2 lies over Fq: BW6-761);
 * matrices: "A" / "B" / "C" -> (rows, cols, coeffs) numpy, coeffs the
   (N, nnz) uint32 Montgomery limbs;
 * the constraint-system sizes.
@@ -52,13 +54,15 @@ def _g1(curve, xy):
 
 
 def _g2(curve, xy):
-    """G2 from ((x0, x1), (y0, y1)) over Fq2, or (x, y) where G2 lies over
-    Fq itself (``g2_field_degree`` 1: BW6-761)."""
-    if getattr(curve, "g2_field_degree", 2) == 1:
+    """G2 from ((x0, x1), (y0, y1)) over Fq2, ((x0, x1, x2), (y0, y1, y2))
+    over Fq3 (``g2_field_degree`` 3: MNT6, edwards), or (x, y) where G2
+    lies over Fq itself (``g2_field_degree`` 1: BW6-761)."""
+    deg = getattr(curve, "g2_field_degree", 2)
+    if deg == 1:
         return curve.G2.point(int(xy[0]), int(xy[1]))
-    (x0, x1), (y0, y1) = xy
-    F2 = curve.Fq2
-    return curve.G2.point(F2(int(x0), int(x1)), F2(int(y0), int(y1)))
+    F = curve.Fq2 if deg == 2 else curve.Fq3
+    x, y = ([int(c) for c in v] for v in xy)
+    return curve.G2.point(F(*x), F(*y))
 
 
 def _matrix(dev, triple, num_rows: int, num_cols: int):

@@ -2,7 +2,7 @@
 
 Kernel wrappers (each counts its launches on the card and their work, per
 coordinate field and field width):
-  cuda_fp.mont_mul                       csrc/fp.cu
+  cuda_fp.mont_mul / add_sub             csrc/fp.cu
   cuda_ec.dbl / add / madd / aadd        csrc/ec.cu
   cuda_ec.madd_windows / aadd_rows       csrc/ec.cu
   cuda_bucket.bucket_reduce / horner     csrc/bucket.cu

@@ -48,7 +48,7 @@ import torch
 
 from . import cuda_lib
 from .cuda_ec import (add_plain, counter_key, counter_keys, dbl_plain,
-                      ext_of, madd_plain, width_args)
+                      ext_of, lead_of, madd_plain, width_args)
 from .limbs import words_to_limbs
 
 LAUNCHES = dict.fromkeys(counter_keys(("bucket_reduce", "horner_combine",
@@ -65,10 +65,9 @@ DEPTH = dict.fromkeys(LAUNCHES, 0)
 
 
 def _field_view(fk, a):
-    """(FW, ...) rows -> the field kernel's (N, ...) / (2, N, ...) shape."""
-    if ext_of(fk) == 2:
-        return a.reshape((2, fk.N) + tuple(a.shape[1:]))
-    return a
+    """(FW, ...) rows -> the field kernel's (N, ...) / (ext, N, ...)
+    shape."""
+    return a.reshape(lead_of(fk) + tuple(a.shape[1:]))
 
 
 def bucket_reduce_plain(fk, rows, gidx, starts, counts, order=None):
@@ -195,7 +194,7 @@ def dbl_chain(fk, P, c: int, W: int):
     P, ONE launch on the card. P: one Jacobian point (batch (1,)); returns
     Jacobian (X, Y, Z) with batch (W,), column w = 2^(c w) P."""
     FW = ext_of(fk) * fk.N
-    lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
+    lead = lead_of(fk)
     if (len(P) != 3 or any(a.shape != lead + (1,) or a.dtype != torch.int32
                            for a in P) or W < 1 or c < 0):
         raise ValueError(f"dbl_chain takes one Jacobian point (int32 "

@@ -3,7 +3,9 @@
 Replace the Pallas TPU kernels ``libsnark_tpu/ops/pallas_ec.py:_build_dbl``
 (``dbl``), ``_build_add`` (``add``), ``_build_madd`` (``madd``) and
 ``_build_aadd`` (``aadd``), for G1 (coordinates over Fp, ext = 1) and G2
-(over Fp2, ext = 2), a = 0 curves, at every built field width.
+(over Fp2, ext = 2), a = 0 curves, at every built group width. Curves with
+an a-coefficient (MNT4, MNT6, edwards) take the formulas below over the
+product kernel, with G2 over Fp2 or Fp3.
 ``madd_windows`` runs the JAX package's fixed-base scan (``batch_exp``, one
 Pallas madd a window under a ``lax.scan``) in one launch: each thread keeps
 its lane's accumulator in registers across every window, takes its digits
@@ -40,7 +42,7 @@ def counter_keys(kernels):
     """Launch-counter keys: one per kernel, coordinate field (fp: G1, fp2:
     G2) and field width (N 16-bit limbs)."""
     return [f"{k}_{f}_n{2 * nw}" for k in kernels for f in ("fp", "fp2")
-            for nw in (cuda_lib.WIDTHS if f == "fp" else
+            for nw in (cuda_lib.GROUP_WIDTHS if f == "fp" else
                        cuda_lib.FP2_WIDTHS)]
 
 
@@ -57,24 +59,35 @@ LIVE_PAIRS = dict.fromkeys(counter_keys(("aadd_rows",)), 0)
 
 
 def ext_of(fk) -> int:
-    """Coordinate field degree: 2 for an Fp2Kernel, 1 for an FpKernel."""
-    return 2 if hasattr(fk, "fp") else 1
+    """Coordinate field degree: 3 for an Fp3Kernel, 2 for an Fp2Kernel, 1
+    for an FpKernel."""
+    return getattr(fk, "ext_degree", 1)
+
+
+def lead_of(fk) -> tuple:
+    """The leading (coefficient, limb) axes of a field element of fk."""
+    ext = ext_of(fk)
+    return (ext, fk.N) if ext > 1 else (fk.N,)
 
 
 def width_args(fk):
     """The (nw, ext) arguments of a group kernel's C entry for field kernel
-    fk; raises where csrc builds none (Fp2 is built at ``FP2_WIDTHS``
-    only), as the C entries refuse it."""
+    fk; raises where csrc builds none (Fp at ``GROUP_WIDTHS``, Fp2 at
+    ``FP2_WIDTHS``, no Fp3: only curves with an a-coefficient have a G2
+    over Fp3, and they run no group kernel), as the C entries refuse it."""
     nw, ext = fk.nw, ext_of(fk)
-    if ext == 2 and nw not in cuda_lib.FP2_WIDTHS:
-        raise ValueError(f"no group kernels built over a field of degree 2 "
-                         f"at {nw} 32-bit words (Fp2 at "
+    built = {1: cuda_lib.GROUP_WIDTHS, 2: cuda_lib.FP2_WIDTHS}.get(ext, ())
+    if nw not in built or 2 * nw != fk.N:
+        raise ValueError(f"no group kernels built over a field of degree "
+                         f"{ext} at {nw} 32-bit words ({fk.N} limbs; Fp at "
+                         f"{cuda_lib.GROUP_WIDTHS}, Fp2 at "
                          f"{cuda_lib.FP2_WIDTHS})")
     return nw, ext
 
 
 def counter_key(kernel: str, fk) -> str:
-    return f"{kernel}_{'fp2' if ext_of(fk) == 2 else 'fp'}_n{fk.N}"
+    ext = ext_of(fk)
+    return f"{kernel}_{f'fp{ext}' if ext > 1 else 'fp'}_n{fk.N}"
 
 
 # --------------------------------------------------------------- formulas
@@ -108,24 +121,27 @@ def _repair(F, need, P, out, dbl_fn):
 
 
 def add_formula(F, P, Q, dbl_fn=None):
-    """add-2007-bl + exceptional-case selects (both inputs Jacobian)."""
+    """add-2007-bl + exceptional-case selects (both inputs Jacobian); the
+    independent products stacked into one call each, in the JAX package's
+    schedule."""
     dbl_fn = dbl_fn or (lambda A: dbl_formula(F, A))
     X1, Y1, Z1 = P
     X2, Y2, Z2 = Q
-    Z1Z1 = F.sqr(Z1)
-    Z2Z2 = F.sqr(Z2)
-    U1 = F.mul(X1, Z2Z2)
-    U2 = F.mul(X2, Z1Z1)
-    S1 = F.mul(F.mul(Y1, Z2), Z2Z2)
-    S2 = F.mul(F.mul(Y2, Z1), Z1Z1)
-    H = F.sub(U2, U1)
-    I = F.sqr(F.double(H))
-    J = F.mul(H, I)
-    rr = F.double(F.sub(S2, S1))
-    V = F.mul(U1, I)
-    X3 = F.sub(F.sub(F.sqr(rr), J), F.double(V))
-    Y3 = F.sub(F.mul(rr, F.sub(V, X3)), F.double(F.mul(S1, J)))
-    Z3 = F.mul(F.sub(F.sub(F.sqr(F.add(Z1, Z2)), Z1Z1), Z2Z2), H)
+    Z1Z1, Z2Z2, Y1Z2, Y2Z1 = F.unstack(F.mul(F.stack([Z1, Z2, Y1, Y2]),
+                                             F.stack([Z1, Z2, Z2, Z1])))
+    U1, U2, S1, S2 = F.unstack(F.mul(F.stack([X1, X2, Y1Z2, Y2Z1]),
+                                     F.stack([Z2Z2, Z1Z1, Z2Z2, Z1Z1])))
+    H, dS = F.unstack(F.sub(F.stack([U2, S2]), F.stack([U1, S1])))
+    H2, rr, Zs = F.unstack(F.add(F.stack([H, dS, Z1]),
+                                 F.stack([H, dS, Z2])))
+    s3 = F.stack([H2, rr, Zs])
+    I, rr2, w = F.unstack(F.mul(s3, s3))
+    J, V = F.unstack(F.mul(F.stack([H, U1]), F.stack([I, I])))
+    X3 = F.sub(F.sub(rr2, J), F.double(V))
+    m1, m2, Z3 = F.unstack(F.mul(
+        F.stack([rr, S1, F.sub(F.sub(w, Z1Z1), Z2Z2)]),
+        F.stack([F.sub(V, X3), J, H])))
+    Y3 = F.sub(m1, F.double(m2))
     p_inf = F.is_zero(Z1)
     q_inf = F.is_zero(Z2)
     need = (F.is_zero(H) & F.is_zero(rr)) & ~(p_inf | q_inf)
@@ -136,22 +152,23 @@ def add_formula(F, P, Q, dbl_fn=None):
 
 def madd_formula(F, P, Q_aff, valid=None, dbl_fn=None):
     """madd-2007-bl: P Jacobian + (x, y, q_inf) affine; lanes with q_inf
-    or valid == False keep P."""
+    or valid == False keep P. Products stacked as in add_formula."""
     dbl_fn = dbl_fn or (lambda A: dbl_formula(F, A))
     X1, Y1, Z1 = P
     X2, Y2, q_inf = Q_aff
-    Z1Z1 = F.sqr(Z1)
-    U2 = F.mul(X2, Z1Z1)
-    S2 = F.mul(F.mul(Y2, Z1), Z1Z1)
-    H = F.sub(U2, X1)
-    HH = F.sqr(H)
+    Z1Z1, Y2Z1 = F.unstack(F.mul(F.stack([Z1, Y2]), F.stack([Z1, Z1])))
+    U2, S2 = F.unstack(F.mul(F.stack([X2, Y2Z1]), F.stack([Z1Z1, Z1Z1])))
+    H, dS = F.unstack(F.sub(F.stack([U2, S2]), F.stack([X1, Y1])))
+    rr = F.double(dS)
+    s3 = F.stack([H, rr])
+    HH, rr2 = F.unstack(F.mul(s3, s3))
     I = F.double(F.double(HH))
-    J = F.mul(H, I)
-    rr = F.double(F.sub(S2, Y1))
-    V = F.mul(X1, I)
-    X3 = F.sub(F.sub(F.sqr(rr), J), F.double(V))
-    Y3 = F.sub(F.mul(rr, F.sub(V, X3)), F.double(F.mul(Y1, J)))
-    Z3 = F.sub(F.sub(F.sqr(F.add(Z1, H)), Z1Z1), HH)
+    ZH = F.add(Z1, H)
+    J, V, w = F.unstack(F.mul(F.stack([H, X1, ZH]), F.stack([I, I, ZH])))
+    X3 = F.sub(F.sub(rr2, J), F.double(V))
+    m1, m2 = F.unstack(F.mul(F.stack([rr, Y1]), F.stack([F.sub(V, X3), J])))
+    Y3 = F.sub(m1, F.double(m2))
+    Z3 = F.sub(F.sub(w, Z1Z1), HH)
     p_inf = F.is_zero(Z1)
     skip = q_inf if valid is None else (q_inf | ~valid)
     need = (F.is_zero(H) & F.is_zero(rr)) & ~(p_inf | skip)
@@ -168,13 +185,15 @@ def aadd_formula(F, P_aff, Q_aff, dbl_fn=None):
     dbl_fn = dbl_fn or (lambda A: dbl_formula(F, A))
     x1, y1, i1 = P_aff
     x2, y2, i2 = Q_aff
-    H = F.sub(x2, x1)
-    rr = F.double(F.sub(y2, y1))
-    I = F.double(F.double(F.sqr(H)))
-    J = F.mul(H, I)
-    V = F.mul(x1, I)
-    X3 = F.sub(F.sub(F.sqr(rr), J), F.double(V))
-    Y3 = F.sub(F.mul(rr, F.sub(V, X3)), F.double(F.mul(y1, J)))
+    H, dy = F.unstack(F.sub(F.stack([x2, y2]), F.stack([x1, y1])))
+    rr = F.double(dy)
+    s1 = F.stack([H, rr])
+    HH, rr2 = F.unstack(F.mul(s1, s1))
+    I = F.double(F.double(HH))
+    J, V = F.unstack(F.mul(F.stack([H, x1]), F.stack([I, I])))
+    X3 = F.sub(F.sub(rr2, J), F.double(V))
+    m1, m2 = F.unstack(F.mul(F.stack([rr, y1]), F.stack([F.sub(V, X3), J])))
+    Y3 = F.sub(m1, F.double(m2))
     Z3 = F.double(H)
     one = F.one(tuple(i1.shape), i1.device)
     need = (F.is_zero(H) & F.is_zero(rr)) & ~(i1 | i2)
@@ -214,7 +233,7 @@ def aadd_rows_composed(fk, aadd_fn, rows, gidx, starts, counts, m: int,
     mask (y == 0 or depth >= count), then aadd_fn(lo, hi) on the two
     halves. The form ``aadd_rows`` replaced on the card."""
     FW = ext_of(fk) * fk.N
-    lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
+    lead = lead_of(fk)
     R = 2 * half
     dev = rows.device
     st = starts[w_lo:w_lo + Wn, :nb].to(torch.int64)
@@ -262,7 +281,7 @@ def table_from_rows(fk, rows, c: int):
     (W, 2^c); a row with y == 0 is infinity."""
     FW = ext_of(fk) * fk.N
     W = rows.shape[0] >> c
-    lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
+    lead = lead_of(fk)
     limbs = words_to_limbs(rows.T)
     y = limbs[FW:]
     return (limbs[:FW].reshape(lead + (W, 1 << c)),
@@ -299,7 +318,7 @@ def madd_windows_plain(fk, rows, scalars, c: int):
 
 def _flatten(fk, arrs):
     """Field tensors -> contiguous (FW, L) int32, with the batch shape."""
-    lead = 1 + (ext_of(fk) == 2)
+    lead = 1 + (ext_of(fk) > 1)
     arrs = torch.broadcast_tensors(*arrs)
     batch = tuple(arrs[0].shape[lead:])
     FW = ext_of(fk) * fk.N
@@ -320,7 +339,7 @@ def _mask(m, batch, L):
 
 
 def _unflatten(fk, outs, batch):
-    lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
+    lead = lead_of(fk)
     return tuple(o.reshape(lead + batch) for o in outs)
 
 
@@ -405,7 +424,7 @@ def madd_windows(fk, rows, scalars, c: int):
         raise ValueError("madd_windows: the row table must be 16-byte aligned")
     nl, m = scalars.shape
     W = rows.shape[0] >> c
-    lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
+    lead = lead_of(fk)
     outs = [torch.empty(lead + (m,), dtype=torch.int32, device=rows.device)
             for _ in range(3)]
     if m == 0:
@@ -470,7 +489,7 @@ def aadd_rows(fk, rows, gidx, starts, counts, m: int, base: int, half: int,
         raise ValueError("aadd_rows: the row table must be 16-byte aligned")
     gidx, starts, counts = (t.to(torch.int32).contiguous()
                             for t in (gidx, starts, counts))
-    lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
+    lead = lead_of(fk)
     outs = [torch.empty((FW, L), dtype=torch.int32, device=rows.device)
             for _ in range(3)]
     code = cuda_lib.lib("ec").lsn_ec_aadd_rows(

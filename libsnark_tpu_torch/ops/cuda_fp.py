@@ -3,17 +3,25 @@
 Replaces the Pallas TPU kernel ``libsnark_tpu/ops/pallas_fp.py:_build_mul``
 (public ``mont_mul``). The kernel (csrc/fp.cu, built per field width) runs
 one thread per lane: it loads both operands' N limbs (coalesced: limb k of
-lane t at k*L + t), repacks them into N/2 words of 32 bits, runs the
-carry-chain Montgomery product of csrc/field.cuh and stores N limbs. What bounds it on the card: at 2^20
-lanes the 12 N bytes each lane moves against N^2/2 + N/2 wide multiply-adds
-put it near the memory bound; the design keeps every intermediate in
-registers and touches each word of input and output once.
+lane t at k*L + t), repacks them into ceil(N/2) words of 32 bits, runs the
+Montgomery product of csrc/field.cuh (the carry chain at an even N; at N =
+19, R = 2^304, word rounds and a last half-word round) and stores N limbs.
+What bounds it on the card: at 2^20 lanes the 12 N bytes each lane moves
+against 2 NW^2 + NW wide multiply-adds (NW = ceil(N/2)) put it near the
+memory bound; the design keeps every intermediate in registers and touches
+each word of input and output once.
 
 The plain version computes the same canonical product in int64 torch ops
 over 16-bit limbs (a schoolbook product into lazy columns, then REDC); on
 the CPU, up to SMALL_LANES lanes, the same REDC on Python integers.
 The wrapper takes it only for tensors on the CPU; a CUDA tensor always
 launches the kernel.
+
+``add_sub`` launches the field addition and subtraction of the same
+source (``fp_addsub_kernel``: one thread a lane, no products, the JAX
+package's ``FpKernel.add`` / ``sub``); its plain version is
+``FpKernel.add`` / ``sub`` over int64 limb passes (``normalize``,
+``cond_sub_p``), which the field kernel runs on CPU tensors.
 """
 from __future__ import annotations
 
@@ -24,11 +32,13 @@ import numpy as np
 import torch
 
 from . import cuda_lib
-from .limbs import LIMB_BITS, LIMB_MASK
+from .limbs import LIMB_BITS, LIMB_MASK, ints_to_limbs, limbs_to_ints
 
-# launches per field width (N 16-bit limbs), and the work they did: lanes,
-# one product each
-LAUNCHES = {f"mont_mul_n{2 * nw}": 0 for nw in cuda_lib.WIDTHS}
+# launches per kernel and field width (N 16-bit limbs), and the work they
+# did: lanes, one product (mont_mul) or one sum or difference (fp_addsub)
+# each
+LAUNCHES = {f"{k}_n{n}": 0 for k in ("mont_mul", "fp_addsub")
+            for n in cuda_lib.FIELD_LIMBS}
 WORK = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -108,16 +118,29 @@ def mont_mul_plain(fk, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if out is not None:
             return out
     shape = torch.broadcast_shapes(a.shape, b.shape)
-    a64 = a.to(torch.int64).expand(shape)
-    b64 = b.to(torch.int64).expand(shape)
-    return redc(fk, mul_columns(a64, b64)).to(torch.int32)
+    a64 = a.to(torch.int64).expand(shape).reshape(fk.N, -1)
+    b64 = b.to(torch.int64).expand(shape).reshape(fk.N, -1)
+    # lanes a pass, so that the N x N x lanes columns stay within
+    # PLAIN_CHUNK_BYTES
+    step = max(1, PLAIN_CHUNK_BYTES // (8 * fk.N * fk.N))
+    out = [redc(fk, mul_columns(a64[:, i:i + step], b64[:, i:i + step]))
+           for i in range(0, a64.shape[1], step)]
+    return torch.cat(out, dim=1).to(torch.int32).reshape(shape)
+
+
+# bytes of the schoolbook columns one pass of the plain product may hold (a
+# group law's stacked products on 2^20 lanes would otherwise ask for tens
+# of GiB on the card); the passes change no limb
+PLAIN_CHUNK_BYTES = 4 << 30
 
 
 # Lanes up to which the CPU plain versions (this product, FpKernel.add and
 # sub) take Python integers: a chain of one-lane operations (a Horner
 # combine, a window table's bases, a Fermat inversion) would otherwise
-# spend its time in one torch call per carry pass.
-SMALL_LANES = 8
+# spend its time in one torch call per carry pass, and at any width the
+# integers beat the limb columns on one CPU core too (the product of 4096
+# lanes: 14 ms against 39 ms at 19 limbs, 55 ms against 337 ms at 48).
+SMALL_LANES = 1 << 16
 
 
 def lanes_shape(*ts):
@@ -137,27 +160,24 @@ def small_lanes(*ts) -> bool:
 
 def lane_ints(fk, *ts):
     """The integer value of each lane of each (N, *batch) limb tensor
-    (broadcast to one shape), or None if a limb lies outside [0, 2^16)."""
+    (broadcast to one shape), or None if a limb lies outside [0, 2^16).
+    Through the native limb codec (``limbs_to_ints``)."""
     shape = lanes_shape(*ts)
-    nbytes = 2 * fk.N
     out = []
     for t in ts:
         a = t.expand(shape).reshape(fk.N, -1).numpy()
         if a.min() < 0 or a.max() > LIMB_MASK:
             return None
-        raw = a.T.astype("<u2").tobytes()
-        out.append([int.from_bytes(raw[i:i + nbytes], "little")
-                    for i in range(0, len(raw), nbytes)])
+        out.append(limbs_to_ints(a))
     return out
 
 
 def ints_lanes(fk, vals, shape) -> torch.Tensor:
-    """lane_ints' inverse: the low N limbs of each value, int32 (N, *batch)."""
-    nbytes = 2 * fk.N
-    mask = (1 << (8 * nbytes)) - 1
-    raw = b"".join((v & mask).to_bytes(nbytes, "little") for v in vals)
-    a = np.frombuffer(raw, dtype="<u2").reshape(len(vals), fk.N)
-    return torch.from_numpy(a.T.astype(np.int32)).reshape(shape)
+    """lane_ints' inverse: the low N limbs of each value, int32 (N, *batch),
+    through the native limb codec (``ints_to_limbs``)."""
+    mask = (1 << (LIMB_BITS * fk.N)) - 1
+    a = ints_to_limbs([v & mask for v in vals], fk.N)
+    return torch.from_numpy(a.view(np.int32)).reshape(shape)
 
 
 def mont_mul_ints(fk, a: torch.Tensor, b: torch.Tensor):
@@ -190,19 +210,40 @@ def mont_mul(fk, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     take the plain version."""
     if not a.is_cuda:
         return mont_mul_plain(fk, a, b)
-    if a.dtype != torch.int32 or b.dtype != torch.int32:
-        raise TypeError("mont_mul takes int32 limb tensors")
-    if a.shape[0] != fk.N or b.device != a.device:
-        raise ValueError("mont_mul: operands must be (N, *batch) on one device")
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    a2 = a.expand(shape).contiguous()
-    b2 = b.expand(shape).contiguous()
+    a2, b2, shape, L = _operands(fk, a, b, "mont_mul")
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
-    L = a2.numel() // fk.N
     code = cuda_lib.lib("fp").lsn_mont_mul(
-        fk.nw, a2.data_ptr(), b2.data_ptr(), out.data_ptr(), L,
+        fk.N, a2.data_ptr(), b2.data_ptr(), out.data_ptr(), L,
         ctypes.addressof(fk.mod), cuda_lib.stream_ptr(a2))
-    cuda_lib.check(code, "mont_mul")
+    cuda_lib.check(code, f"mont_mul at {fk.N} limbs")
     LAUNCHES[f"mont_mul_n{fk.N}"] += 1
     WORK[f"mont_mul_n{fk.N}"] += L
+    return out
+
+
+def _operands(fk, a, b, what: str):
+    """a and b broadcast to one (N, *batch) int32 shape on one card,
+    contiguous, with the lanes L."""
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError(f"{what} takes int32 limb tensors")
+    if a.shape[0] != fk.N or b.device != a.device:
+        raise ValueError(f"{what}: operands must be (N, *batch) on one "
+                         "device")
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    return (a.expand(shape).contiguous(), b.expand(shape).contiguous(),
+            shape, math.prod(shape[1:]))
+
+
+def add_sub(fk, a: torch.Tensor, b: torch.Tensor, sub: bool) -> torch.Tensor:
+    """a + b (sub False) or a - b mod p of (N, *batch) int32 limb tensors on
+    the card (b broadcasts against a): ONE fp_addsub launch, the limbs of
+    ``FpKernel.add`` / ``sub``'s limb passes for any 16-bit limbs."""
+    a2, b2, shape, L = _operands(fk, a, b, "fp_addsub")
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    code = cuda_lib.lib("fp").lsn_fp_addsub(
+        fk.N, int(sub), a2.data_ptr(), b2.data_ptr(), out.data_ptr(), L,
+        ctypes.addressof(fk.mod), cuda_lib.stream_ptr(a2))
+    cuda_lib.check(code, f"fp_addsub at {fk.N} limbs")
+    LAUNCHES[f"fp_addsub_n{fk.N}"] += 1
+    WORK[f"fp_addsub_n{fk.N}"] += L
     return out

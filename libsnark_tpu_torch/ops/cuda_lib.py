@@ -2,12 +2,16 @@
 
 Each ``csrc/*.cu`` source compiles with nvcc into one shared library with
 a plain C interface (``sm_90a``), loaded with ctypes. The kernels are
-templates over the field width and every field source instantiates them for
-the widths in ``WIDTHS`` (32-bit words: 8 for a 16-limb modulus, 12 for a
-24-limb one, 24 for a 48-limb one), the group kernels over Fp2 (ext = 2)
-only at ``FP2_WIDTHS``, and the CIOS probe (``probe.cu``) at
-``PROBE_WIDTHS`` (its product-latency bodies at every width); the C entries take the width as their first argument
-(``probe_layout`` moves plain 32-bit words and knows no field). The
+templates over the field width. fp.cu's product is built for the limb
+counts in ``FIELD_LIMBS`` (12, 16, 19, 24 and 48 16-bit limbs: 6, 8, 10,
+12 and 24 32-bit words, ``words_of``; 19 limbs take 10 words, the top
+half-word zero); the group kernels (ec.cu, bucket.cu) for ``GROUP_WIDTHS``
+over Fp (8 words for a 16-limb modulus, 12 for a 24-limb one, 24 for a
+48-limb one) and only at ``FP2_WIDTHS`` over Fp2 (curves with an
+a-coefficient run no group kernel), and the CIOS probe (``probe.cu``) at
+``PROBE_WIDTHS`` (its product-latency bodies at every group width); the C
+entries take the width as their first argument (limbs for fp.cu, words for
+the others; ``probe_layout`` moves plain 32-bit words and knows no field). The
 libraries are built at first use from the sources in the checkout, into
 ``libsnark_tpu_torch/build/`` (listed in .gitignore), one nvcc process per
 source, all started together.
@@ -36,7 +40,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-WIDTHS = (8, 12, 24)      # 32-bit words per element that csrc instantiates
+FIELD_LIMBS = (12, 16, 19, 24, 48)  # 16-bit limbs that fp.cu's product takes
+GROUP_WIDTHS = (8, 12, 24)  # words of the group kernels over Fp
 FP2_WIDTHS = (8, 12)      # the widths of the group kernels over Fp2 too
 PROBE_WIDTHS = (8, 12)    # csrc/probe.cu's widths (at 24: the latency probe)
 SOURCES = ("fp", "ec", "bucket", "probe", "probe_layout")
@@ -49,7 +54,8 @@ _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _ARGTYPES = {
-    "fp": {"lsn_mont_mul": [_I, _VP, _VP, _VP, _LL, _VP, _VP]},
+    "fp": {"lsn_mont_mul": [_I, _VP, _VP, _VP, _LL, _VP, _VP],
+           "lsn_fp_addsub": [_I, _I, _VP, _VP, _VP, _LL, _VP, _VP]},
     "ec": {
         "lsn_ec_dbl": [_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _VP,
                        _VP],
@@ -217,16 +223,13 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 
 def words_of(num_limbs: int) -> int:
-    """32-bit words of a field with ``num_limbs`` 16-bit limbs. The kernels
-    pair limbs into words, so an odd limb count (R = 2^(16 N) is then no
-    power of 2^32) or a width that csrc does not instantiate is refused."""
-    if num_limbs % 2:
-        raise ValueError(f"the CUDA field layout pairs 16-bit limbs into "
-                         f"32-bit words: {num_limbs} limbs is odd")
-    if num_limbs // 2 not in WIDTHS:
+    """32-bit words of a field with ``num_limbs`` 16-bit limbs: the kernels
+    pair limbs into words, an odd count leaving the top half-word zero (19
+    limbs: 10 words). A width that csrc does not instantiate is refused."""
+    if num_limbs not in FIELD_LIMBS:
         raise ValueError(f"no kernels built for {num_limbs} limbs "
-                         f"(32-bit words: {WIDTHS})")
-    return num_limbs // 2
+                         f"(16-bit limbs: {FIELD_LIMBS})")
+    return -(-num_limbs // 2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -241,14 +244,16 @@ def mod_type(nw: int):
 def make_mod(p: int, num_limbs: int, beta_small: int = 0,
              beta_neg: bool = False):
     """The kernels' constants for modulus p over ``num_limbs`` 16-bit
-    limbs: R = 2^(16 num_limbs) = 2^(32 NW), as in the JAX package."""
+    limbs: R = 2^(16 num_limbs), as in the JAX package (2^(32 NW) at an
+    even limb count; at an odd one the product's last round is a half word
+    and takes -p^-1 mod 2^16, the low half of n0inv)."""
     nw = words_of(num_limbs)
-    if not p < 1 << (32 * nw - 1):
-        raise ValueError("the kernels' carry-chain product needs a modulus "
+    if not p < 1 << (16 * num_limbs - 1):
+        raise ValueError("the kernels' Montgomery product needs a modulus "
                          "below R/2 = 2^(16 num_limbs - 1)")
     words = lambda x: (ctypes.c_uint32 * nw)(
         *[(x >> (32 * k)) & 0xFFFFFFFF for k in range(nw)])
     n0inv = (-pow(p, -1, 1 << 32)) % (1 << 32)
-    one_mont = (1 << (32 * nw)) % p
+    one_mont = (1 << (16 * num_limbs)) % p
     return mod_type(nw)(words(p), words(one_mont), n0inv, beta_small,
                         int(beta_neg))

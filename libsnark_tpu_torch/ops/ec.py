@@ -3,12 +3,15 @@ libsnark_tpu/ops/ec.py).
 
 Points are Jacobian triples ``(X, Y, Z)`` of field tensors (infinity is
 Z = 0), batched on trailing axes, generic over the coordinate field
-(FpKernel for G1, Fp2Kernel for G2). On a = 0 curves dbl / add / madd /
-aadd go through the kernels of ops/cuda_ec.py (their plain versions on CPU
-tensors); curves with an a-coefficient (``mul_by_a`` set) stay on torch
-formulas (dbl-2007-bl), as in the JAX package.
+(FpKernel for G1, Fp2Kernel or Fp3Kernel for G2). On a = 0 curves dbl /
+add / madd / aadd go through the kernels of ops/cuda_ec.py (their plain
+versions on CPU tensors); curves with an a-coefficient (``mul_by_a`` set:
+MNT4, MNT6, edwards) stay on torch formulas (dbl-2007-bl) over the field
+kernel's product, as in the JAX package.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -32,7 +35,7 @@ class CurveKernel:
                 and o.fk == self.fk and o.a_tag == self.a_tag)
 
     def _batch_shape(self, arr):
-        return tuple(arr.shape[cuda_ec.ext_of(self.fk):])
+        return tuple(arr.shape[len(cuda_ec.lead_of(self.fk)):])
 
     # -- constructors ---------------------------------------------------------
     def zero(self, batch_shape, device=None):
@@ -50,12 +53,14 @@ class CurveKernel:
 
     # -- group law ------------------------------------------------------------
     def _dbl_generic(self, P):
-        """dbl-2007-bl with M = 3*XX + a*ZZ^2 (generic a)."""
+        """dbl-2007-bl with M = 3*XX + a*ZZ^2 (generic a), the independent
+        products stacked into one call each, as in the JAX package."""
         fk = self.fk
         X, Y, Z = P
-        XX, YY, ZZ = fk.sqr(X), fk.sqr(Y), fk.sqr(Z)
-        YYYY, t = fk.sqr(YY), fk.sqr(fk.add(X, YY))
-        ZZ2, w = fk.sqr(ZZ), fk.sqr(fk.add(Y, Z))
+        s1 = fk.stack([X, Y, Z])
+        XX, YY, ZZ = fk.unstack(fk.mul(s1, s1))
+        s2 = fk.stack([YY, fk.add(X, YY), ZZ, fk.add(Y, Z)])
+        YYYY, t, ZZ2, w = fk.unstack(fk.mul(s2, s2))
         S = fk.double(fk.sub(fk.sub(t, XX), YYYY))
         M = fk.add(fk.add(fk.add(XX, XX), XX), self.mul_by_a(ZZ2))
         X3 = fk.sub(fk.sqr(M), fk.double(S))
@@ -100,14 +105,58 @@ class CurveKernel:
             return cuda_ec.aadd(self.fk, P_aff, Q_aff)
         return cuda_ec.aadd_formula(self.fk, P_aff, Q_aff, self._dbl_generic)
 
+    def scalar_mul_const(self, P, k: int):
+        """P * k for a python-int constant k (test / reference use): double
+        and add over k's bits, most significant first (the JAX package's
+        scan, whose every step doubles and keeps the sum where the bit is
+        set)."""
+        if k == 0:
+            return self.zero(self._batch_shape(P[0]), P[0].device)
+        acc = P
+        for i in range(k.bit_length() - 2, -1, -1):
+            acc = self.dbl(acc)
+            if (k >> i) & 1:
+                acc = self.add(acc, P)
+        return acc
+
     # -- conversions -------------------------------------------------------------
+    def batch_inv(self, Z):
+        """The inverses of every lane of Z (batch on the trailing axes, no
+        lane zero) by Montgomery's trick over a product tree: the products
+        of lane pairs level by level up to one root, one Fermat inversion
+        of the root (``fk.inv``), then each level's inverses from its
+        parent's times the sibling. About 3 products a lane in
+        2 log2(lanes) ``fk.mul`` calls, against a Fermat inversion's
+        ~bits(p) products a lane; the inverses are unique, so the limbs are
+        those of ``fk.inv``."""
+        fk = self.fk
+        lead = cuda_ec.lead_of(fk)
+        n = math.prod(self._batch_shape(Z))
+        level = Z.reshape(lead + (n,))
+        levels = []
+        while level.shape[-1] > 1:
+            if level.shape[-1] % 2:
+                level = torch.cat([level, fk.one((1,), Z.device)], dim=-1)
+            levels.append(level)
+            level = fk.mul(level[..., 0::2], level[..., 1::2])
+        inv = fk.inv(level)
+        for lv in reversed(levels):
+            # the inverse of each pair's product (its parent, less the
+            # parent level's pad lane) times the sibling
+            sib = torch.stack([lv[..., 1::2], lv[..., 0::2]], dim=-1)
+            par = inv[..., :sib.shape[-2]].unsqueeze(-1).expand(sib.shape)
+            inv = fk.mul(par, sib).flatten(-2)
+        return inv[..., :n].reshape(Z.shape)
+
     def to_affine(self, P):
-        """Batch-normalize to affine; returns (x, y, is_inf_mask)."""
+        """Batch-normalize to affine; returns (x, y, is_inf_mask). The Z
+        inverses come from one ``batch_inv``; infinity lanes take Z = 1
+        there (``zsafe``) and keep their own limbs."""
         fk = self.fk
         X, Y, Z = P
         inf = fk.is_zero(Z)
         zsafe = fk.select(inf, fk.one(self._batch_shape(Z), Z.device), Z)
-        zi = fk.inv(zsafe)
+        zi = self.batch_inv(zsafe)
         zi2 = fk.sqr(zi)
         zi3 = fk.mul(zi2, zi)
         return (fk.mul(X, zi2), fk.mul(Y, zi3), inf)
@@ -129,7 +178,7 @@ class CurveKernel:
                 xs.append(p.x)
                 ys.append(p.y)
                 infs.append(False)
-        if hasattr(fk, "fp"):  # Fp2
+        if hasattr(fk, "fp"):  # Fp2, Fp3
             X = fk.encode(xs, device=device)
             Y = fk.encode(ys, device=device)
         else:
@@ -146,12 +195,13 @@ class CurveKernel:
         """Affine (x, y, inf) tensors -> list of host points (flat)."""
         x, y, inf = aff
         inf = inf.detach().cpu().reshape(-1).tolist()
-        if hasattr(self.fk, "fp"):
+        if hasattr(self.fk, "fp"):      # extension coordinates (Fp2, Fp3)
             xs = self.fk.decode(x)
             ys = self.fk.decode(y)
             F = group.F
             return [group.zero() if inf[j] else
-                    group.point(F(xs[0][j], xs[1][j]), F(ys[0][j], ys[1][j]))
+                    group.point(F(*(c[j] for c in xs)),
+                                F(*(c[j] for c in ys)))
                     for j in range(len(inf))]
         xs = self.fk.decode(x)
         ys = self.fk.decode(y)

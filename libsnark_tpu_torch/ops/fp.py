@@ -3,23 +3,27 @@ libsnark_tpu/ops/fp.py).
 
 Values are ``(N, *batch)`` int32 tensors of 16-bit limbs, limbs leading,
 in Montgomery form x*R mod p with R = 2^(16 N), exactly the JAX package's
-layout and form. N is 16 (a 256-bit modulus) or 24 (384 bits); the kernels
-pair limbs into 32-bit words, so an odd N is refused at construction. Every operation returns canonical limbs (< p), so the
-results are bit-identical to the JAX ``FpKernel``'s.
+layout and form. N is one of ``cuda_lib.FIELD_LIMBS``: 12 (edwards), 16
+(alt_bn128, BLS12-377's Fr), 19 (MNT4, MNT6), 24 (BLS12-377's Fq,
+BW6-761's Fr) or 48 (BW6-761's Fq); another N is refused at construction.
+Every operation returns canonical limbs (< p), so the results are
+bit-identical to the JAX ``FpKernel``'s.
 
 ``mul`` goes through ``ops/cuda_fp.mont_mul``: the CUDA kernel for tensors
-on the card, its plain version for CPU tensors. A kernel built with
-``plain=True`` (see :meth:`FpKernel.as_plain`) always takes the plain
-version; it is what the EC and MSM kernels are held against.
-Additions, subtractions and carries are torch ops over int64 limbs.
+on the card, its plain version for CPU tensors; ``add`` and ``sub`` (and
+``neg``, ``double``) through ``cuda_fp.add_sub`` on the card, their plain
+versions (torch ops over int64 limbs: carry passes and one conditional
+correction by p) on the CPU. A kernel built with ``plain=True`` (see
+:meth:`FpKernel.as_plain`) always takes the plain versions; it is what the
+EC and MSM kernels are held against.
 """
 from __future__ import annotations
 
 import torch
 
 from . import cuda_lib
-from .cuda_fp import (cond_sub_p, ints_lanes, lane_ints, lanes_shape,
-                      mont_mul, mont_mul_plain, normalize, redc,
+from .cuda_fp import (add_sub, cond_sub_p, ints_lanes, lane_ints,
+                      lanes_shape, mont_mul, mont_mul_plain, normalize, redc,
                       small_lanes)
 from .limbs import LIMB_BITS, LIMB_MASK, int_to_limbs, ints_to_limbs
 
@@ -42,7 +46,7 @@ class FpKernel:
         self.device = cuda_lib.resolve_device(device)
         self.plain = plain
         self.one_mont = params.R % params.p
-        self.nw = cuda_lib.words_of(self.N)     # raises on an odd or unbuilt N
+        self.nw = cuda_lib.words_of(self.N)     # raises on an unbuilt N
         self.mod = cuda_lib.make_mod(self.p, self.N)
         self._consts = {}
         self._plain_twin = None
@@ -99,6 +103,8 @@ class FpKernel:
 
     # --------------------------------------------------------------- arithmetic
     def add(self, a, b):
+        if a.is_cuda and not self.plain:
+            return add_sub(self, a, b, False)
         if small_lanes(a, b):
             vals = lane_ints(self, a, b)
             if vals is not None:        # the value the limb columns give
@@ -111,6 +117,8 @@ class FpKernel:
         return cond_sub_p(self, r).to(I32)
 
     def sub(self, a, b):
+        if a.is_cuda and not self.plain:
+            return add_sub(self, a, b, True)
         if small_lanes(a, b):
             vals = lane_ints(self, a, b)
             if vals is not None:        # the value the limb columns give

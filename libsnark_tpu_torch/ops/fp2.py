@@ -1,9 +1,9 @@
 """Batched quadratic-extension field (the port of libsnark_tpu/ops/fp2.py).
 
 Elements have shape (2, N, *batch): coefficient axis leading, then limbs,
-then batch. Used for G2 on alt_bn128 (beta = -1) and BLS12-377
-(beta = -5). Karatsuba
-multiplication with its 3 base products stacked into one call.
+then batch. Used for G2 on alt_bn128 (beta = -1), BLS12-377 (beta = -5)
+and MNT4 (beta = 17, a twist with an a-coefficient: ``mul_by_const``).
+Karatsuba multiplication with its 3 base products stacked into one call.
 """
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ from .fp import FpKernel
 
 class Fp2Kernel:
     """Fp[s]/(s^2 - beta) with small signed integer beta (e.g. -1)."""
+
+    ext_degree = 2
 
     def __init__(self, fp: FpKernel, non_residue: int):
         self.fp = fp
@@ -107,12 +109,31 @@ class Fp2Kernel:
     def unstack(a):
         return [a[:, :, i] for i in range(a.shape[2])]
 
+    def mul_small(self, a, k: int):
+        return torch.stack([self.fp.mul_small(a[0], k),
+                            self.fp.mul_small(a[1], k)])
+
+    def mul_by_const(self, a, k0: int, k1: int):
+        """a * (k0 + k1 s) for python-int constants (the a-coefficient of
+        MNT4's twist): (k0 a0 + beta k1 a1, k0 a1 + k1 a0)."""
+        fp = self.fp
+        t0 = fp.mul_small(a[0], k0) if k0 != 1 else a[0]
+        t1 = fp.mul_small(a[1], k0) if k0 != 1 else a[1]
+        if k1 == 0:
+            return torch.stack([t0, t1])
+        c0 = fp.add(t0, self.mul_by_nonresidue(fp.mul_small(a[1], k1)))
+        c1 = fp.add(t1, fp.mul_small(a[0], k1))
+        return torch.stack([c0, c1])
+
     def inv(self, a):
         # (a0 - a1 s) / (a0^2 - beta a1^2)
         fp = self.fp
         norm = fp.sub(fp.sqr(a[0]), self.mul_by_nonresidue(fp.sqr(a[1])))
         t = fp.inv(norm)
         return torch.stack([fp.mul(a[0], t), fp.neg(fp.mul(a[1], t))])
+
+    def conjugate(self, a):
+        return torch.stack([a[0], self.fp.neg(a[1])])
 
     # -- predicates / select -------------------------------------------------------
     def is_zero(self, a):

@@ -30,6 +30,13 @@ runs with its fused kernel switched off and the only one of its curves
 with an a-coefficient. Both give the same affine sums; the Jacobian
 window sums differ.
 
+A curve with an a-coefficient (MNT4, MNT6, edwards: ``mul_by_a`` set)
+takes the dense layout and a Horner loop of ``dbl_n`` and ``add`` under
+either strategy, as the JAX package does (``bucket_reduce``,
+``horner_combine``, ``aadd_rows``, ``dbl_chain`` and ``madd_windows``
+hard-code a = 0): its group law is the torch formulas of ops/ec.py over
+the product kernel, and no group kernel launches.
+
 Fixed-base batch exp (libff batch_exp / get_window_table): device-built
 window tables (the bases 2^(c w) G by one ``dbl_chain`` launch, then a
 point prefix scan), then one ``madd_windows`` launch that runs every window
@@ -44,8 +51,8 @@ import math
 import torch
 
 from .cuda_bucket import bucket_reduce, dbl_chain, horner_combine
-from .cuda_ec import (aadd_rows, aadd_rows_composed, ext_of, madd_windows,
-                      windows_scan)
+from .cuda_ec import (aadd_rows, aadd_rows_composed, ext_of, lead_of,
+                      madd_windows, windows_scan)
 from .limbs import LIMB_BITS, ints_to_limbs, limbs_to_words
 
 
@@ -226,8 +233,9 @@ class MSMKernel:
 
     def window_sums(self, points_aff, scalars, c: int):
         """Per-window bucket-aggregated sums S_w (leading axis W), by the
-        kernel's strategy."""
-        if self.strategy == "dense":
+        kernel's strategy; a curve with an a-coefficient takes the dense
+        layout under either."""
+        if self.strategy == "dense" or self.ck.mul_by_a is not None:
             return self.window_sums_dense(points_aff, scalars, c)
         return self.window_sums_segments(points_aff, scalars, c)
 
@@ -296,7 +304,7 @@ class MSMKernel:
         """Window sums through ``bucket_reduce`` (the result of the JAX
         ``window_sums_fused``)."""
         fk = self.fk
-        lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
+        lead = lead_of(fk)
         B = 1 << (c - 1)
         seg = self.bucket_segments(scalars, c)
         W = seg["W"]
@@ -343,7 +351,7 @@ class MSMKernel:
         rest by the ``add`` tree; a bucket deeper than R takes further
         chunks. Returns Jacobian sums with batch shape (w_hi - w_lo, nb)."""
         ck, fk = self.ck, self.fk
-        lead = (2, fk.N) if ext_of(fk) == 2 else (fk.N,)
+        lead = lead_of(fk)
         Wn = w_hi - w_lo
         ct = counts[w_lo:w_hi, :nb]
         max_count = int(ct.max()) if ct.numel() else 0
@@ -424,15 +432,26 @@ class MSMKernel:
 
     def combine_windows(self, S, c: int):
         """Horner combine of per-window sums: sum_w 2^(cw) S_w, ONE
-        ``horner_combine`` launch on the card."""
+        ``horner_combine`` launch on the card. A curve with an
+        a-coefficient takes ``combine_windows_loop``."""
+        if self.ck.mul_by_a is not None:
+            return self.combine_windows_loop(S, c)
         fk = self.fk
         FW = ext_of(fk) * fk.N
         W = S[0].shape[0]
         flat = tuple(a.movedim(0, -2)[..., 0].reshape(FW, W) for a in S)
         out = horner_combine(fk, flat, c)
-        if ext_of(fk) == 2:
-            return tuple(a.reshape(2, fk.N, 1) for a in out)
-        return out
+        return tuple(a.reshape(lead_of(fk) + (1,)) for a in out)
+
+    def combine_windows_loop(self, S, c: int):
+        """The same sum as a loop from the top window down: acc <-
+        dbl_n(acc, c) + S_w (the JAX package's scan for curves with an
+        a-coefficient)."""
+        ck = self.ck
+        acc = ck.zero((1,), S[0].device)
+        for w in range(S[0].shape[0] - 1, -1, -1):
+            acc = ck.add(ck.dbl_n(acc, c), tuple(a[w] for a in S))
+        return acc
 
     # ------------------------------------------------------------ fixed base
     def window_table(self, base_aff, c: int, num_windows: int):

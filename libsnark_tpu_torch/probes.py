@@ -73,7 +73,7 @@ LAUNCHES = {f"probe_rate_{op}": 0 for op in RATE_OPS}
 # the product bodies of the kernels: the latency probe's, at every width
 LATENCY_VARIANTS = ("chain", "chain_rolled", "lanes")
 LAUNCHES.update({f"probe_cios_{v}_n{2 * nw}": 0 for v in CIOS_VARIANTS
-                 for nw in cuda_lib.WIDTHS
+                 for nw in cuda_lib.GROUP_WIDTHS
                  if nw in cuda_lib.PROBE_WIDTHS or v in LATENCY_VARIANTS})
 
 # layout probes, in the order of the TPU kernels they replace; the three

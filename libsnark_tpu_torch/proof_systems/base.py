@@ -1,6 +1,7 @@
 """Shared kernel bundle for pairing-based proof systems (the port of
 libsnark_tpu/proof_systems/base.py) over a curve with G1 over Fq and G2
-over Fq2 (alt_bn128, BLS12-377) or over Fq itself (BW6-761).
+over Fq2 (alt_bn128, BLS12-377, MNT4), over Fq3 (MNT6, edwards) or over Fq
+itself (BW6-761).
 
 Fixed-base window-table exponentiation at setup (libff get_window_table /
 batch_exp, r1cs_gg_ppzksnark.tcc:316-398) and variable-base Pippenger MSM
@@ -19,6 +20,7 @@ from ..ops import cuda_lib
 from ..ops.ec import CurveKernel
 from ..ops.fp import FpKernel
 from ..ops.fp2 import Fp2Kernel
+from ..ops.fp3 import Fp3Kernel
 from ..ops.limbs import ints_to_limbs
 from ..ops.msm import MSMKernel
 from ..profiling import enter_block
@@ -44,8 +46,8 @@ class PhaseClock:
 
 
 class PairingSystem:
-    """Device kernel bundle over a named curve (G2 over an Fq2 tower, or
-    over Fq for an embedding-degree-6 curve).
+    """Device kernel bundle over a named curve (G2 over an Fq2 or Fq3
+    tower, or over Fq for an embedding-degree-6 curve).
 
     device: ``"cuda"`` (the default) or ``"cpu"``, where every kernel
     wrapper runs its plain PyTorch version. msm_strategy: the bucket
@@ -58,7 +60,8 @@ class PairingSystem:
         self.fr = FpKernel(curve.fr_params, self.device)
         self.fq = FpKernel(curve.fq_params, self.device)
         # a = 0: the group law runs on the kernels; a curve with an
-        # a-coefficient would take the torch formulas
+        # a-coefficient (MNT4, MNT6, edwards) takes the torch formulas over
+        # the product kernel
         a_int = int(getattr(curve, "a", 0))
         g1_mul_a = ((lambda x, fk=self.fq, k=a_int: fk.mul_small(x, k))
                     if a_int else None)
@@ -70,9 +73,21 @@ class PairingSystem:
             # law takes the same kernels as G1 (ext = 1)
             self.fq2 = None
             self.g2 = CurveKernel(self.fq, f"{curve.name}.G2", a_tag="0")
-        elif deg == 2:
-            self.fq2 = Fp2Kernel(self.fq, int(curve.Fq2.NON_RESIDUE))
-            self.g2 = CurveKernel(self.fq2, f"{curve.name}.G2")
+        elif deg in (2, 3):
+            # G2 over Fq2 (the a = 0 curves, MNT4) or Fq3 (MNT6, edwards:
+            # the quadratic twist); a2 = a * the twist's constant
+            if deg == 2:
+                self.fq2 = Fp2Kernel(self.fq, int(curve.Fq2.NON_RESIDUE))
+            else:
+                self.fq2 = Fp3Kernel(self.fq, int(curve.Fq3.NON_RESIDUE))
+            a2 = getattr(curve, "a2", None)
+            ks = (tuple(int(getattr(a2, f"c{i}")) for i in range(deg))
+                  if a2 is not None else (0,) * deg)
+            mul_a2 = ((lambda x, fk=self.fq2, k=ks: fk.mul_by_const(x, *k))
+                      if any(ks) else None)
+            self.g2 = CurveKernel(self.fq2, f"{curve.name}.G2",
+                                  mul_by_a=mul_a2,
+                                  a_tag=str(ks) if any(ks) else "")
         else:
             raise NotImplementedError(f"G2 over a field of degree {deg}")
         sbits = curve.r.bit_length()

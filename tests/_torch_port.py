@@ -26,8 +26,10 @@ def coords(x):
                 for f in dataclasses.fields(x)}
     if x.is_zero():
         return None
-    if hasattr(x.x, "c0"):
-        return ((int(x.x.c0), int(x.x.c1)), (int(x.y.c0), int(x.y.c1)))
+    if hasattr(x.x, "c0"):                  # over Fq2 or Fq3
+        cs = ("c0", "c1", "c2") if hasattr(x.x, "c2") else ("c0", "c1")
+        return tuple(tuple(int(getattr(v, c)) for c in cs)
+                     for v in (x.x, x.y))
     return (int(x.x), int(x.y))
 
 
@@ -110,7 +112,8 @@ def host_point(curve, group, xy):
     if xy is None:
         return group.zero()
     if isinstance(xy[0], tuple):
-        return group.point(curve.Fq2(*xy[0]), curve.Fq2(*xy[1]))
+        F = curve.Fq2 if len(xy[0]) == 2 else curve.Fq3
+        return group.point(F(*xy[0]), F(*xy[1]))
     return group.point(*xy)
 
 

@@ -114,14 +114,15 @@ def test_fq2_op_matches_jax(op):
 
 
 def test_odd_or_unbuilt_limb_count_is_refused():
-    """19 limbs cannot pair into 32-bit words; 32 limbs (16 words) have no
-    build (csrc builds 8, 12 and 24 words). Both raise instead of running a
+    """17 limbs (an odd count) and 32 limbs (16 words) have no build (csrc
+    builds 12, 16, 19, 24 and 48 limbs). Both raise instead of running a
     plain path in silence."""
     from libsnark_tpu_torch.curves.curve import FieldParams
     from libsnark_tpu_torch.ops import cuda_lib
-    p19 = (1 << 298) - 317        # any odd modulus of 19 limbs
-    with pytest.raises(ValueError, match="odd"):
-        FpKernel(FieldParams.build(p19), device="cpu")
+    p17 = (1 << 258) - 93         # an odd modulus of 17 limbs
+    assert FieldParams.build(p17).num_limbs == 17
+    with pytest.raises(ValueError, match="no kernels built for 17 limbs"):
+        FpKernel(FieldParams.build(p17), device="cpu")
     with pytest.raises(ValueError, match="no kernels built"):
         cuda_lib.make_mod((1 << 509) - 1, 32)
     with pytest.raises(ValueError, match="no kernels built"):

@@ -120,7 +120,8 @@ def test_fp2_op_matches_jax(kernels, op):
 
 
 @pytest.mark.parametrize("op", ["mul", "add", "sub"])
-@pytest.mark.parametrize("curve_name", ["alt_bn128", "bls12_377", "bw6_761"])
+@pytest.mark.parametrize("curve_name", ["alt_bn128", "bls12_377", "bw6_761",
+                                        "mnt4", "mnt6", "edwards"])
 def test_small_lane_forms_equal_the_limb_columns(curve_name, op, monkeypatch):
     """Up to SMALL_LANES lanes on the CPU, mul, add and sub take Python
     integers (cuda_fp.mont_mul_ints, lane_ints): the same limbs as the

@@ -740,3 +740,94 @@ def test_mp_pcd_two_predicates_one_proof_on_card():
                                 seed=5)
     with pytest.raises(KeyError):
         mp.prover(outside, [("foreign", stmt, inner)], seed=9)
+
+
+@pytest.mark.parametrize("curve_name", ["alt_bn128", "bls12_377", "bw6_761",
+                                        "mnt4", "edwards"])
+def test_fp_addsub_matches_plain_on_card(curve_name):
+    """The field addition and subtraction kernel at every width (16, 24, 48,
+    19, 12 limbs) against FpKernel.add / sub's int64 limb passes, on
+    canonical lanes with 0, 1 and p - 1 planted, on any 16-bit limbs and
+    with a broadcast operand; FpKernel.add / sub / neg launch it once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    ps = PairingSystem(get_curve(curve_name), device="cuda")
+    for fk in (ps.fq, ps.fr):
+        plain = fk.as_plain()
+        a = fk.encode(_ints(fk.p, 4096, 21))
+        b = fk.encode(_ints(fk.p, 4096, 22)[::-1])
+        wild = torch.randint(0, 1 << 16, (fk.N, 4096), dtype=torch.int32,
+                             device="cuda")
+        for x, y in ((a, b), (wild, wild.flip(-1)), (a, b[:, :1])):
+            for sub in (False, True):
+                got = cuda_fp.add_sub(fk, x, y, sub)
+                want = (plain.sub if sub else plain.add)(x, y)
+                assert torch.equal(got, want)
+        key = f"fp_addsub_n{fk.N}"
+        before = cuda_fp.LAUNCHES[key]
+        assert torch.equal(fk.neg(a), plain.neg(a))
+        assert torch.equal(fk.add(a, b), plain.add(a, b))
+        assert cuda_fp.LAUNCHES[key] == before + 2
+
+
+@pytest.mark.parametrize("curve_name", ["mnt4", "mnt6", "edwards"])
+def test_mont_mul_at_19_and_12_limbs_matches_plain_on_card(curve_name):
+    """The product at 19 limbs (R = 2^304: nine word rounds and a half-word
+    round, MNT4 and MNT6) and at 12 (the carry chain at 6 words, edwards),
+    Fq and Fr, 2^16 lanes with 0, 1 and p - 1 planted, against its plain
+    version; one launch each, counted under the field's limbs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    ps = PairingSystem(get_curve(curve_name), device="cuda")
+    for fk in (ps.fq, ps.fr):
+        assert fk.N == (12 if curve_name == "edwards" else 19)
+        a = fk.encode(_ints(fk.p, 1 << 16, 19))
+        b = fk.encode(_ints(fk.p, 1 << 16, 20)[::-1])
+        before = cuda_fp.LAUNCHES[f"mont_mul_n{fk.N}"]
+        got = cuda_fp.mont_mul(fk, a, b)
+        assert cuda_fp.LAUNCHES[f"mont_mul_n{fk.N}"] == before + 1
+        assert torch.equal(got, cuda_fp.mont_mul_plain(fk, a, b))
+        x = fk.decode(a[:, :64]), fk.decode(b[:, :64])
+        assert fk.decode(got[:, :64]) == [u * v % fk.p for u, v in zip(*x)]
+
+
+@pytest.mark.parametrize("curve_name,log2", [("mnt4", 20), ("mnt6", 18),
+                                             ("edwards", 14)])
+def test_generic_a_groth16_on_card(curve_name, log2):
+    """Groth16 over a curve with an a-coefficient through the entry points
+    on the card (MNT4 at 2^20 - 3 constraints, its Fr of two-adicity 34
+    allowing it; MNT6 at 2^18 - 3, its witness map on the extended domain
+    of 2 x 2^17): keygen on the device fixed-base path, both strategy
+    names giving one proof, verify accepted and a wrong input rejected;
+    mont_mul and fp_addsub launch at Fq's and Fr's width and no group
+    kernel does
+    (bucket_reduce, horner_combine, dbl_chain, madd_win, aadd_rows, dbl,
+    add, madd, aadd hard-code a = 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from libsnark_tpu_torch.ops import launch_counts, reset_launch_counts
+    from libsnark_tpu_torch.proof_systems.groth16 import Groth16
+    from libsnark_tpu_torch.relations.examples import generate_r1cs_example
+    curve = get_curve(curve_name)
+    cs, primary, aux = generate_r1cs_example(curve.r, (1 << log2) - 3, 2)
+    g16 = Groth16(curve)
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    timings = {}
+    kp = g16.generator(cs, seed=5, timings=timings)
+    proofs = [g16.prover(kp.pk, primary, aux, seed=9, timings=timings)]
+    proofs.append(Groth16(curve, msm_strategy="dense").prover(
+        kp.pk, primary, aux, seed=9))
+    counts = {k: v for k, v in launch_counts().items() if v}
+    _pcd_log(f"groth16 {curve_name} 2^{log2}", t0, timings)
+    assert proofs[0] == proofs[1]
+    assert [k for k in counts
+            if not k.startswith(("mont_mul_", "fp_addsub_"))] == []
+    for fk in (g16.fq, g16.fr):
+        assert counts[f"mont_mul_n{fk.N}"] and counts[f"fp_addsub_n{fk.N}"]
+    if curve_name == "mnt6":
+        from libsnark_tpu_torch.reductions.r1cs_to_qap import qap_domain
+        assert g16.domain_for(qap_domain, cs).kind == "extended"
+    assert g16.verifier_strong_IC(kp.vk, primary, proofs[0])
+    bad = [(primary[0] + 1) % curve.r] + primary[1:]
+    assert not g16.verifier_strong_IC(kp.vk, bad, proofs[0])

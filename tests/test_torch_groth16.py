@@ -142,9 +142,11 @@ def _imports(path: Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "libsnark_tpu_torch").rglob("*.py"))
-    # the gadget layer and the PCD systems among them
+    # the gadget layer, the PCD systems, Fp3 and the curves with an
+    # a-coefficient among them
     for sub in ("gadgets/verifier_gadgets.py", "gadgets/hashes/knapsack.py",
-                "proof_systems/pcd.py", "proof_systems/mp_pcd.py"):
+                "proof_systems/pcd.py", "proof_systems/mp_pcd.py",
+                "ops/fp3.py", "curves/mnt.py", "curves/edwards.py"):
         assert REPO / "libsnark_tpu_torch" / sub in files, sub
     files.append(REPO / "chip_smoke.py")
     files.append(REPO / "scripts" / "probe_h100.py")

@@ -118,3 +118,19 @@ def test_point_coords_round_trip():
         bls.pairing_engine.embed_g1(bls.G1.one() * 2))
     assert pickle.loads(chip_smoke.host_dumps([e, bls.Fq(7)])) == [
         e, bls.Fq(7)]
+
+
+def test_device_events_read_the_raw_records():
+    """chip_smoke.device_events: (name, start us, end us) of each device
+    event, from the profiler's raw records; host events left out, and a
+    profiler without raw records raises rather than read another source."""
+    from types import SimpleNamespace as NS
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    raw = [NS(name=lambda: "k<8, 16>", start_ns=lambda: 5000,
+              duration_ns=lambda: 2500, device_type=lambda: cuda),
+           NS(name=lambda: "cudaLaunchKernel", start_ns=lambda: 1000,
+              duration_ns=lambda: 100, device_type=lambda: cpu)]
+    prof = NS(profiler=NS(kineto_results=NS(events=lambda: raw)))
+    assert chip_smoke.device_events(prof) == [("k<8, 16>", 5.0, 7.5)]
+    with pytest.raises(AttributeError):
+        chip_smoke.device_events(NS(events=lambda: []))
