@@ -65,11 +65,14 @@
    same proof made by the plain versions on the CPU, for Groth16, BCTV14,
    GM17, DFGK14, BACS (19 gates and an output: 20 constraints), TBCS (8
    gates: 19 constraints) and ADSNARK (Schnorr) over alt_bn128 and Groth16
-   over BW6-761, MNT4, MNT6 and edwards; the CPU proofs run in worker
-   processes, all at once, beside the card's. Each card proof must
-   verify (ADSNARK: both verifiers); BCTV14's, GM17's, DFGK14's,
-   ADSNARK's and the Groth16 proofs over BW6-761, MNT4, MNT6 and edwards
-   with one point moved must not.
+   over BW6-761, MNT4, MNT6 and edwards, and the RAM ppzkSNARK over
+   alt_bn128 on the 4,765-constraint universal circuit (TinyRAM w = 16, k
+   = 4, boot-trace and time bounds 5); the CPU proofs run in worker
+   processes, all at once, beside the card's (each line gives the
+   worker's seconds and the wait for it). Each card proof must verify
+   (ADSNARK: both verifiers); BCTV14's, GM17's, DFGK14's, ADSNARK's, the
+   RAM ppzkSNARK's and the Groth16 proofs over BW6-761, MNT4, MNT6 and
+   edwards with one point moved must not.
 6. Runs seeded Groth16 generator -> prover -> verifier through the entry
    points: over alt_bn128 and over BLS12-377, both at 2^20 constraints
    (generate_r1cs_example(r, 2^k - 3, 2), generator(seed=5) on the device
@@ -157,6 +160,23 @@
    outer prove), and the verifier accepting it and rejecting it for a
    changed statement element; peak device memory of each phase; the
    outer prove's launches are the kernel table's "pcd" counts.
+6e. Runs the RAM systems through their entry points (ram_path), TinyRAM
+   with 16 registers of 32 bits: the RAM ppzkSNARK (the universal circuit
+   under BCTV14) over alt_bn128 on gen_ram_example_complex with
+   boot-trace bound 102 and time bound 128 (216,799 constraints, a 2^18
+   domain): the circuit's host build alone (ram.build), ram_generator
+   under the profiler, ram_prover with its phases and once more under the
+   profiler (equal proofs), ram_verifier accepting and rejecting a
+   changed boot-input element, and the prover refusing the unsatisfiable
+   example; then the one-layer RAM zkSNARK over BLS12-377 (the full 32-bit
+   delegated address space: a predicate of 78,912 constraints) on
+   gen_ram_example_complex with boot-trace bound 12 and --ram-steps (8)
+   steps: generator under the profiler, prover (one inner Groth16 proof a
+   step) under the profiler, verify_transcript accepting the message
+   chain and rejecting a changed middle message and a false final claim.
+   Peak device memory and launches of each phase; every kernel of each
+   system must have launched (the table's "ram_ppzksnark_alt_bn128" and
+   "ram_zksnark_bls12_377" counts).
 7. Runs KZG10 through its entry points: over BLS12-377 at degree 2^22 - 1
    and over alt_bn128 at 2^20 - 1: setup(seed=3) on the device, then for a
    seeded random polynomial commit, create_evaluation_witness,
@@ -192,7 +212,8 @@ the run its "launches" were counted in: the alt_bn128, the bls12_377 or the
 bw6_761 Groth16 path (keygen + both proves), the mnt4 or edwards Groth16
 path (the n19 and n12 rows: keygen + both proves), "<system>_alt_bn128" (the
 BCTV14, GM17, DFGK14 and ADSNARK paths: keygen + prove), "pcd" (the
-SpPCD's outer prove over BW6-761),
+SpPCD's outer prove over BW6-761), "ram_ppzksnark_alt_bn128" and
+"ram_zksnark_bls12_377" (the RAM systems: keygen + prove),
 "fixed_base_loop_<curve>" (the
 single-launch madd: the keygen's fixed base as the per-window loop),
 "window_table_loop_<curve>" (the public dbl: the keygen's window tables
@@ -208,6 +229,8 @@ kzg_alt_bn128: setup + commit + opening) among them; "path_ms" and
 "path_bound_ms" the device time and bound of its launches in each
 profiled path (keygen_<curve>, prove_<curve>, prove_dense_<curve>,
 keygen_<system>_alt_bn128, prove_<system>_alt_bn128, prove_pcd,
+keygen_ram_ppzksnark_alt_bn128, prove_ram_ppzksnark_alt_bn128,
+keygen_ram_zksnark_bls12_377, prove_ram_zksnark_bls12_377,
 kzg_setup_bls12_377, kzg_bls12_377). Any failed check raises: exit
 code 1.
 
@@ -1052,9 +1075,10 @@ def check_limb_codec():
 
 def prove_encode_in_turns(g16, kp, primary, aux, proof, label: str):
     """Four more default proves, their limbs packed by the Python form of
-    ints_to_limbs and by the native codec in turns (Python, codec, codec,
-    Python): each proof equal to the path's; the prove's host encoding
-    (its prove_encode phase) under each."""
+    ints_to_limbs (x % p a value in Python, then int.to_bytes) and by the
+    native codec (which reduces only what needs it) in turns (Python,
+    codec, codec, Python): each proof equal to the path's; the prove's
+    host encoding (its prove_encode phase) under each."""
     from unittest import mock
     from libsnark_tpu_torch.ops import fp, limbs
     times = {"python": [], "codec": []}
@@ -1322,21 +1346,43 @@ def adsnark_verify(ps, kp, primary, proof) -> list:
                               labels))]
 
 
+def ram_arith_program():
+    """tests/test_ram_universal.py's arithmetic program: r0 = 9 + 33 - 42,
+    answer r0 (accepted)."""
+    from libsnark_tpu_torch.relations.tinyram import Opcode, TinyRAMProgram
+    prog = TinyRAMProgram()
+    prog.add(Opcode.MOV, True, 0, 0, 9)
+    prog.add(Opcode.ADD, True, 0, 0, 33)
+    prog.add(Opcode.SUB, True, 0, 0, 42)
+    prog.add(Opcode.ANSWER, False, 0, 0, 0)
+    return prog
+
+
+def ram_prove(ps, kp, program, aux):
+    """ram_prover's proof; its boot input (the statement) kept on ps."""
+    proof, ps.ram_boot = ps.ram_prover(kp.pk, program, [], aux, seed=9)
+    return proof
+
+
 def small_systems(curve_name: str, r: int):
-    """The 20-constraint cross-check of each pairing system over the curve:
-    (label, class, the circuit's generator, keygen, prover, verifier
-    calls (the (method, args) whose verdicts must all be true), corrupt (a
-    proof with one point moved, or None)). alt_bn128: Groth16,
-    BCTV14, GM17, DFGK14, BACS, TBCS, ADSNARK (Schnorr); BW6-761:
-    Groth16; MNT4, MNT6, edwards: Groth16."""
+    """The cross-check of each pairing system over the curve: (label,
+    class, the circuit's generator, keygen, prover, verifier calls (the
+    (method, args) whose verdicts must all be true), corrupt (a proof with
+    one point moved, or None)). alt_bn128: Groth16, BCTV14, GM17, DFGK14,
+    BACS, TBCS, ADSNARK (Schnorr) at about 20 constraints, and the RAM
+    ppzkSNARK on the universal circuit of TinyRAM with w = 16, k = 4,
+    boot-trace and time bounds 5 (4,765 constraints); BW6-761: Groth16;
+    MNT4, MNT6, edwards: Groth16."""
     from libsnark_tpu_torch.proof_systems.adsnark import ADSNARK
     from libsnark_tpu_torch.proof_systems.bacs_ppzksnark import BACSPpzksnark
     from libsnark_tpu_torch.proof_systems.bctv14 import BCTV14
     from libsnark_tpu_torch.proof_systems.dfgk14 import DFGK14
     from libsnark_tpu_torch.proof_systems.gm17 import GM17
     from libsnark_tpu_torch.proof_systems.groth16 import Groth16
+    from libsnark_tpu_torch.proof_systems.ram_ppzksnark import RAMPpzksnark
     from libsnark_tpu_torch.proof_systems.tbcs_ppzksnark import TBCSPpzksnark
     from libsnark_tpu_torch.relations import examples as ex
+    from libsnark_tpu_torch.relations.tinyram import TinyRAMParams
 
     def moved(field):
         def corrupt(proof, one):
@@ -1372,7 +1418,13 @@ def small_systems(curve_name: str, r: int):
                                     (kp.vk, p, proof))],
          None),
         ("ADSNARK", ADSNARK, r1cs, adsnark_keygen, adsnark_prove,
-         adsnark_verify, moved("g_H")))
+         adsnark_verify, moved("g_H")),
+        ("RAM", RAMPpzksnark,
+         lambda: ((TinyRAMParams(w=16, k=4), 5, 5), ram_arith_program(), []),
+         lambda ps, c: ps.ram_generator(*c, seed=5), ram_prove,
+         lambda ps, kp, p, proof: [("ram_verifier",
+                                    (kp.vk, ps.ram_boot, proof))],
+         moved("g_H")))
 
 
 # the curves with an a-coefficient (the mnt path)
@@ -1516,10 +1568,10 @@ VERIFIERS = None
 
 
 def cpu_proof(label: str, curve_name: str):
-    """small_systems' 20-constraint proof of ``label``, made by the plain
-    versions on the CPU (one thread; run in a worker process), as integer
-    coordinates. The keys come from the host fixed-base path (the same
-    affine points as the device path)."""
+    """small_systems' proof of ``label``, made by the plain versions on the
+    CPU (one thread; run in a worker process): (integer coordinates, the
+    worker's seconds). The keys come from the host fixed-base path (the
+    same affine points as the device path)."""
     from libsnark_tpu_torch import get_curve
     torch.set_num_threads(1)
     curve = get_curve(curve_name)
@@ -1529,7 +1581,9 @@ def cpu_proof(label: str, curve_name: str):
             circuit, primary, aux = make()
             ps = cls(curve, device="cpu")
             ps.host_keygen = True
-            return proof_coords(prove(ps, keygen(ps, circuit), primary, aux))
+            t0 = time.perf_counter()
+            proof = prove(ps, keygen(ps, circuit), primary, aux)
+            return proof_coords(proof), time.perf_counter() - t0
     raise KeyError(label)
 
 
@@ -1547,13 +1601,14 @@ def start_cpu_proofs():
 
 
 def small_cross_check(cpu):
-    """About 20 constraints, for Groth16, BCTV14, GM17, DFGK14, BACS, TBCS
-    and ADSNARK over alt_bn128 and Groth16 over BW6-761: the proof on the
-    card (keygen on the device fixed-base path) == the proof made by the
-    plain versions on the CPU (cpu: start_cpu_proofs' futures, made in
-    worker processes beside the card's work), and it verifies (ADSNARK:
-    both verifiers); for BCTV14, GM17, DFGK14, ADSNARK and BW6-761's
-    Groth16 a proof with one point moved is rejected."""
+    """small_systems' circuits (about 20 constraints; the RAM ppzkSNARK's
+    4,765): the proof on the card (keygen on the device fixed-base path)
+    == the proof made by the plain versions on the CPU (cpu:
+    start_cpu_proofs' futures, made in worker processes beside the card's
+    work; each line gives the worker's seconds and how long this process
+    waited for it), and it verifies (ADSNARK: both verifiers); where
+    small_systems names a corruption, a proof with one point moved is
+    rejected."""
     from libsnark_tpu_torch import get_curve
     systems = [(get_curve(name), entry) for name in SMALL_CURVES
                for entry in small_systems(name, get_curve(name).r)]
@@ -1570,21 +1625,23 @@ def small_cross_check(cpu):
                verify(ps, kp, primary, corrupt(proof, curve.G1.one())))
         verdicts = VERIFIERS.verdicts(ps, calls + bad)
         if not all(verdicts[:len(calls)]):
-            raise AssertionError(f"{label}: 20-constraint card proof "
-                                 "rejected")
+            raise AssertionError(f"{label}: card proof rejected")
         rejected = corrupt is not None and not all(verdicts[len(calls):])
         if corrupt is not None and not rejected:
-            raise AssertionError(f"{label}: a corrupted 20-constraint "
-                                 "proof was accepted")
+            raise AssertionError(f"{label}: a corrupted proof was "
+                                 "accepted")
         t_card = time.perf_counter() - t1
-        if proof_coords(proof) != cpu[curve.name, label].result():
+        t1 = time.perf_counter()
+        cpu_coords, t_cpu = cpu[curve.name, label].result()
+        waited = time.perf_counter() - t1
+        if proof_coords(proof) != cpu_coords:
             raise AssertionError(f"{label} {curve.name}: card proof != "
-                                 "CPU plain proof (20 constraints)")
-        log(f"20-constraint seeded {label} {curve.name} proof: card == "
-            "CPU plain, "
+                                 "CPU plain proof")
+        log(f"seeded {label} {curve.name} proof: card == CPU plain, "
             "verifies" + (", corrupted proof rejected" if rejected
                           else "")
-            + f" (card side {t_card:.1f} s, elapsed "
+            + f" (card side {t_card:.1f} s, CPU worker {t_cpu:.1f} s, "
+              f"waited {waited:.1f} s, elapsed "
               f"{time.perf_counter() - t0:.1f} s)")
 
 
@@ -1714,6 +1771,25 @@ def main_path(curve, log2: int, paths: dict, circuit=None,
     return total, yardsticks
 
 
+def phase_totals(phases: dict) -> dict:
+    """The launches of a path's phases added up."""
+    total = {}
+    for counts in phases.values():
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+    return total
+
+
+def require_launched(label: str, total: dict, need):
+    """Fails if a kernel of ``need`` launched in none of the path's phases
+    or if the public dbl or aadd launched there."""
+    missing = [key for key in need if not total.get(key)]
+    replaced = [key for key in total if key.startswith(("dbl_fp", "aadd_fp"))]
+    if missing or replaced:
+        raise AssertionError(f"{label}: kernels not launched {missing}, "
+                             f"public dbl / aadd launched {replaced}")
+
+
 def path_totals(phases: dict, label: str, need) -> dict:
     """The launches of a Groth16 path's phases (keygen, prove[segments],
     prove[dense]) added up. Fails if a kernel of ``need`` launched in none
@@ -1725,18 +1801,8 @@ def path_totals(phases: dict, label: str, need) -> dict:
     if level0:
         raise AssertionError(f"aadd_rows launched outside the dense "
                              f"strategy: {level0}")
-    total = {}
-    for counts in phases.values():
-        for k, v in counts.items():
-            total[k] = total.get(k, 0) + v
-    replaced = [k for k in total if k.startswith(("dbl_fp", "aadd_fp"))]
-    if replaced:
-        raise AssertionError(f"the public dbl / aadd launched on the "
-                             f"{label} path: {replaced}")
-    missing = [k for k in need if not total.get(k)]
-    if missing:
-        raise AssertionError(f"kernels not launched on the {label} "
-                             f"main path: {missing}")
+    total = phase_totals(phases)
+    require_launched(f"the {label} main path", total, need)
     return total
 
 
@@ -1879,10 +1945,7 @@ def generic_a_path(curve, log2: int, paths: dict, circuit) -> dict:
     # the verdicts are read once the next curve's path has run
     verdicts = [VERIFIERS.submit(g16, "verifier_strong_IC", kp.vk, x, proof)
                 for x in (primary, bad_input)]
-    total = {}
-    for counts in phases.values():
-        for key, n in counts.items():
-            total[key] = total.get(key, 0) + n
+    total = phase_totals(phases)
     group_kernels = [key for key, n in total.items()
                      if n and not key.startswith(("mont_mul_", "fp_addsub_"))]
     if group_kernels:
@@ -1998,20 +2061,13 @@ def proof_systems_path(curve, log2: int, paths: dict,
             f"wrong-input-rejected={rej}")
         if not (ok and rej):
             raise AssertionError(f"{name} verification checks failed")
-        total = {}
-        for counts in phases.values():
-            for k, v in counts.items():
-                total[k] = total.get(k, 0) + v
+        total = phase_totals(phases)
         nq = ps.fq.N
-        need = [f"mont_mul_n{nq}", f"mont_mul_n{ps.fr.N}"] + [
+        require_launched(label, total, [
+            f"mont_mul_n{nq}", f"mont_mul_n{ps.fr.N}"] + [
             f"{k}_{f}_n{nq}" for k in ("dbl_chain", "add", "madd_win",
                                        "bucket_reduce", "horner_combine")
-            for f in ("fp", "fp2")]
-        missing = [k for k in need if not total.get(k)]
-        replaced = [k for k in total if k.startswith(("dbl_fp", "aadd_fp"))]
-        if missing or replaced:
-            raise AssertionError(f"{label}: kernels not launched {missing}, "
-                                 f"public dbl / aadd launched {replaced}")
+            for f in ("fp", "fp2")])
         out[label] = total
         del cs, kp, ps, domain
         torch.cuda.empty_cache()
@@ -2102,19 +2158,11 @@ def adsnark_path(curve, log2: int, paths: dict, circuit) -> dict:
         f"{rej_sec}")
     if not (ok_sec and ok_pub and rej_pub and rej_sec):
         raise AssertionError("adsnark verification checks failed")
-    total = {}
-    for counts in phases.values():
-        for key, v in counts.items():
-            total[key] = total.get(key, 0) + v
-    need = [f"mont_mul_n{ps.fq.N}"] + [
+    total = phase_totals(phases)
+    require_launched(label, total, [f"mont_mul_n{ps.fq.N}"] + [
         counter_key(kern, ck.fk) for kern in (
             "dbl_chain", "add", "madd_win", "bucket_reduce",
-            "horner_combine") for ck in (ps.g1, ps.g2)]
-    missing = [key for key in need if not total.get(key)]
-    replaced = [key for key in total if key.startswith(("dbl_fp", "aadd_fp"))]
-    if missing or replaced:
-        raise AssertionError(f"{label}: kernels not launched {missing}, "
-                             f"public dbl / aadd launched {replaced}")
+            "horner_combine") for ck in (ps.g1, ps.g2)])
     del cs, kp, ps, domain
     torch.cuda.empty_cache()
 
@@ -2241,13 +2289,213 @@ def pcd_path(paths: dict) -> dict:
     need = [f"mont_mul_n{fq.N}", f"mont_mul_n{fr.N}"] + [
         counter_key(k, fq) for k in ("add", "bucket_reduce",
                                       "horner_combine")]
-    missing = [k for k in need if not counts.get(k)]
-    replaced = [k for k in counts if k.startswith(("dbl_fp", "aadd_fp"))]
-    if missing or replaced:
-        raise AssertionError(f"pcd: kernels not launched in the outer prove "
-                             f"{missing}, public dbl / aadd launched "
-                             f"{replaced}")
+    require_launched("pcd: the outer prove", counts, need)
     return {"pcd": counts}
+
+
+# the RAM path's sizes: TinyRAM with 16 registers of 32 bits; the RAM
+# ppzkSNARK's boot-trace bound and time bound (216,799 constraints, a 2^18
+# domain); the RAM zkSNARK's boot-trace bound (its predicate, 78,912
+# constraints, keeps the reference's full 32-bit address space)
+RAM_W, RAM_K = 32, 16
+RAM_BOOT, RAM_TIME = 102, 128
+RAM_ZK_BOOT = 12
+
+
+def ram_ppzksnark_part(paths: dict) -> dict:
+    """The RAM ppzkSNARK (the TinyRAM universal circuit under BCTV14) over
+    alt_bn128 through its entry points: gen_ram_example_complex(ap, 102,
+    128, satisfiable=True, seed=13) for w = 32, k = 16; the universal
+    circuit's host build alone (phase ram.build: its size, linear terms and
+    domain); ram_generator(seed=5) under the device profiler
+    (paths["keygen_ram_ppzksnark_alt_bn128"]; it builds the circuit again)
+    with its phases; ram_prover(seed=9) with its phases (the build, the
+    execution and routing witness, BCTV14's phases) and once more under
+    the profiler (paths["prove_ram_ppzksnark_alt_bn128"], equal proofs);
+    ram_verifier accepts and rejects the proof with one boot-input element
+    changed; ram_prover refuses the satisfiable=False example (its
+    AssertionError expected). Returns (the launches of keygen and prove,
+    a function that reads the verdicts: the verifier calls run in workers
+    beside what follows)."""
+    from libsnark_tpu_torch import get_curve
+    from libsnark_tpu_torch.gadgets.ram_universal import (
+        ram_to_r1cs_instance_map)
+    from libsnark_tpu_torch.ops.cuda_ec import counter_key
+    from libsnark_tpu_torch.proof_systems.ram_ppzksnark import RAMPpzksnark
+    from libsnark_tpu_torch.reductions.r1cs_to_qap import qap_domain
+    from libsnark_tpu_torch.relations.examples import gen_ram_example_complex
+    from libsnark_tpu_torch.relations.tinyram import TinyRAMParams
+    curve = get_curve("alt_bn128")
+    label = f"ram_ppzksnark_{curve.name}"
+    ap = TinyRAMParams(w=RAM_W, k=RAM_K)
+    B, T = RAM_BOOT, RAM_TIME
+    prog, primary, aux, _ = gen_ram_example_complex(ap, B, T,
+                                                    satisfiable=True, seed=13)
+    phases = {}
+    pb, _ = timed_phase(phases, "ram.build", lambda t: (
+        ram_to_r1cs_instance_map(curve.r, ap, B, T)))
+    cs = pb.get_constraint_system()
+    terms = sum(len(lc.terms) for con in cs.constraints
+                for lc in (con.a, con.b, con.c))
+    rs = RAMPpzksnark(curve)                               # device="cuda"
+    domain = rs.domain_for(qap_domain, cs)
+    log(f"  TinyRAM w = {RAM_W}, k = {RAM_K}, boot-trace bound {B}, time "
+        f"bound {T}, program of {prog.size} instructions, {len(primary)} "
+        f"input words: {cs.num_constraints} constraints, {terms} linear "
+        f"terms, {cs.num_inputs} inputs, {cs.num_variables} variables; "
+        f"domain {type(domain).__name__}, m = {domain.m}")
+    del pb, cs
+    kp = timed_phase(phases, "keygen", lambda t: path_timing(
+        f"keygen_{label}", lambda: RAMPpzksnark(curve).ram_generator(
+            ap, B, T, seed=5, timings=t), paths))
+    proof, boot = timed_phase(phases, "prove", lambda t: rs.ram_prover(
+        kp.pk, prog, primary, aux, seed=9, timings=t))
+    again, boot2 = path_timing(f"prove_{label}", lambda: rs.ram_prover(
+        kp.pk, prog, primary, aux, seed=9), paths)
+    if again != proof or boot2 != boot:
+        raise AssertionError(f"{label}: the profiled proof differs")
+    t_verify = time.perf_counter()
+    bad = list(boot)
+    bad[len(bad) // 2] = (bad[len(bad) // 2] + 1) % curve.r
+    verdicts = [VERIFIERS.submit(rs, "ram_verifier", kp.vk, b, proof)
+                for b in (boot, bad)]
+
+    def verified():
+        """Reads the verdicts of the two verifier calls (run in workers
+        beside what follows) and fails unless the proof was accepted and
+        the changed boot input rejected."""
+        ok, bad_ok = (f.result() for f in verdicts)
+        log(f"  {label}: verify {time.perf_counter() - t_verify:.2f} s from "
+            f"submission to the verdicts read (host, two calls in workers, "
+            f"beside the rest of the RAM path): accepted={ok} "
+            f"changed-boot-input-rejected={not bad_ok}")
+        if not ok or bad_ok:
+            raise AssertionError(f"{label} verification checks failed")
+
+    log("  proofs equal; the two verifier calls submitted")
+    t0 = time.perf_counter()
+    unsat = gen_ram_example_complex(ap, B, T, satisfiable=False, seed=13)
+    try:
+        rs.ram_prover(kp.pk, *unsat[:3], seed=9)
+    except AssertionError as e:
+        if "did not accept" not in str(e):
+            raise
+        log(f"  the satisfiable=False example refused by ram_prover in "
+            f"{time.perf_counter() - t0:.2f} s: {e}")
+    else:
+        raise AssertionError(f"{label}: the prover proved an unsatisfiable "
+                             "example")
+    total = phase_totals(phases)
+    need = [f"mont_mul_n{rs.fq.N}", f"fp_addsub_n{rs.fq.N}"] + [
+        counter_key(kern, ck.fk) for kern in (
+            "dbl_chain", "add", "madd_win", "bucket_reduce",
+            "horner_combine") for ck in (rs.g1, rs.g2)]
+    require_launched(label, total, need)
+    return total, verified
+
+
+def ram_zksnark_part(paths: dict, steps: int) -> dict:
+    """The one-layer RAM zkSNARK over BLS12-377 through its entry points:
+    TinyRAM w = 32, k = 16 with the full 32-bit delegated address space
+    (tree depth 32: the predicate has 78,912 constraints);
+    gen_ram_example_complex(ap, 12, steps, seed=17); generator(seed=7)
+    under the device profiler (paths["keygen_ram_zksnark_bls12_377"]) with
+    its phases; prover(seed=9), one inner Groth16 proof a step, under the
+    profiler (paths["prove_ram_zksnark_bls12_377"]) with its phases;
+    verify_transcript with all messages (run_and_chain's, whose endpoints
+    must equal the proof's) accepts, and rejects a middle message with
+    pc_addr changed and a final message with has_accepted = 0. Returns the
+    launches of keygen and prove."""
+    from libsnark_tpu_torch import get_curve
+    from libsnark_tpu_torch.ops.cuda_ec import counter_key
+    from libsnark_tpu_torch.proof_systems.ram_zksnark import (
+        RamZkSnark, RamZkSnarkArchParams)
+    from libsnark_tpu_torch.reductions.r1cs_to_qap import qap_domain
+    from libsnark_tpu_torch.relations.examples import gen_ram_example_complex
+    from libsnark_tpu_torch.relations.tinyram import TinyRAMParams
+    curve = get_curve("bls12_377")
+    label = f"ram_zksnark_{curve.name}"
+    arch = RamZkSnarkArchParams(ap=TinyRAMParams(w=RAM_W, k=RAM_K))
+    T = steps
+    prog, primary, aux, _ = gen_ram_example_complex(arch.ap, RAM_ZK_BOOT, T,
+                                                    seed=17)
+    rzs = RamZkSnark(curve)                                # device="cuda"
+    phases = {}
+    kp = timed_phase(phases, "keygen", lambda t: path_timing(
+        f"keygen_{label}", lambda: RamZkSnark(curve).generator(
+            arch, seed=7, timings=t), paths))
+    dev = kp.pk.inner_pk.r1cs_dev
+    domain = rzs.g16.domain_for(qap_domain, dev)
+    log(f"  predicate (tree depth {arch.tree_depth}): {dev.num_constraints} "
+        f"constraints, {dev.num_inputs} inputs, {dev.num_variables} "
+        f"variables; domain {type(domain).__name__}, m = {domain.m}")
+    proof = timed_phase(phases, "prove", lambda t: path_timing(
+        f"prove_{label}", lambda: rzs.prover(kp.pk, prog, primary, T, aux,
+                                             seed=9, timings=t), paths))
+    t0 = time.perf_counter()
+    _, msgs, _ = rzs.run_and_chain(arch, prog, primary, aux, T)
+    if [msgs[0], msgs[-1]] != proof.messages or \
+            len(proof.inner_proofs) != T:
+        raise AssertionError(f"{label}: the message chain differs from the "
+                             "proof's endpoints")
+    bad_mid = list(msgs)
+    mid = len(msgs) // 2
+    bad_mid[mid] = dataclasses.replace(bad_mid[mid],
+                                       pc_addr=bad_mid[mid].pc_addr + 1)
+    bad_end = list(msgs)
+    bad_end[-1] = dataclasses.replace(bad_end[-1], has_accepted=0)
+    t1 = time.perf_counter()
+    ok, mid_ok, end_ok = VERIFIERS.verdicts(rzs, [
+        ("verify_transcript", (kp.vk, prog, primary, T, proof, msgs)),
+        ("verify_transcript", (kp.vk, prog, primary, T, proof, bad_mid)),
+        ("verify_transcript", (kp.vk, prog, primary, T, proof, bad_end))])
+    log(f"  message chain {t1 - t0:.2f} s (host); verify_transcript, three "
+        f"calls in workers {time.perf_counter() - t1:.2f} s (host, "
+        f"verdicts read): accepted={ok} changed-middle-message-rejected="
+        f"{not mid_ok} false-final-claim-rejected={not end_ok}")
+    if not ok or mid_ok or end_ok:
+        raise AssertionError(f"{label} verification checks failed")
+    total = phase_totals(phases)
+    need = [f"mont_mul_n{rzs.g16.fq.N}", f"mont_mul_n{rzs.g16.fr.N}",
+            f"fp_addsub_n{rzs.g16.fq.N}"] + [
+        counter_key(kern, ck.fk) for kern in (
+            "dbl_chain", "add", "madd_win", "bucket_reduce",
+            "horner_combine") for ck in (rzs.g16.g1, rzs.g16.g2)]
+    require_launched(label, total, need)
+    return total
+
+
+def ram_path(paths: dict, steps: int) -> dict:
+    """The RAM systems (ram_ppzksnark_part, ram_zksnark_part, the first's
+    verifier calls in workers beside the second), their host circuits
+    built with the collector off. Returns {"ram_ppzksnark_alt_bn128":
+    launches, "ram_zksnark_bls12_377": launches}: the kernel table's "ram"
+    counts."""
+    import gc
+    t0 = time.perf_counter()
+    # the universal circuit holds ~1.4e6 linear terms and is built four
+    # times: the collector's full passes would take longer than that
+    gc.collect()
+    gc.freeze()
+    gc.disable()
+    try:
+        log("ram path: the RAM ppzkSNARK over alt_bn128")
+        counts, verified = ram_ppzksnark_part(paths)
+        out = {"ram_ppzksnark_alt_bn128": counts}
+        torch.cuda.empty_cache()
+        log(f"  ram_ppzksnark part {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        log(f"ram path: the RAM zkSNARK (one layer) over BLS12-377, "
+            f"{steps} steps")
+        out["ram_zksnark_bls12_377"] = ram_zksnark_part(paths, steps)
+        torch.cuda.empty_cache()
+        log(f"  ram_zksnark part {time.perf_counter() - t1:.1f} s")
+        verified()
+    finally:
+        gc.enable()
+        gc.unfreeze()
+    log(f"ram path {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def fixed_base_parts(profiler) -> str:
@@ -3056,6 +3304,9 @@ def main(argv=None) -> int:
     ap.add_argument("--edwards-log2", type=int, default=15,
                     help="Groth16 over edwards: 2^k - 3 constraints (15: "
                          "the run's time limit)")
+    ap.add_argument("--ram-steps", type=int, default=8,
+                    help="the RAM zkSNARK's time bound: one inner Groth16 "
+                         "proof over BLS12-377 a step (8)")
     ap.add_argument("--kzg-log2", type=int, default=22,
                     help="KZG10 over BLS12-377: degree 2^k - 1 (22); over "
                          "alt_bn128 the degree is 2^min(k, 18) - 1")
@@ -3205,6 +3456,10 @@ def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
         stop_workers(circuits)
     log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
     for label, counts in pcd_path(paths).items():
+        for key, n in counts.items():
+            K.count(key, label, n)
+    log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
+    for label, counts in ram_path(paths, args.ram_steps).items():
         for key, n in counts.items():
             K.count(key, label, n)
     log(f"  elapsed {time.perf_counter() - t_start:.1f} s")

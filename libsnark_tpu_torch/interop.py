@@ -30,6 +30,12 @@ host points as integer coordinates, their
 sparse matrices as (rows, cols, coeffs) -- R1CS "A" / "B" / "C", SAP "A" /
 "C" / "AB_diff", SSP "V" -- and their sizes.
 
+``ram_ppzksnark_keypair_from_numpy`` builds a RAM ppzkSNARK keypair: the
+BCTV14 proving key as above, wrapped with the TinyRAM shape (w, k), the
+boot-trace size bound and the time bound, and the BCTV14 verification key
+from integer coordinates. RamZkSnark's inner keypair is a Groth16 one and
+goes through ``proving_key_from_numpy``.
+
 All of them take numpy and ints only and import nothing of the JAX package.
 """
 from __future__ import annotations
@@ -41,10 +47,14 @@ from .ops.cuda_lib import resolve_device
 from .ops.limbs import to_torch
 from .polynomial_commitments.kzg10 import KZG10SRS
 from .proof_systems import adsnark, bctv14, dfgk14, gm17
+from .common.sparse_vector import AccumulationVector
 from .proof_systems.groth16 import Groth16ProvingKey
+from .proof_systems.ram_ppzksnark import (
+    RAMPpzksnarkKeypair, RAMPpzksnarkProvingKey)
 from .reductions.r1cs_to_sap import SAPDevice
 from .reductions.uscs_to_ssp import SSPDevice
 from .relations.r1cs import R1CSDevice, SparseMatrix
+from .relations.tinyram import TinyRAMParams
 
 QUERIES = ("A_query", "B_query_g2", "B_query_g1", "H_query", "L_query")
 
@@ -115,6 +125,39 @@ def bctv14_proving_key_from_numpy(system, queries: dict, matrices: dict,
         r1cs_dev=_r1cs_device(system, matrices, num_constraints, num_inputs,
                               num_variables),
         **_queries(system.device, queries, bctv14.QUERIES))
+
+
+def ram_ppzksnark_keypair_from_numpy(system, w: int, k: int,
+                                     boot_trace_size_bound: int,
+                                     time_bound: int, queries: dict,
+                                     matrices: dict, vk_points: dict,
+                                     num_constraints: int, num_inputs: int,
+                                     num_variables: int):
+    """The port's RAM ppzkSNARK keypair for TinyRAM with k registers of w
+    bits: the BCTV14 proving key of ``bctv14_proving_key_from_numpy``, and
+    the BCTV14 verification key from vk_points -- alphaB_g1 and
+    gamma_beta_g1 as (x, y); alphaA_g2, alphaC_g2, gamma_g2, gamma_beta_g2
+    and rC_Z_g2 as ((x0, x1), (y0, y1)); "IC" the num_inputs + 1 points of
+    the encoded IC query as (x, y), None for the point at infinity."""
+    curve = system.curve
+    pk = bctv14_proving_key_from_numpy(system, queries, matrices,
+                                       num_constraints, num_inputs,
+                                       num_variables)
+    ic = [curve.G1.zero() if xy is None else _g1(curve, xy)
+          for xy in vk_points["IC"]]
+    vk = bctv14.BCTV14VerificationKey(
+        encoded_IC_query=AccumulationVector.from_values(ic[0], ic[1:]),
+        **{n: _g1(curve, vk_points[n]) for n in ("alphaB_g1",
+                                                  "gamma_beta_g1")},
+        **{n: _g2(curve, vk_points[n]) for n in (
+            "alphaA_g2", "alphaC_g2", "gamma_g2", "gamma_beta_g2",
+            "rC_Z_g2")})
+    return RAMPpzksnarkKeypair(
+        pk=RAMPpzksnarkProvingKey(
+            ap=TinyRAMParams(w=w, k=k),
+            boot_trace_size_bound=boot_trace_size_bound,
+            time_bound=time_bound, r1cs_pk=pk),
+        vk=vk)
 
 
 def adsnark_proving_key_from_numpy(system, queries: dict, points: dict,

@@ -3,7 +3,9 @@
 ``limbcodec()`` is the big-integer <-> packed-limb codec
 (``limbcodec.cpp``, a CPython extension): ``encode(xs, n)`` turns a
 sequence of non-negative ints below 2^(16 n) into the (n, len(xs)) uint32
-limbs of ``ops/limbs.py``'s layout, limb-major, as bytes;
+limbs of ``ops/limbs.py``'s layout, limb-major, as a bytearray; ``encode(xs, n,
+p)`` first reduces mod p each int that is negative or at least p (and
+packs an int below 2^63 straight from its machine word);
 ``decode(buf, n, m)`` turns such a buffer back into m ints. It reads and
 writes each integer's bytes through CPython's own conversion, where the
 Python form builds a bytes object per element.

@@ -206,10 +206,11 @@ class FpKernel:
     # -- host conversions -------------------------------------------------------------
     def encode(self, xs, mont=True, device=None):
         """Python ints -> (N, len(xs)) int32 limbs on the kernel's device
-        (Montgomery form unless mont=False). The host only reduces mod p
-        and packs limbs; the Montgomery form is one ``to_mont`` product
+        (Montgomery form unless mont=False). The host codec reduces mod p
+        (only an int that is negative or at least p) and packs limbs; the
+        Montgomery form is one ``to_mont`` product
         (a mont_mul launch on the card, the plain product on the CPU)."""
-        arr = ints_to_limbs([int(x) % self.p for x in xs], self.N)
+        arr = ints_to_limbs(xs, self.N, self.p)
         out = torch.from_numpy(arr.astype("int32")).to(device or self.device)
         return self.to_mont(out) if mont and out.shape[1] else out
 

@@ -35,20 +35,24 @@ def int_to_limbs(x: int, n: int) -> np.ndarray:
                     dtype=np.uint32)
 
 
-def ints_to_limbs(xs, n: int) -> np.ndarray:
+def ints_to_limbs(xs, n: int, p: int = None) -> np.ndarray:
     """Iterable of non-negative ints < 2^(16 n) (Python or numpy integers)
     -> (n, len(xs)) uint32, through the native codec (``native``; built at
     first use, raises if it cannot be). OverflowError for a negative int or
-    one of 2^(16 n) or more."""
+    one of 2^(16 n) or more. With a modulus p, the limbs of x % p: the
+    codec reduces only an int that is negative or at least p."""
     xs = xs if isinstance(xs, (list, tuple)) else list(xs)
-    buf = limbcodec().encode(xs, n)
-    return np.frombuffer(buf, dtype=np.uint32).reshape(n, len(xs)).copy()
+    buf = (limbcodec().encode(xs, n) if p is None
+           else limbcodec().encode(xs, n, p))
+    # a bytearray: the array is writable without a copy
+    return np.frombuffer(buf, dtype=np.uint32).reshape(n, len(xs))
 
 
-def _ints_to_limbs_py(xs, n: int) -> np.ndarray:
-    """The Python form of ``ints_to_limbs`` (``int.to_bytes`` per element
-    and one numpy view), kept as the codec's reference."""
-    xs = list(xs)
+def _ints_to_limbs_py(xs, n: int, p: int = None) -> np.ndarray:
+    """The Python form of ``ints_to_limbs`` (``x % p`` per element where p
+    is given, ``int.to_bytes`` per element and one numpy view), kept as the
+    codec's reference."""
+    xs = list(xs) if p is None else [int(x) % p for x in xs]
     if not xs:
         return np.zeros((n, 0), dtype=np.uint32)
     nbytes = 2 * n

@@ -534,6 +534,6 @@ class MSMKernel:
 def msm_host_scalars(msm_kernel, points_aff, scalar_ints, r, c=None):
     """Convenience: python-int scalars -> device MSM."""
     nl = -(-r.bit_length() // LIMB_BITS)
-    sc = torch.from_numpy(ints_to_limbs([s % r for s in scalar_ints], nl)
+    sc = torch.from_numpy(ints_to_limbs(scalar_ints, nl, r)
                           .astype("int32")).to(points_aff[0].device)
     return msm_kernel.msm(points_aff, sc, c)

@@ -121,7 +121,7 @@ class PairingSystem:
 
     # -- host <-> device conversions ---------------------------------------
     def scalars_to_dev(self, xs):
-        arr = ints_to_limbs([x % self.curve.r for x in xs], self.scalar_limbs)
+        arr = ints_to_limbs(xs, self.scalar_limbs, self.curve.r)
         return torch.from_numpy(arr.astype("int32")).to(self.device)
 
     # Power-of-two shape buckets, as in the JAX package: pad slots hold

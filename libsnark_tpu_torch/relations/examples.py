@@ -149,3 +149,82 @@ def generate_r1cs_example_with_binary_input(p: int, num_constraints: int,
         aux_vals.append(zv)
         prev, prev_v = zs[j], zv
     return cs, vals_x, aux_vals
+
+
+# --------------------------------------------------------------- RAM examples
+# Parity with the reference's RAM example samplers
+# (relations/ram_computations/rams/examples/ram_examples.tcc:24
+# gen_ram_example_simple, :77 gen_ram_example_complex): produce a TinyRAM
+# program + inputs with prescribed boot-trace/time bounds whose
+# acceptance is controlled by `satisfiable`. The programs here are our
+# own (the reference's rely on its tape-loading prelude + self-modifying
+# code); ours exercise the same surfaces -- ANSWER control, random
+# non-executed filler, and (complex) LOADW/STOREB/LOADB byte-addressed
+# memory with input-dependent acceptance.
+
+def gen_ram_example_simple(ap, boot_trace_size_bound: int, time_bound: int,
+                           satisfiable: bool = True, seed: int = 0):
+    """Minimal example: ANSWER immediately (0 accepts / 1 rejects),
+    followed by random never-executed filler instructions and random
+    input words filling the boot trace.
+
+    Returns (program, primary_input, aux_tape, time_bound).
+    """
+    import random as _random
+    from .tinyram import TinyRAMProgram, TinyRAMInstruction, Opcode
+    rng = _random.Random(seed)
+    assert boot_trace_size_bound >= 2 and time_bound >= 1
+    program_size = boot_trace_size_bound // 2
+    input_size = boot_trace_size_bound - program_size
+
+    prog = TinyRAMProgram()
+    prog.add(Opcode.ANSWER, True, 0, 0, 0 if satisfiable else 1)
+    ops = list(Opcode)
+    while prog.size < program_size:
+        prog.add_instruction(TinyRAMInstruction(
+            rng.choice(ops), bool(rng.getrandbits(1)),
+            rng.randrange(1 << ap.reg_arg_width),
+            rng.randrange(1 << ap.reg_arg_width),
+            rng.randrange(1 << ap.reg_arg_or_imm_width)))
+    primary = [rng.randrange(1 << ap.w) for _ in range(input_size)]
+    return prog, primary, [], time_bound
+
+
+def gen_ram_example_complex(ap, boot_trace_size_bound: int, time_bound: int,
+                            satisfiable: bool = True, seed: int = 0):
+    """Memory-exercising example: load the first input word, subtract a
+    constant, round-trip the result through a byte-addressed
+    STOREB/LOADB pair, and ANSWER it -- accepted iff the input word
+    equals the constant (byte semantics: only the low byte survives the
+    round trip, so the constant keeps the difference within one byte).
+
+    Returns (program, primary_input, aux_tape, time_bound).
+    """
+    import random as _random
+    from .tinyram import TinyRAMProgram, TinyRAMInstruction, Opcode
+    rng = _random.Random(seed)
+    K = 42
+    assert boot_trace_size_bound >= 12 and time_bound >= 6
+    program_size = boot_trace_size_bound // 2
+    input_size = boot_trace_size_bound - program_size
+
+    sal = ap.subaddr_len
+    input0_byte_addr = program_size << sal          # dword cell after prog
+    scratch_byte_addr = (program_size + input_size) << sal
+
+    prog = TinyRAMProgram()
+    prog.add(Opcode.LOADW, True, 1, 0, input0_byte_addr)   # r1 = input[0]
+    prog.add(Opcode.SUB, True, 1, 1, K)                    # r1 = input - K
+    prog.add(Opcode.STOREB, True, 1, 0, scratch_byte_addr)
+    prog.add(Opcode.LOADB, True, 2, 0, scratch_byte_addr)  # r2 = low byte
+    prog.add(Opcode.ANSWER, False, 0, 0, 2)                # accept iff 0
+    ops = list(Opcode)
+    while prog.size < program_size:
+        prog.add_instruction(TinyRAMInstruction(
+            rng.choice(ops), bool(rng.getrandbits(1)),
+            rng.randrange(1 << ap.reg_arg_width),
+            rng.randrange(1 << ap.reg_arg_width),
+            rng.randrange(1 << ap.reg_arg_or_imm_width)))
+    primary = [K if satisfiable else K + 3] + \
+        [rng.randrange(1 << ap.w) for _ in range(input_size - 1)]
+    return prog, primary, [], time_bound

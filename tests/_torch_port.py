@@ -2,6 +2,7 @@
 host points as integer coordinates, and comparisons of the port's keys and
 proofs with the JAX package's, bit for bit."""
 import dataclasses
+import operator
 
 import numpy as np
 
@@ -141,6 +142,19 @@ def carry_vk_and_proof(jcurve, vk, proof):
     return carry_vk(jcurve, vk), jproof
 
 
+def plain(x):
+    """Dataclasses (traces, instructions, parameters, messages), lists and
+    dicts as tuples of ints: the IntEnums of both packages compare as
+    ints."""
+    if dataclasses.is_dataclass(x):
+        return tuple(plain(getattr(x, f.name)) for f in dataclasses.fields(x))
+    if isinstance(x, (list, tuple)):
+        return tuple(plain(v) for v in x)
+    if isinstance(x, dict):
+        return tuple((plain(k), plain(v)) for k, v in x.items())
+    return int(x) if isinstance(x, int) else x
+
+
 def r1cs_terms(pb):
     """A protoboard's constraints as plain integers: ((index, coeff) terms
     of a, b and c, annotation) each."""
@@ -155,3 +169,23 @@ def board(pb):
     annotations and the input size."""
     return (r1cs_terms(pb), list(pb._values), list(pb._annotations),
             pb.num_inputs)
+
+
+def _index_coeff(lc):
+    return (list(map(operator.attrgetter("index"), lc.terms)),
+            list(map(operator.attrgetter("coeff"), lc.terms)))
+
+
+def assert_same_board(pb, jpb):
+    """Constraint for constraint: the (index, coeff) terms of a, b and c
+    in order and the annotation; then the values and the variable
+    annotations, and the input size. Streamed: an aggregation circuit
+    holds ~5.5e7 terms."""
+    assert pb.num_constraints == jpb.num_constraints
+    for i, (con, jcon) in enumerate(zip(pb.constraints, jpb.constraints)):
+        assert con[3] == jcon[3], i
+        for lc, jlc in zip(con[:3], jcon[:3]):
+            assert _index_coeff(lc) == _index_coeff(jlc), (i, con[3])
+    assert pb._values == jpb._values
+    assert pb._annotations == jpb._annotations
+    assert pb.num_inputs == jpb.num_inputs

@@ -831,3 +831,129 @@ def test_generic_a_groth16_on_card(curve_name, log2):
     assert g16.verifier_strong_IC(kp.vk, primary, proofs[0])
     bad = [(primary[0] + 1) % curve.r] + primary[1:]
     assert not g16.verifier_strong_IC(kp.vk, bad, proofs[0])
+
+
+def _ram_arith_program():
+    """tests/test_ram_universal.py's arithmetic program (accepted)."""
+    from libsnark_tpu_torch.relations.tinyram import Opcode, TinyRAMProgram
+    prog = TinyRAMProgram()
+    prog.add(Opcode.MOV, True, 0, 0, 9)
+    prog.add(Opcode.ADD, True, 0, 0, 33)
+    prog.add(Opcode.SUB, True, 0, 0, 42)
+    prog.add(Opcode.ANSWER, False, 0, 0, 0)
+    return prog
+
+
+def test_ram_universal_card_proof_equals_cpu_proof():
+    """The RAM ppzkSNARK on the 4,765-constraint universal circuit (TinyRAM
+    w = 16, k = 4, boot-trace and time bounds 5) over alt_bn128: the keys
+    from the device fixed-base path and the proof on the card equal the
+    CPU's (plain versions, host fixed-base path); the card's proof
+    verifies and is rejected with a changed boot input."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from libsnark_tpu_torch.proof_systems.ram_ppzksnark import RAMPpzksnark
+    from libsnark_tpu_torch.relations.tinyram import TinyRAMParams
+    curve = get_curve("alt_bn128")
+    ap = TinyRAMParams(w=16, k=4)
+    out = []
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        rs = RAMPpzksnark(curve, device=device)
+        rs.host_keygen = device == "cpu"
+        kp = rs.ram_generator(ap, 5, 5, seed=5)
+        proof, boot = rs.ram_prover(kp.pk, _ram_arith_program(), [], [],
+                                    seed=9)
+        out.append((kp, proof, boot))
+        print(f"ram_ppzksnark 4765 constraints on {device}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    (kp, proof, boot), (kp_cpu, proof_cpu, boot_cpu) = out
+    assert kp.pk.r1cs_pk.r1cs_dev.num_constraints == 4765
+    assert boot == boot_cpu and proof == proof_cpu
+    assert rs.ram_verifier(kp.vk, boot, proof)
+    assert not rs.ram_verifier(kp.vk, [boot[0] + 1] + boot[1:], proof)
+
+
+def test_ram_ppzksnark_2_19_on_card():
+    """The RAM ppzkSNARK over alt_bn128 at w = 32, k = 16, boot-trace bound
+    102 and time bound 256 (a 2^19 domain): gen_ram_example_complex's
+    satisfiable example proved and verified, rejected with one boot-input
+    element changed; the unsatisfiable example refused by the prover."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from libsnark_tpu_torch.proof_systems.ram_ppzksnark import RAMPpzksnark
+    from libsnark_tpu_torch.reductions.r1cs_to_qap import qap_domain
+    from libsnark_tpu_torch.relations.examples import gen_ram_example_complex
+    from libsnark_tpu_torch.relations.tinyram import TinyRAMParams
+    curve = get_curve("alt_bn128")
+    ap = TinyRAMParams(w=32, k=16)
+    B, T = 102, 256
+    prog, primary, aux, _ = gen_ram_example_complex(ap, B, T, seed=21)
+    rs = RAMPpzksnark(curve)
+    torch.cuda.reset_peak_memory_stats()
+    t0, t = time.perf_counter(), {}
+    kp = rs.ram_generator(ap, B, T, seed=5, timings=t)
+    _pcd_log("ram_ppzksnark 2^19 generator", t0, t)
+    dev = kp.pk.r1cs_pk.r1cs_dev
+    domain = rs.domain_for(qap_domain, dev)
+    print(f"ram_ppzksnark: {dev.num_constraints} constraints, "
+          f"{dev.num_inputs} inputs, domain {type(domain).__name__} "
+          f"m = {domain.m}", flush=True)
+    assert domain.m == 1 << 19
+    t0, t = time.perf_counter(), {}
+    proof, boot = rs.ram_prover(kp.pk, prog, primary, aux, seed=9,
+                                timings=t)
+    _pcd_log("ram_ppzksnark 2^19 prover", t0, t)
+    t0 = time.perf_counter()
+    assert rs.ram_verifier(kp.vk, boot, proof)
+    bad = list(boot)
+    bad[-1] = (bad[-1] + 1) % curve.r
+    assert not rs.ram_verifier(kp.vk, bad, proof)
+    _pcd_log("ram_ppzksnark 2^19 verifier (accept, reject)", t0, {})
+    unsat = gen_ram_example_complex(ap, B, T, satisfiable=False, seed=21)
+    with pytest.raises(AssertionError, match="did not accept"):
+        rs.ram_prover(kp.pk, *unsat[:3], seed=9)
+
+
+def test_ram_zksnark_succinct_on_card():
+    """The succinct RAM zkSNARK at T = 2: TinyRAM w = 32, k = 16 with the
+    full 32-bit delegated address space, two inner Groth16 proofs over
+    BLS12-377 aggregated by one outer proof over BW6-761 (two verifier
+    gadgets); verifier_succinct accepts, and rejects a final message with
+    a changed register (the outer proof's statement) and one with
+    has_accepted = 0 (the host checks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+    from libsnark_tpu_torch.proof_systems.ram_zksnark import (
+        RamZkSnark, RamZkSnarkArchParams)
+    from libsnark_tpu_torch.relations.examples import gen_ram_example_simple
+    from libsnark_tpu_torch.relations.tinyram import TinyRAMParams
+    bls, bw6 = get_curve("bls12_377"), get_curve("bw6_761")
+    arch = RamZkSnarkArchParams(ap=TinyRAMParams(w=32, k=16))
+    T = 2
+    prog, primary, aux, _ = gen_ram_example_simple(arch.ap, 8, T, seed=4)
+    rzs = RamZkSnark(bls)
+    torch.cuda.reset_peak_memory_stats()
+    t0, t = time.perf_counter(), {}
+    skp = rzs.generator_succinct(arch, bw6, T, seed=7, timings=t)
+    _pcd_log("ram_zksnark succinct generator", t0, t)
+    print(f"ram_zksnark outer circuit: "
+          f"{skp.outer_keypair.pk.r1cs_dev.num_constraints} constraints",
+          flush=True)
+    t0, t = time.perf_counter(), {}
+    proof = rzs.prover_succinct(skp, prog, primary, T, aux, seed=9,
+                                timings=t)
+    _pcd_log("ram_zksnark succinct prover", t0, t)
+    t0 = time.perf_counter()
+    vk = skp.outer_keypair.vk
+    assert rzs.verifier_succinct(vk, arch, bw6, prog, primary, T, proof)
+    regs = list(proof.msg_final.regs)
+    regs[1] += 1
+    moved = dataclasses.replace(proof, msg_final=dataclasses.replace(
+        proof.msg_final, regs=regs))
+    assert not rzs.verifier_succinct(vk, arch, bw6, prog, primary, T, moved)
+    false = dataclasses.replace(proof, msg_final=dataclasses.replace(
+        proof.msg_final, has_accepted=0))
+    assert not rzs.verifier_succinct(vk, arch, bw6, prog, primary, T, false)
+    _pcd_log("ram_zksnark succinct verifier (accept, reject twice)", t0, {})

@@ -142,11 +142,19 @@ def _imports(path: Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "libsnark_tpu_torch").rglob("*.py"))
-    # the gadget layer, the PCD systems, Fp3 and the curves with an
-    # a-coefficient among them
+    # the gadget layer, the PCD systems, Fp3, the curves with an
+    # a-coefficient and the RAM systems among them
     for sub in ("gadgets/verifier_gadgets.py", "gadgets/hashes/knapsack.py",
                 "proof_systems/pcd.py", "proof_systems/mp_pcd.py",
-                "ops/fp3.py", "curves/mnt.py", "curves/edwards.py"):
+                "ops/fp3.py", "curves/mnt.py", "curves/edwards.py",
+                "relations/tinyram.py", "relations/fooram.py",
+                "relations/memory.py", "common/integer_permutation.py",
+                "common/routing.py", "gadgets/routing_gadgets.py",
+                "gadgets/tinyram_cpu_checker.py",
+                "gadgets/fooram_checker.py", "gadgets/ram_universal.py",
+                "relations/examples.py", "proof_systems/ram_ppzksnark.py",
+                "proof_systems/ram_zksnark.py", "gadgetlib2.py",
+                "interop.py"):
         assert REPO / "libsnark_tpu_torch" / sub in files, sub
     files.append(REPO / "chip_smoke.py")
     files.append(REPO / "scripts" / "probe_h100.py")

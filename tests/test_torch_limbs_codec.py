@@ -4,7 +4,9 @@ and their Python forms, against the JAX package's
 ``libsnark_tpu.ops.limbs`` at 16 and 24 limbs, in both directions.
 
 Values: 0, 1, p - 1 (alt_bn128 Fq at 16 limbs, BLS12-377 Fq at 24),
-2^(16 N) - 1, numpy integers, an empty list and 2^12 seeded values.
+2^(16 N) - 1, numpy integers, an empty list and 2^12 seeded values. With
+a modulus, the codec reduces negative ints and ints of p or more: held
+against x % p at every width (12, 16, 19, 24, 48 limbs).
 """
 import importlib.util
 import random
@@ -71,6 +73,46 @@ def test_ints_to_limbs_refuses_what_does_not_fit(encode):
     for bad in (-1, 1 << 256):
         with pytest.raises(OverflowError):
             encode([1, bad], 16)
+
+
+# every field width of the port -> a curve whose Fq has it (Fr alongside)
+WIDTHS = {12: "edwards", 16: "alt_bn128", 19: "mnt4", 24: "bls12_377",
+          48: "bw6_761"}
+
+
+@pytest.mark.parametrize("N", list(WIDTHS))
+@pytest.mark.parametrize("encode", [limbs.ints_to_limbs,
+                                    limbs._ints_to_limbs_py],
+                         ids=["codec", "python"])
+def test_ints_to_limbs_reduces_mod_p_where_asked(N, encode):
+    """ints_to_limbs(xs, N, p) (and its Python form, the comprehension the
+    codec replaced) equals the limbs of x % p (Python's %) for
+    negative ints, 0, p - 1, p, 2p + 5 and 2^(16 N) - 1, for numpy
+    integers and bools, and for seeded ints on both sides of p, at every
+    width and for both fields of the curve that has it (a modulus of
+    fewer limbs too); FpKernel.encode takes its limbs from it."""
+    from libsnark_tpu_torch.ops.fp import FpKernel
+    curve = get_curve(WIDTHS[N])
+    top = (1 << (16 * N)) - 1
+    rng = random.Random(N)
+    for params in (curve.fq_params, curve.fr_params):
+        p = params.p
+        xs = [-1, -p, -p - 3, -(1 << 70), 0, 1, p - 1, p, p + 1, 2 * p + 5,
+              top, (1 << 63) - 1, 1 << 63, -(1 << 63), np.int64(-5),
+              np.uint64((1 << 64) - 1), True] + [
+            rng.randrange(-top, top + 1) for _ in range(512)]
+        got = encode(xs, N, p)
+        want = jax_limbs.ints_to_limbs([int(x) % p for x in xs], N)
+        assert got.dtype == np.uint32 and got.flags.writeable
+        np.testing.assert_array_equal(got, want)
+        fk = FpKernel(params, "cpu")
+        if fk.N == N:
+            enc = fk.encode(xs, mont=False)
+            np.testing.assert_array_equal(enc.numpy().astype(np.uint32),
+                                          want)
+    if encode is limbs.ints_to_limbs:
+        with pytest.raises(ValueError, match="positive"):
+            encode([1], N, 0)
 
 
 @pytest.mark.parametrize("cxx", ["no-such-compiler", "false"])

@@ -13,7 +13,6 @@ satisfied. No outer Groth16 prove runs here: on a domain of 73,728 over
 runs it on the card. Tolerance: zero.
 """
 import gc
-import operator
 
 import pytest
 
@@ -32,7 +31,8 @@ from libsnark_tpu_torch.proof_systems.compliance_predicate import (
 from libsnark_tpu_torch.proof_systems.mp_pcd import MpPCD, vk_bits
 from libsnark_tpu_torch.proof_systems.pcd import SpPCD, SpPCDProvingKey
 
-from _torch_port import carry_vk, carry_vk_and_proof, trapdoor_groth16
+from _torch_port import (assert_same_board, carry_vk, carry_vk_and_proof,
+                         trapdoor_groth16)
 
 BN_R = int("21888242871839275222246405745257275088"
            "548364400416034343698204186575808495617")
@@ -53,26 +53,6 @@ def _one_thread():
 def curves():
     return (get_curve("bls12_377"), get_curve("bw6_761"),
             jax_get_curve("bls12_377"), jax_get_curve("bw6_761"))
-
-
-def _index_coeff(lc):
-    return (list(map(operator.attrgetter("index"), lc.terms)),
-            list(map(operator.attrgetter("coeff"), lc.terms)))
-
-
-def assert_same_board(pb, jpb):
-    """Constraint for constraint: the (index, coeff) terms of a, b and c
-    in order and the annotation; then the values and the variable
-    annotations, and the input size. Streamed: the circuit holds ~5.5e7
-    terms."""
-    assert pb.num_constraints == jpb.num_constraints
-    for i, (con, jcon) in enumerate(zip(pb.constraints, jpb.constraints)):
-        assert con[3] == jcon[3], i
-        for lc, jlc in zip(con[:3], jcon[:3]):
-            assert _index_coeff(lc) == _index_coeff(jlc), (i, con[3])
-    assert pb._values == jpb._values
-    assert pb._annotations == jpb._annotations
-    assert pb.num_inputs == jpb.num_inputs
 
 
 @pytest.fixture(scope="module")

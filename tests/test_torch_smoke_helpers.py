@@ -134,3 +134,21 @@ def test_device_events_read_the_raw_records():
     assert chip_smoke.device_events(prof) == [("k<8, 16>", 5.0, 7.5)]
     with pytest.raises(AttributeError):
         chip_smoke.device_events(NS(events=lambda: []))
+
+
+def test_phase_launches_add_up_and_each_needed_kernel_must_launch():
+    """phase_totals adds a path's phases; require_launched fails on a
+    needed kernel with no launch and on a launch of the public dbl or
+    aadd, and passes otherwise."""
+    phases = {"keygen": {"mont_mul_n16": 3, "madd_win_fp_n16": 1},
+              "prove": {"mont_mul_n16": 2, "bucket_reduce_fp_n16": 4}}
+    total = chip_smoke.phase_totals(phases)
+    assert total == {"mont_mul_n16": 5, "madd_win_fp_n16": 1,
+                     "bucket_reduce_fp_n16": 4}
+    chip_smoke.require_launched("ram", total, ["mont_mul_n16",
+                                               "bucket_reduce_fp_n16"])
+    with pytest.raises(AssertionError, match="not launched .*add_fp_n16"):
+        chip_smoke.require_launched("ram", total, ["add_fp_n16"])
+    with pytest.raises(AssertionError, match="public dbl / aadd .*dbl_fp"):
+        chip_smoke.require_launched("ram", dict(total, dbl_fp_n16=1),
+                                    ["mont_mul_n16"])
