@@ -160,6 +160,27 @@
    outer prove), and the verifier accepting it and rejecting it for a
    changed statement element; peak device memory of each phase; the
    outer prove's launches are the kernel table's "pcd" counts.
+6d'. Runs the single-predicate PCD over the MNT4 -> MNT6 cycle through
+   its entry points (pcd_cycle_path): CycleSpPCD with the tally predicate
+   of arity 1; the generator (the compliance circuit over Fr(MNT4):
+   110,298 constraints, a 2^17 domain; the translation circuit over
+   Fr(MNT6): 28,305 constraints, 2^15; device keygen of both Groth16 keys)
+   with its phases and both circuits' sizes; a base step (depth 0) and a
+   step consuming its translation proof (depth 1), each a compliance
+   prove over MNT4 and a translation prove over MNT6 with its phases (the
+   generator's boards re-witnessed, each checked on its key's device
+   R1CS), the second under the profiler (prove_pcd_cycle); the verifier
+   accepting the depth-1 proof and rejecting it for a changed payload
+   element. mont_mul and fp_addsub at 19 limbs must launch, no group
+   kernel may (the table's "pcd_cycle" counts). The path runs in a
+   spawned process of its own (PathProcess: its own launch counters,
+   profiler, device memory statistics and two verifier workers) beside
+   the mnt path, 6d and 6e, all host-bound. The two processes take turns
+   on the card (card_turn): the parent holds the card for each of its
+   timed or profiled phases, the path's process for each Groth16 call
+   that runs there and for its profiled step, so no measured phase shares
+   the card; host work overlaps. Its log lines are printed when it ends,
+   after 6e, and a failure there fails the run.
 6e. Runs the RAM systems through their entry points (ram_path), TinyRAM
    with 16 registers of 32 bits: the RAM ppzkSNARK (the universal circuit
    under BCTV14) over alt_bn128 on gen_ram_example_complex with
@@ -200,11 +221,12 @@
    (keygen, default and dense prove of each curve; KZG setup and commit +
    opening at 2^22): the order of the redesign PRs.
 
-Every verifier call (the paths' proof systems and the PCD; not KZG's)
-runs whole in one of six worker processes (VerifierPool), on a system made
-over the same curves on the CPU: the calls of one check (a proof accepted,
-each rejection) run at once, and each verdict comes back as a plain bool,
-read before the time it is logged under is taken.
+Every verifier call (the paths' proof systems, the PCDs and KZG10's
+verify_evaluation) runs whole in one of six worker processes
+(VerifierPool), on a system made over the same curves on the CPU: the
+calls of one check (a proof accepted, each rejection) run at once, and
+each verdict comes back as a plain bool, read before the time it is
+logged under is taken.
 
 Prints the kernel table as one JSON line, the card line, and last the
 line {"ok": true, "device": {...}}. Each row of the table names in "path"
@@ -212,7 +234,8 @@ the run its "launches" were counted in: the alt_bn128, the bls12_377 or the
 bw6_761 Groth16 path (keygen + both proves), the mnt4 or edwards Groth16
 path (the n19 and n12 rows: keygen + both proves), "<system>_alt_bn128" (the
 BCTV14, GM17, DFGK14 and ADSNARK paths: keygen + prove), "pcd" (the
-SpPCD's outer prove over BW6-761), "ram_ppzksnark_alt_bn128" and
+SpPCD's outer prove over BW6-761), "pcd_cycle" (the cycle PCD's
+generator and two steps over MNT4 and MNT6), "ram_ppzksnark_alt_bn128" and
 "ram_zksnark_bls12_377" (the RAM systems: keygen + prove),
 "fixed_base_loop_<curve>" (the
 single-launch madd: the keygen's fixed base as the per-window loop),
@@ -229,6 +252,7 @@ kzg_alt_bn128: setup + commit + opening) among them; "path_ms" and
 "path_bound_ms" the device time and bound of its launches in each
 profiled path (keygen_<curve>, prove_<curve>, prove_dense_<curve>,
 keygen_<system>_alt_bn128, prove_<system>_alt_bn128, prove_pcd,
+prove_pcd_cycle,
 keygen_ram_ppzksnark_alt_bn128, prove_ram_ppzksnark_alt_bn128,
 keygen_ram_zksnark_bls12_377, prove_ram_zksnark_bls12_377,
 kzg_setup_bls12_377, kzg_bls12_377). Any failed check raises: exit
@@ -244,7 +268,9 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
+import functools
 import io
 import json
 import multiprocessing
@@ -363,8 +389,73 @@ SOURCE.update({name: "libsnark_tpu_torch/csrc/probe_layout.cu"
                for name in TPU_KERNEL if name not in SOURCE})
 
 
+# set in a path's own process (PathProcess): log() keeps the lines there
+# for the parent to print
+LOG_LINES = None
+
+
 def log(*a):
+    if LOG_LINES is not None:
+        LOG_LINES.append(" ".join(map(str, a)))
+        return
     print(*a, flush=True)
+
+
+# The card's turns while a path runs in a process of its own (PathProcess):
+# one lock of the two processes. The parent holds it for each of its timed
+# or profiled phases, the path's process for each of its calls that run on
+# the card (on_card) and for its profiled phase, so no measured phase
+# shares the card with the other process; their host work overlaps.
+CARD = None             # (lock, "the path's process waits" event, the
+                        # other process), or None while one process runs
+IN_PATH_PROCESS = False
+_TURN_DEPTH = 0         # nested turns hold the lock once
+TURN_WAITED = 0.0       # seconds this process has waited for its turns
+
+
+@contextlib.contextmanager
+def card_turn():
+    """Holds the card's turn (a no-op while no path runs in a process of
+    its own). The parent gives way to the path's process when that one
+    waits; either fails if the other process ends while it waits."""
+    global _TURN_DEPTH, TURN_WAITED
+    if CARD is None or _TURN_DEPTH:
+        _TURN_DEPTH += 1
+        try:
+            yield
+        finally:
+            _TURN_DEPTH -= 1
+        return
+    lock, waiting, peer = CARD
+    t0 = time.perf_counter()
+    if IN_PATH_PROCESS:
+        waiting.set()
+    try:
+        while not IN_PATH_PROCESS and waiting.is_set() and peer.is_alive():
+            time.sleep(0.005)
+        while not lock.acquire(timeout=1.0):
+            if not peer.is_alive():
+                raise AssertionError("the card's turn: the other process "
+                                     "ended while holding it")
+    finally:
+        if IN_PATH_PROCESS:
+            waiting.clear()
+    TURN_WAITED += time.perf_counter() - t0
+    _TURN_DEPTH += 1
+    try:
+        yield
+    finally:
+        _TURN_DEPTH -= 1
+        lock.release()
+
+
+def on_card(fn):
+    """fn, each call in the card's turn."""
+    @functools.wraps(fn)
+    def turn(*a, **kw):
+        with card_turn():
+            return fn(*a, **kw)
+    return turn
 
 
 def rate_bound_ms(per_step: dict, steps: int, wide: float) -> float:
@@ -1546,6 +1637,7 @@ class VerifierPool:
         arguments ps was made with, other than its curves and device): a
         future of its bool."""
         curves = ((ps.inner.name, ps.outer.name) if hasattr(ps, "inner")
+                  else (ps.A.name, ps.B.name) if hasattr(ps, "A")
                   else (ps.curve.name,))
         cls = type(ps)
         return self.pool.submit(verify_worker, host_dumps(
@@ -1811,16 +1903,24 @@ def timed_phase(phases: dict, label: str, fn):
     (phases[label]); logs its wall time, its phases, the peak device memory
     and the launches."""
     from libsnark_tpu_torch.ops import launch_counts, reset_launch_counts
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    timings = {}
-    t0 = time.perf_counter()
-    out = fn(timings)
-    wall = time.perf_counter() - t0
+    waited = TURN_WAITED
+    # the path's process takes its turns in the phase, around its calls
+    # that run on the card (their waits are in its wall time)
+    with contextlib.nullcontext() if IN_PATH_PROCESS else card_turn():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        timings = {}
+        t0 = time.perf_counter()
+        out = fn(timings)
+        wall = time.perf_counter() - t0
     phases[label] = {k: v for k, v in launch_counts().items() if v}
     log(f"  {label} {wall:.3f} s: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()))
+    if TURN_WAITED > waited:
+        log(f"  {label}: waited {TURN_WAITED - waited:.3f} s for the card's "
+            "turn (" + ("in" if IN_PATH_PROCESS else "before") + " its wall "
+            "time)")
     log(f"  {label}: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
         + json.dumps(phases[label]))
@@ -1925,8 +2025,9 @@ def generic_a_path(curve, log2: int, paths: dict, circuit) -> dict:
     g16 = Groth16(curve)            # device="cuda", msm_strategy="segments"
     for ck, group, k in ((g16.g1, curve.G1, 37), (g16.g2, curve.G2, 91)):
         P = ck.encode_points([group.one(), group.zero()])
-        if ck.decode_points(ck.scalar_mul_const(P, k), group) != [
-                group.one() * k, group.zero()]:
+        with card_turn():
+            Pk = ck.decode_points(ck.scalar_mul_const(P, k), group)
+        if Pk != [group.one() * k, group.zero()]:
             raise AssertionError(f"scalar_mul_const {curve.name} "
                                  f"{group.name} differs from the host")
     log(f"  scalar_mul_const G1 (37) and G2 (91) == host multiples "
@@ -1974,8 +2075,9 @@ def mnt_path(args, K, gen, paths: dict, circuits: dict) -> dict:
     t0 = time.perf_counter()
     for name in GENERIC_A_CURVES:
         g16 = Groth16(get_curve(name))
-        check_mont_mul(g16.fr, g16.fq, K, gen)
-        check_fp_addsub(g16.fr, g16.fq, K, gen)
+        with card_turn():
+            check_mont_mul(g16.fr, g16.fq, K, gen)
+            check_fp_addsub(g16.fr, g16.fq, K, gen)
     log(f"  check mont_mul and fp_addsub at n19 / n12: "
         f"{time.perf_counter() - t0:.1f} s")
     out, pending = {}, {}
@@ -2291,6 +2393,209 @@ def pcd_path(paths: dict) -> dict:
                                       "horner_combine")]
     require_launched("pcd: the outer prove", counts, need)
     return {"pcd": counts}
+
+
+def board_size(pb) -> str:
+    """A protoboard's constraints, inputs, variables and linear terms."""
+    terms = sum(len(a.terms) + len(b.terms) + len(c.terms)
+                for a, b, c, _ in pb.constraints)
+    return (f"{pb.num_constraints} constraints, {pb.num_inputs} inputs, "
+            f"{pb.num_variables} variables, {terms} linear terms")
+
+
+def pcd_cycle_path(paths: dict) -> dict:
+    """The single-predicate PCD over the MNT4 -> MNT6 cycle (CycleSpPCD)
+    through its entry points, the shape of scripts/e2e_pcd_cycle.py: the
+    tally compliance predicate of arity 1; generator(seed=31) with device
+    keygen of the compliance key over MNT4 and the translation key over
+    MNT6, its phases (each circuit's host build, each keygen's _host_qap,
+    fixed base and _host_rest) and both circuits' sizes; a base step
+    (depth 0: local [5], no incoming proof) and a step that consumes the
+    base step's translation proof (depth 1: local [10]), each a compliance
+    prove over MNT4 and a translation prove over MNT6 with its phases
+    (build, witness, the check on the device R1CS, prove), the second under
+    the device profiler (paths["prove_pcd_cycle"]); the verifier accepts
+    the depth-1 proof and rejects it with one payload element changed (the
+    verdicts read in the logged time). Each phase: counts set to 0 just
+    before and read just after, peak device memory. mont_mul and fp_addsub
+    at 19 limbs must launch, and no group kernel (a != 0 on both curves).
+    Returns {"pcd_cycle": the launches of the generator and both steps}."""
+    import gc
+    from libsnark_tpu_torch.proof_systems.compliance_predicate import (
+        PCDLocalData, PCDMessage, TallyCompliancePredicate)
+    from libsnark_tpu_torch.proof_systems.pcd_cycle import (
+        CyclePCDProof, CycleSpPCD)
+    from libsnark_tpu_torch.reductions.r1cs_to_qap import qap_domain
+    t_path = time.perf_counter()
+    # ~2 x 10^8 linear terms: the collector's full passes over them would
+    # take longer than building them
+    gc.collect()
+    gc.freeze()
+    gc.disable()
+    try:
+        pcd = CycleSpPCD()                     # MNT4 -> MNT6, device="cuda"
+        A = pcd.A
+
+        def tally():
+            h = TallyCompliancePredicate(A.r, max_arity=1)
+            h.generate_r1cs_constraints()
+            return h
+
+        handler = tally()
+        log(f"pcd_cycle path: TallyCompliancePredicate(max_arity=1) over "
+            f"MNT4's r: {handler.get_constraint_system().num_constraints} "
+            f"constraints; CycleSpPCD over {pcd.A.name} -> {pcd.B.name}")
+        phases = {}
+        pk, vk = timed_phase(phases, "generator", lambda t: pcd.generator(
+            handler, seed=31, timings=t))
+        for side, g16, kp, board in (
+                ("compliance", pcd.g16_a, pk.kp_a, pcd.compliance_board(
+                    pk.handler_cs, pk.max_arity, pk.msg_size, pk.base_case)),
+                ("translation", pcd.g16_b, pk.kp_b,
+                 pcd.translation_board(pk.kp_a.vk))):
+            dev = kp.pk.r1cs_dev
+            domain = g16.domain_for(qap_domain, dev)
+            log(f"  {side} circuit over {g16.curve.name}'s r: "
+                f"{board_size(board['pb'])}; "
+                f"{sum(int(m.rows.numel()) for m in (dev.A, dev.B, dev.C))} "
+                f"merged nonzeros, domain {type(domain).__name__} m = "
+                f"{domain.m}")
+        steps = []
+        for depth, local in enumerate((5, 10)):
+            incoming = steps[-1:]
+
+            def step(t, incoming=incoming, local=local):
+                return pcd.prover(pk, tally(), incoming,
+                                  PCDLocalData([local]), seed=11 + depth,
+                                  timings=t)
+
+            label = f"step[{depth}]"
+            if depth == 1:
+                proof = timed_phase(phases, label, lambda t: path_timing(
+                    "prove_pcd_cycle", lambda: step(t), paths))
+            else:
+                proof = timed_phase(phases, label, step)
+            log(f"  depth {depth}: message type {proof.msg.type}, payload "
+                f"{proof.msg.payload}")
+            steps.append(proof)
+        if [p.msg.payload for p in steps] != [[5, 1], [15, 2]]:
+            raise AssertionError(f"pcd_cycle: tally payloads "
+                                 f"{[p.msg.payload for p in steps]}")
+        proof = steps[-1]
+        bad_msg = PCDMessage(proof.msg.type, [proof.msg.payload[0] + 1]
+                             + list(proof.msg.payload[1:]))
+        bad = CyclePCDProof(msg=bad_msg,
+                            translation_proof=proof.translation_proof)
+        t0 = time.perf_counter()
+        ok, bad_ok = VERIFIERS.verdicts(pcd, [
+            ("verifier", (vk, proof.msg, proof)),
+            ("verifier", (vk, bad_msg, bad))])
+        log(f"  verify {time.perf_counter() - t0:.2f} s (host, two calls in "
+            f"workers, verdicts read): accepted={ok} "
+            f"changed-payload-rejected={not bad_ok}")
+        if not ok or bad_ok:
+            raise AssertionError("pcd_cycle verification checks failed")
+    finally:
+        gc.enable()
+        gc.unfreeze()
+    total = phase_totals(phases)
+    group_kernels = [key for key, n in total.items()
+                     if n and not key.startswith(("mont_mul_", "fp_addsub_"))]
+    if group_kernels:
+        raise AssertionError(f"pcd_cycle: group kernels launched on the MNT "
+                             f"cycle (a != 0): {group_kernels}")
+    require_launched("pcd_cycle", total, [
+        f"mont_mul_n{pcd.g16_a.fq.N}", f"fp_addsub_n{pcd.g16_a.fq.N}"])
+    log(f"pcd_cycle path {time.perf_counter() - t_path:.1f} s")
+    return {"pcd_cycle": total}
+
+
+def cycle_path_process(conn, lock, waiting):
+    """pcd_cycle_path in a process of its own (PathProcess): the kernels
+    the parent built, two verifier workers of its own; Groth16's calls that
+    run on the card (the QAP at t, the fixed-base queries, the check on the
+    device R1CS, the prove) and the field's Montgomery conversion (the
+    device R1CS's coefficients) each take the card's turn (lock, waiting:
+    card_turn's); only the copies of host arrays to the card run outside
+    the turns. Sends ("ok", launches, paths, log lines) or ("error",
+    traceback, None, log lines)."""
+    global LOG_LINES, VERIFIERS, CARD, IN_PATH_PROCESS
+    import traceback
+    LOG_LINES = []
+    CARD = (lock, waiting, multiprocessing.parent_process())
+    IN_PATH_PROCESS = True
+    try:
+        from libsnark_tpu_torch.ops import cuda_lib
+        from libsnark_tpu_torch.ops.fp import FpKernel
+        from libsnark_tpu_torch.proof_systems import groth16
+        FpKernel.to_mont = on_card(FpKernel.to_mont)
+        for name in ("prover", "first_unsatisfied", "fixed_base_g1",
+                     "fixed_base_g2", "fixed_base_points_g1"):
+            setattr(groth16.Groth16, name,
+                    on_card(getattr(groth16.Groth16, name)))
+        groth16.qap_instance_map_on_device = on_card(
+            groth16.qap_instance_map_on_device)
+        cuda_lib.build_all()
+        VERIFIERS = VerifierPool(2)
+        try:
+            paths = {}
+            counts = pcd_cycle_path(paths)
+            log(f"  pcd_cycle path: waited {TURN_WAITED:.1f} s in all for "
+                "the card's turns")
+        finally:
+            VERIFIERS.shutdown()
+        conn.send(("ok", counts, paths, LOG_LINES))
+    except BaseException:
+        conn.send(("error", traceback.format_exc(), None, LOG_LINES))
+    finally:
+        conn.close()
+
+
+class PathProcess:
+    """A path run in a spawned process beside the parent's paths (its own
+    launch counters, profiler and device memory statistics), the two
+    taking turns on the card (CARD) until result() or stop(); result()
+    prints its log lines and returns its (launches, paths), or raises its
+    failure; stop() ends it if it is still running."""
+
+    def __init__(self, target):
+        global CARD
+        ctx = multiprocessing.get_context("spawn")
+        self.t0 = time.perf_counter()
+        self.conn, child = ctx.Pipe(duplex=False)
+        lock, waiting = ctx.Lock(), ctx.Event()
+        self.proc = ctx.Process(target=target, args=(child, lock, waiting))
+        self.proc.start()
+        child.close()
+        CARD = (lock, waiting, self.proc)
+
+    def result(self):
+        global CARD
+        t_wait = time.perf_counter()
+        try:
+            status, a, b, lines = self.conn.recv()
+        except EOFError:
+            self.proc.join()
+            raise AssertionError(f"{self.proc.name} ended without a result "
+                                 f"(exit code {self.proc.exitcode})")
+        self.proc.join()
+        CARD = None
+        log(f"--- from its own process ({time.perf_counter() - self.t0:.1f}"
+            f" s from its start to its result, {time.perf_counter() - t_wait:.1f}"
+            f" s of them waited for; the parent waited {TURN_WAITED:.1f} s "
+            "in all for the card's turns):")
+        for line in lines:
+            log(line)
+        if status != "ok":
+            raise AssertionError(f"the path in its own process failed:\n{a}")
+        return a, b
+
+    def stop(self):
+        global CARD
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
+        CARD = None
 
 
 # the RAM path's sizes: TinyRAM with 16 registers of 32 bits; the RAM
@@ -2703,17 +3008,22 @@ def kzg_open_and_verify(kzg, srs, coeffs, z, label):
     v, W = kzg.create_evaluation_witness(srs, coeffs, z)
     t2 = time.perf_counter()
     peak_open = torch.cuda.max_memory_allocated()
-    ok = bool(kzg.verify_evaluation(srs, C, z, v, W))
-    checks = {"accepted": ok}
+    # the verifier reads [alpha]_2 alone: the workers get the SRS without
+    # its device powers
+    host_srs = dataclasses.replace(srs, alpha_powers_g1=None)
+    calls = {"accepted": (host_srs, C, z, v, W)}
     if any(c % r for c in coeffs[1:]):
-        checks["wrong-value-rejected"] = not kzg.verify_evaluation(
-            srs, C, z, (v + 1) % r, W)
-        checks["wrong-point-rejected"] = not kzg.verify_evaluation(
-            srs, C, (z + 1) % r, v, W)
+        calls["wrong-value-rejected"] = (host_srs, C, z, (v + 1) % r, W)
+        calls["wrong-point-rejected"] = (host_srs, C, (z + 1) % r, v, W)
+    verdicts = VERIFIERS.verdicts(kzg, [("verify_evaluation", args)
+                                        for args in calls.values()])
+    checks = {k: ok if k == "accepted" else not ok
+              for k, ok in zip(calls, verdicts)}
     log(f"  {label} ({len(coeffs)} coefficients): commit {t1 - t0:.3f} s "
         f"(peak {peak_commit / 2**30:.2f} GiB), open {t2 - t1:.3f} s "
         f"(peak {peak_open / 2**30:.2f} GiB), verify "
-        f"{time.perf_counter() - t2:.2f} s (host): "
+        f"{time.perf_counter() - t2:.2f} s (host, the calls at once in "
+        f"workers, verdicts read): "
         + " ".join(f"{k}={v}" for k, v in checks.items()))
     if not all(checks.values()):
         raise AssertionError(f"KZG10 checks failed ({label}): {checks}")
@@ -3080,12 +3390,13 @@ def path_timing(label: str, fn, paths: dict):
     device record; else it fails. A wrapper that counts a launch it did
     not make (the runtime sees no launch) or launches without counting
     still fails."""
-    out, rows, busy, wall, differ, lost, others = profiled_rows(fn)
-    if differ:
-        log(f"  path {label}: profiled / launched differ {differ}; runtime "
-            f"kernel launches without a device record: {lost}; profiling "
-            "the path once more")
+    with card_turn():
         out, rows, busy, wall, differ, lost, others = profiled_rows(fn)
+        if differ:
+            log(f"  path {label}: profiled / launched differ {differ}; "
+                f"runtime kernel launches without a device record: {lost}; "
+                "profiling the path once more")
+            out, rows, busy, wall, differ, lost, others = profiled_rows(fn)
     if differ:
         unrecorded = sum(n - p for p, n in differ.values())
         if unrecorded > lost or any(
@@ -3412,6 +3723,7 @@ def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
     circuits = systems_circuits(args.systems_log2, args.new_log2,
                                 args.adsnark_log2, args.mnt_log2,
                                 args.edwards_log2)
+    cycle = None
     try:
         for name, log2 in curves.items():
             counts, yardsticks = main_path(get_curve(name), log2, paths)
@@ -3448,18 +3760,32 @@ def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
             for key, n in yard.items():
                 K.count(key, label, n)
         log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
+        # the cycle PCD path runs in its own process beside the mnt, PCD
+        # and RAM paths (all four host-bound, 73-99 % idle on the card),
+        # the two processes taking turns on the card
+        log("pcd_cycle path: started in its own process, beside the mnt, "
+            "pcd and ram paths")
+        cycle = PathProcess(cycle_path_process)
         for name, counts in mnt_path(args, K, gen, paths, circuits).items():
             for key, n in counts.items():
                 # mont_mul_n19 keeps the MNT4 path's count
                 K.count(key, name, n)
+        log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
+        for label, counts in pcd_path(paths).items():
+            for key, n in counts.items():
+                K.count(key, label, n)
+        log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
+        for label, counts in ram_path(paths, args.ram_steps).items():
+            for key, n in counts.items():
+                K.count(key, label, n)
+        log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
+        cycle_counts, cycle_paths = cycle.result()
     finally:
         stop_workers(circuits)
-    log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
-    for label, counts in pcd_path(paths).items():
-        for key, n in counts.items():
-            K.count(key, label, n)
-    log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
-    for label, counts in ram_path(paths, args.ram_steps).items():
+        if cycle is not None:
+            cycle.stop()
+    paths.update(cycle_paths)
+    for label, counts in cycle_counts.items():
         for key, n in counts.items():
             K.count(key, label, n)
     log(f"  elapsed {time.perf_counter() - t_start:.1f} s")

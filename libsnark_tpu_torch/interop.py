@@ -30,6 +30,12 @@ host points as integer coordinates, their
 sparse matrices as (rows, cols, coeffs) -- R1CS "A" / "B" / "C", SAP "A" /
 "C" / "AB_diff", SSP "V" -- and their sizes.
 
+``cycle_pcd_verification_key_from_ints`` and ``cycle_pcd_proof_from_ints``
+build the MNT-cycle PCD's verification key (the translation circuit's
+Groth16 key over curve B and the message size) and a PCD proof (the
+message and the translation proof) from integer coordinates, so a key and
+a proof made elsewhere can be checked by ``CycleSpPCD.verifier``.
+
 ``ram_ppzksnark_keypair_from_numpy`` builds a RAM ppzkSNARK keypair: the
 BCTV14 proving key as above, wrapped with the TinyRAM shape (w, k), the
 boot-trace size bound and the time bound, and the BCTV14 verification key
@@ -48,7 +54,10 @@ from .ops.limbs import to_torch
 from .polynomial_commitments.kzg10 import KZG10SRS
 from .proof_systems import adsnark, bctv14, dfgk14, gm17
 from .common.sparse_vector import AccumulationVector
-from .proof_systems.groth16 import Groth16ProvingKey
+from .proof_systems.compliance_predicate import PCDMessage
+from .proof_systems.groth16 import (
+    Groth16Proof, Groth16ProvingKey, Groth16VerificationKey)
+from .proof_systems.pcd_cycle import CyclePCDProof, CyclePCDVerificationKey
 from .proof_systems.ram_ppzksnark import (
     RAMPpzksnarkKeypair, RAMPpzksnarkProvingKey)
 from .reductions.r1cs_to_sap import SAPDevice
@@ -227,3 +236,38 @@ def srs_from_numpy(curve, alpha_powers_g1, alpha_g2, degree: int,
     return KZG10SRS(
         alpha_powers_g1=tuple(to_torch(a, dev) for a in (x, y, inf)),
         alpha_g2=_g2(curve, alpha_g2), degree=degree)
+
+
+def _g1_or_zero(curve, xy):
+    return curve.G1.zero() if xy is None else _g1(curve, xy)
+
+
+def _g2_or_zero(curve, xy):
+    return curve.G2.zero() if xy is None else _g2(curve, xy)
+
+
+def cycle_pcd_verification_key_from_ints(curve_b, points: dict,
+                                         msg_size: int):
+    """The MNT-cycle PCD verification key over curve_b (the translation
+    side, MNT6 for the default cycle): alpha_g1 as (x, y); beta_g2,
+    gamma_g2 and delta_g2 as G2 coordinates (see ``_g2``); gamma_ABC a
+    list of (x, y), None for the point at infinity."""
+    vk_b = Groth16VerificationKey(
+        alpha_g1=_g1_or_zero(curve_b, points["alpha_g1"]),
+        **{n: _g2_or_zero(curve_b, points[n])
+           for n in ("beta_g2", "gamma_g2", "delta_g2")},
+        gamma_ABC=[_g1_or_zero(curve_b, xy) for xy in points["gamma_ABC"]])
+    return CyclePCDVerificationKey(vk_b=vk_b, msg_size=msg_size)
+
+
+def cycle_pcd_proof_from_ints(curve_b, msg_type: int, payload,
+                              proof: dict):
+    """An MNT-cycle PCD proof: the message (its type and payload as
+    integers) and the translation proof over curve_b (g_A and g_C as
+    (x, y), g_B as G2 coordinates; None for infinity)."""
+    return CyclePCDProof(
+        msg=PCDMessage(type=int(msg_type), payload=[int(v) for v in payload]),
+        translation_proof=Groth16Proof(
+            g_A=_g1_or_zero(curve_b, proof["g_A"]),
+            g_B=_g2_or_zero(curve_b, proof["g_B"]),
+            g_C=_g1_or_zero(curve_b, proof["g_C"])))

@@ -16,7 +16,8 @@ SNARK curve's G1 with SHA-256 (the default), or RFC 8032 Ed25519
 Both hash ``str()`` of host points, so the host points print exactly as
 the JAX package's do.
 
-On the card: the eight queries by device fixed-base batch exp at keygen
+On the card: the QAP evaluated at t (the device R1CS's transposed
+products) and the eight queries by device fixed-base batch exp at keygen
 (``madd_win`` over ``dbl_chain`` window tables), and at prove time the
 ZK-patched QAP witness map and ten MSMs (BCTV14's eight plus A.g and A.h
 over the input-only assignment). The authentication layer, muA, the final
@@ -37,7 +38,7 @@ from .base import PairingSystem, PhaseClock
 from ..common.knowledge_commitment import KnowledgeCommitment
 from ..ops.msm import default_window_bits
 from ..reductions.r1cs_to_qap import (
-    qap_domain, qap_instance_map_with_evaluation, qap_witness_map_zk)
+    qap_domain, qap_instance_map_on_device, qap_witness_map_zk)
 
 QUERIES = ("A_query_g", "A_query_h", "B_query_g", "B_query_h", "C_query_g",
            "C_query_h", "H_query", "K_query")
@@ -245,8 +246,8 @@ class ADSNARK(PairingSystem):
         curve, r = self.curve, self.curve.r
         cs.swap_AB_if_beneficial()
         domain = self.domain_for(qap_domain, cs)
-        compacted = cs.compacted()
-        qap = qap_instance_map_with_evaluation(cs, domain, t, compacted)
+        r1cs_dev = cs.to_device(self.fr)
+        qap = qap_instance_map_on_device(r1cs_dev, domain, t)
         nv, k = qap.num_variables, qap.num_inputs
         rC = rA * rB % r
         G1, G2 = curve.G1.one(), curve.G2.one()
@@ -273,7 +274,7 @@ class ADSNARK(PairingSystem):
         clock.lap("keygen_fixed_base")
 
         pk = ADSNARKProvingKey(rA_i_Z_g1=prms.I1 * (rA * qap.Zt % r),
-                               r1cs_dev=cs.to_device(self.fr, compacted),
+                               r1cs_dev=r1cs_dev,
                                **queries)
         vk = ADSNARKVerificationKey(
             alphaA_g2=G2 * alphaA, alphaB_g1=G1 * alphaB,

@@ -97,6 +97,22 @@ class PairingSystem:
         self._fixed_tables = {}
         self._domains = {}
 
+    def first_unsatisfied(self, r1cs_dev, pb) -> Optional[str]:
+        """Protoboard.first_unsatisfied's verdict and message, checked on
+        the device R1CS of the board's constraint system (a proving key's
+        ``r1cs_dev``): "constraint {i}: {annotation}" for the first
+        unsatisfied constraint, or None."""
+        if r1cs_dev.num_constraints != pb.num_constraints or \
+                r1cs_dev.num_variables != pb.num_variables:
+            raise ValueError("the device R1CS is not the board's: "
+                             f"{r1cs_dev.num_constraints} constraints and "
+                             f"{r1cs_dev.num_variables} variables against "
+                             f"{pb.num_constraints} and {pb.num_variables}")
+        r = self.curve.r
+        full = [1] + [v % r for v in pb.full_assignment()[1:]]
+        i = r1cs_dev.first_unsatisfied_row(self.fr, self.fr.encode(full))
+        return None if i is None else f"constraint {i}: {pb.constraints[i][3]}"
+
     # mirrors the reference's force_pow_2_domain option
     force_pow_2 = False
 

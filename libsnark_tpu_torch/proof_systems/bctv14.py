@@ -10,9 +10,9 @@ affine queries whose zero entries are points at infinity, as in the JAX
 package: the Pippenger kernels skip bucket 0, and the infinity-aware
 additions cover the reference's zero-skip special cases.
 
-* generator: secrets and the QAP evaluation on the host, the eight queries
-  by device fixed-base batch exp (``madd_win`` over ``dbl_chain`` window
-  tables);
+* generator: secrets on the host, the QAP evaluated at t as the device
+  R1CS's transposed products, the eight queries by device fixed-base
+  batch exp (``madd_win`` over ``dbl_chain`` window tables);
 * prover: the ZK-patched QAP witness map (``qap_witness_map_zk``) and
   eight MSMs (A.g, A.h, B.g in G2, B.h, C.g, C.h, H, K), then the d1, d2,
   d3 terms and the final sums on the host;
@@ -31,7 +31,7 @@ from ..common.knowledge_commitment import KnowledgeCommitment
 from ..common.sparse_vector import AccumulationVector
 from ..ops.msm import default_window_bits
 from ..reductions.r1cs_to_qap import (
-    qap_domain, qap_instance_map_with_evaluation, qap_witness_map_zk)
+    qap_domain, qap_instance_map_on_device, qap_witness_map_zk)
 
 QUERIES = ("A_query_g", "A_query_h", "B_query_g", "B_query_h", "C_query_g",
            "C_query_h", "H_query", "K_query")
@@ -100,8 +100,8 @@ class BCTV14(PairingSystem):
         curve, r = self.curve, self.curve.r
         cs.swap_AB_if_beneficial()
         domain = self.domain_for(qap_domain, cs)
-        compacted = cs.compacted()
-        qap = qap_instance_map_with_evaluation(cs, domain, t, compacted)
+        r1cs_dev = cs.to_device(self.fr)
+        qap = qap_instance_map_on_device(r1cs_dev, domain, t)
         nv, k = qap.num_variables, qap.num_inputs
         rC = rA * rB % r
         G1, G2 = curve.G1.one(), curve.G2.one()
@@ -130,7 +130,7 @@ class BCTV14(PairingSystem):
             K_query=fb1(G1, Kt))
         clock.lap("keygen_fixed_base")
 
-        pk = BCTV14ProvingKey(r1cs_dev=cs.to_device(self.fr, compacted),
+        pk = BCTV14ProvingKey(r1cs_dev=r1cs_dev,
                               **queries)
         vk = BCTV14VerificationKey(
             alphaA_g2=G2 * alphaA, alphaB_g1=G1 * alphaB,

@@ -2,8 +2,9 @@
 libsnark_tpu/proof_systems/groth16.py; reference r1cs_gg_ppzksnark.tcc:
 generator :226/:430, prover :464, verifiers :605-745).
 
-* generator: secrets + QAP evaluation on the host (once per circuit), all
-  query exponentiations and the verification key's gamma_ABC as device
+* generator: secrets on the host, the QAP evaluated at t as the device
+  R1CS's transposed products (once per circuit), all query
+  exponentiations and the verification key's gamma_ABC as device
   fixed-base batch exp over window tables built on the device;
 * prover: QAP witness map on the device (mont_mul kernel under the NTT and
   the mat-vecs), the A / B1 / H / L G1 MSMs and the B G2 MSM (bucket
@@ -24,7 +25,7 @@ from typing import Optional
 from .base import PairingSystem, PhaseClock
 from ..ops.msm import default_window_bits
 from ..reductions.r1cs_to_qap import (
-    qap_domain, qap_instance_map_with_evaluation, qap_witness_map)
+    qap_domain, qap_instance_map_on_device, qap_witness_map)
 
 
 @dataclasses.dataclass
@@ -105,8 +106,8 @@ class Groth16(PairingSystem):
         curve, r = self.curve, self.curve.r
         cs.swap_AB_if_beneficial()
         domain = self.domain_for(qap_domain, cs)
-        compacted = cs.compacted()
-        qap = qap_instance_map_with_evaluation(cs, domain, t, compacted)
+        r1cs_dev = cs.to_device(self.fr)
+        qap = qap_instance_map_on_device(r1cs_dev, domain, t)
         m, nv, k = qap.degree, qap.num_variables, qap.num_inputs
 
         gamma_inv = pow(gamma, -1, r)
@@ -132,7 +133,7 @@ class Groth16(PairingSystem):
             delta_g1=G1 * delta, delta_g2=G2 * delta,
             A_query=A_query, B_query_g2=B_query_g2, B_query_g1=B_query_g1,
             H_query=H_query, L_query=L_query,
-            r1cs_dev=cs.to_device(self.fr, compacted))
+            r1cs_dev=r1cs_dev)
         vk = Groth16VerificationKey(
             alpha_g1=G1 * alpha, beta_g2=G2 * beta, gamma_g2=G2 * gamma,
             delta_g2=G2 * delta, gamma_ABC=gamma_ABC)

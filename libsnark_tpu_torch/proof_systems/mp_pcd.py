@@ -248,7 +248,8 @@ class MpPCD:
             slot["memb"].generate_r1cs_witness()
         # re-pin the public root (check-read recomputes into the digest)
         h["root"].generate_r1cs_witness(pk.vk_root)
-        bad = pb.first_unsatisfied()
+        bad = self.g16_outer.first_unsatisfied(
+            pk.outer_keypair.pk.r1cs_dev, pb)
         assert bad is None, f"mp aggregation unsatisfied: {bad}"
         outer_proof = self.g16_outer.prover(
             pk.outer_keypair.pk, pb.primary_input(),

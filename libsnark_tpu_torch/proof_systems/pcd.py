@@ -2,9 +2,9 @@
 
 The reference's PCD systems (r1cs_sp_ppzkpcd / r1cs_mp_ppzkpcd) recurse
 over the MNT4/MNT6 2-CYCLE: each curve's verifier is embedded in the
-other's circuit, giving unbounded depth. The JAX package instantiates
-that cycle (its proof_systems/pcd_cycle.py over curves/mnt.py); the port
-does not have it yet. This module provides the
+other's circuit, giving unbounded depth. That cycle IS instantiated in
+this framework -- see proof_systems/pcd_cycle.py (curves/mnt.py) for the
+unbounded-depth system. This module provides the
 complementary modern ONE-LAYER composition the Clearmatics fork targets
 with its BW6-761/BLS12-377 gadgets:
 
@@ -204,14 +204,16 @@ class SpPCD(OneLayerPCD):
         proof (the r1cs_sp_ppzkpcd prover's translation step).
         timings: optional dict that receives wall seconds of rebuild (the
         aggregation circuit), witness (the verifier gadgets' witnesses and
-        the satisfaction check) and outer_prove, and the outer prove's own
+        the satisfaction check on the outer key's device R1CS) and
+        outer_prove, and the outer prove's own
         phases as outer.<phase>."""
         clock = PhaseClock(timings, self.g16_outer.device)
         assert len(inner_proofs) == pk.num_proofs
         pb, _, _ = self.aggregation_witness(
             pk.inner_keypair.vk, pk.num_input_bits, statements,
             inner_proofs, clock)
-        bad = pb.first_unsatisfied()
+        bad = self.g16_outer.first_unsatisfied(
+            pk.outer_keypair.pk.r1cs_dev, pb)
         assert bad is None, f"aggregation circuit unsatisfied: {bad}"
         clock.lap("witness")
         outer_t = None if timings is None else {}

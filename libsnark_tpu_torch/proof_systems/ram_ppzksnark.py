@@ -61,8 +61,8 @@ class RAMPpzksnark(BCTV14):
                    timings: Optional[dict] = None):
         """Runs the program, routes the memory permutation, proves.
         timings: optional dict that receives wall seconds of ram_build,
-        ram_witness (execution, routing and the satisfaction check) and
-        the BCTV14 prover's phases."""
+        ram_witness (execution, routing and the satisfaction check on the
+        proving key's device R1CS) and the BCTV14 prover's phases."""
         clock = PhaseClock(timings, self.device)
         pb, g = ram_to_r1cs_instance_map(
             self.curve.r, pk.ap, pk.boot_trace_size_bound, pk.time_bound)
@@ -70,7 +70,8 @@ class RAMPpzksnark(BCTV14):
         answer, accepted = g.generate_r1cs_witness(
             program, primary_input, aux_tape)
         assert accepted, f"program did not accept (answer={answer})"
-        assert pb.is_satisfied()
+        bad = self.first_unsatisfied(pk.r1cs_pk.r1cs_dev, pb)
+        assert bad is None, f"universal circuit unsatisfied: {bad}"
         clock.lap("ram_witness")
         proof = self.prover(pk.r1cs_pk, pb.primary_input(),
                             pb.auxiliary_input(), seed=seed,

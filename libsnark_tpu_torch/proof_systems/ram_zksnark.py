@@ -11,10 +11,11 @@ check-read at pc, data op = check-update). The message carries
 has_accepted); the verifier only sees the FINAL message and checks it
 against the boot trace (ram_zksnark.tcc verifier).
 
-The JAX package also carries the unbounded backend over the MNT4/MNT6
-cycle (its RamZkSnarkCycle); the port does not have it yet. This module
-is the BOUNDED single-level aggregation variant -- inner proofs aggregated
-one level up:
+Two recursion backends exist here. RamZkSnarkCycle (below) is the
+reference-parity one: truly unbounded recursion over the MNT4/MNT6 cycle
+(curves/mnt.py, CycleSpPCD). The first backend is the BOUNDED
+single-level aggregation variant -- inner proofs aggregated one level
+up:
 
   * inner proofs: Groth16 over BLS12-377, one per step; the statement is
     a single field element h = KnapsackCRH(msg_in_bits || msg_out_bits)
@@ -760,7 +761,7 @@ class RamZkSnark:
             g.set_proof_witness(pi)
         for g in gadgets:
             g.generate_witness()
-        bad = pb.first_unsatisfied()
+        bad = g16o.first_unsatisfied(skp.outer_keypair.pk.r1cs_dev, pb)
         assert bad is None, f"outer aggregation unsatisfied: {bad}"
         clock.lap("outer_build")
         outer_proof = g16o.prover(skp.outer_keypair.pk,
@@ -807,3 +808,282 @@ class RamZkSnarkSuccinctProof:
     msg_initial: RamPCDMessage
     msg_final: RamPCDMessage
     outer_proof: object
+
+
+# --------------------------------------------------------------------------
+# UNBOUNDED recursion backend: ram_zksnark over MNT-cycle sp-PCD
+# (the reference's actual construction: ram_zksnark.tcc:142 drives
+# r1cs_sp_ppzkpcd with the one-CPU-step compliance predicate of
+# ram_compliance_predicate.tcc; depth = execution length, proof size
+# constant).
+# --------------------------------------------------------------------------
+
+def ram_cycle_payload_size(arch: RamZkSnarkArchParams) -> int:
+    """Field elements in the PCD payload encoding of RamPCDMessage."""
+    return 2 * arch.ap.k + 10
+
+
+def ram_cycle_payload(ds: int, arch: RamZkSnarkArchParams,
+                      msg: RamPCDMessage) -> List[int]:
+    """RamPCDMessage -> PCD payload [ts, pc, flag, regs..., acc,
+    root_lo, root_hi, rooti_lo, rooti_hi, pc_init, flag_init,
+    regs_init...]. Digests ride as two packed halves because a ds-bit
+    digest may exceed the field modulus."""
+    half = (ds + 1) // 2
+
+    def halves(bits):
+        lo = sum(b << i for i, b in enumerate(bits[:half]))
+        hi = sum(b << i for i, b in enumerate(bits[half:]))
+        return [lo, hi]
+
+    return ([msg.timestamp, msg.pc_addr, msg.flag] + list(msg.regs)
+            + [msg.has_accepted] + halves(msg.root)
+            + halves(msg.root_initial)
+            + [msg.pc_addr_initial, msg.flag_initial]
+            + list(msg.regs_initial))
+
+
+def payload_to_ram_msg(ds: int, arch: RamZkSnarkArchParams,
+                       payload: List[int]) -> RamPCDMessage:
+    half = (ds + 1) // 2
+    k = arch.ap.k
+
+    def unhalves(lo, hi):
+        v = lo | (hi << half)
+        return [(v >> i) & 1 for i in range(ds)]
+
+    return RamPCDMessage(
+        timestamp=payload[0], pc_addr=payload[1], flag=payload[2],
+        regs=list(payload[3:3 + k]), has_accepted=payload[3 + k],
+        root=unhalves(payload[4 + k], payload[5 + k]),
+        root_initial=unhalves(payload[6 + k], payload[7 + k]),
+        pc_addr_initial=payload[8 + k], flag_initial=payload[9 + k],
+        regs_initial=list(payload[10 + k:10 + 2 * k]))
+
+
+class RamCycleCompliancePredicate:
+    """ram_compliance_predicate in cp_handler form for the MNT-cycle
+    sp-PCD (reference ram_compliance_predicate.tcc): arity 1, message =
+    [type | ram payload]; base case (type 0) is the boot-state message,
+    validated in-circuit (ts == 0 forces state == carried initials),
+    NOT the zero message -- hence base_case='type0'."""
+
+    TYPE = 1
+    base_case = "type0"
+
+    def __init__(self, p: int, arch: RamZkSnarkArchParams):
+        from .compliance_predicate import CompliancePredicateHandler
+        self.p = p
+        self.arch = arch
+        self.ds = ds = p.bit_length()
+        self.half = (ds + 1) // 2
+        n = ram_cycle_payload_size(arch)
+        # reuse the handler block layout (outgoing | arity | incoming |
+        # local) so GadgetFromR1CS splicing lines up
+        self._h = CompliancePredicateHandler(
+            p, name=1, type_=self.TYPE, max_arity=1,
+            outgoing_size=n, incoming_size=n, local_size=0)
+        self.pb = self._h.pb
+        self.max_arity = 1
+        self.outgoing = self._h.outgoing
+        self.arity = self._h.arity
+        self.incoming = self._h.incoming
+        pb = self.pb
+        self.zero = PBVariable().allocate(pb, "zero")
+        self.msg_in = _MsgVars(pb, arch, ds, "in")
+        self.msg_out = _MsgVars(pb, arch, ds, "out")
+        self.core = _RamStepCore(pb, arch, ds, self.msg_in, self.msg_out,
+                                 self.zero)
+        self._ctx = None
+        self.last_msg_out: Optional[RamPCDMessage] = None
+
+    # -- block <-> _MsgVars linkage (all linear rows) ----------------------
+    def _link_block(self, block, mv: _MsgVars, tag: str):
+        pb, ds, half = self.pb, self.ds, self.half
+        from ..relations.variable import LinearCombination as LC
+        items = [mv.ts, mv.pc, mv.flag] + mv.regs + [mv.acc]
+        idx = 1
+        for it in items:
+            pb.add_r1cs_constraint(1, _lc(it) - block[idx], 0,
+                                   f"{tag}_l{idx}")
+            idx += 1
+        for bits in (mv.root.bits, mv.root_init.bits):
+            for lo in (0, half):
+                hi = min(ds, lo + half)
+                s = LC(0)
+                for j in range(lo, hi):
+                    s = s + LC(bits[j]) * (1 << (j - lo))
+                pb.add_r1cs_constraint(1, s - block[idx], 0,
+                                       f"{tag}_l{idx}")
+                idx += 1
+        for it in [mv.pc_init, mv.flag_init] + mv.regs_init:
+            pb.add_r1cs_constraint(1, _lc(it) - block[idx], 0,
+                                   f"{tag}_l{idx}")
+            idx += 1
+        assert idx == len(block)
+
+    def generate_r1cs_constraints(self):
+        pb = self.pb
+        from ..relations.variable import LinearCombination as LC
+        pb.add_r1cs_constraint(1, self.zero, 0, "zero")
+        pb.add_r1cs_constraint(1, self.outgoing[0], self.TYPE, "out_type")
+        t_in = self.incoming[0][0]
+        generate_boolean_r1cs_constraint(pb, t_in, "in_type_bool")
+        # a base-case (type-0) incoming message must be a boot-state
+        # message: ts == 0, whereupon the core's base constraints bind
+        # the full state to the carried initial values
+        pb.add_r1cs_constraint(1 - LC(t_in), self.msg_in.ts, 0,
+                               "base_ts0")
+        # arity == type_in (0 for the base step, else 1)
+        pb.add_r1cs_constraint(1, LC(self.arity) - t_in, 0, "arity_type")
+        self.msg_in.generate_r1cs_constraints(pb, "in")
+        self.msg_out.generate_r1cs_constraints(pb, "out")
+        self._link_block(self.incoming[0], self.msg_in, "lin")
+        self._link_block(self.outgoing, self.msg_out, "lout")
+        self.core.generate_r1cs_constraints()
+
+    # -- witness -----------------------------------------------------------
+    def set_step_context(self, base_msg: RamPCDMessage, step: TraceStep,
+                         mem: DelegatedRAMemory):
+        """base_msg is consumed only when the step has no incoming
+        message (the boot step)."""
+        self._ctx = (base_msg, step, mem)
+
+    def generate_r1cs_witness(self, incoming, local):
+        base_msg, step, mem = self._ctx
+        pb, ds, arch = self.pb, self.ds, self.arch
+        if incoming:
+            msg_in = payload_to_ram_msg(ds, arch, incoming[0].payload)
+            t_in = 1
+        else:
+            msg_in = base_msg
+            t_in = 0
+        pb.setval(self.arity, t_in)
+        pb.setval(self.incoming[0][0], t_in)
+        for k, v in enumerate(ram_cycle_payload(ds, arch, msg_in)):
+            pb.setval(self.incoming[0][1 + k], v)
+        self.msg_in.set_witness(pb, msg_in)
+        msg_out = self.core.witness_step(
+            msg_in, step, mem,
+            set_out=lambda m: self.msg_out.set_witness(pb, m))
+        out_payload = ram_cycle_payload(ds, arch, msg_out)
+        pb.setval(self.outgoing[0], self.TYPE)
+        for k, v in enumerate(out_payload):
+            pb.setval(self.outgoing[1 + k], v)
+        self.last_msg_out = msg_out
+        from .compliance_predicate import PCDMessage
+        return PCDMessage(type=self.TYPE, payload=out_payload)
+
+    def get_constraint_system(self):
+        return self.pb.get_constraint_system()
+
+    def is_satisfied(self) -> bool:
+        return self.pb.is_satisfied()
+
+
+@dataclasses.dataclass
+class RamZkSnarkCycleKeypair:
+    arch: RamZkSnarkArchParams
+    pcd_pk: object
+    pcd_vk: object
+
+
+class RamZkSnarkCycle:
+    """The TRUE ram_zksnark: unbounded MNT-cycle PCD over per-CPU-step
+    compliance predicates (ram_zksnark.tcc generator :104 / prover :142 /
+    verifier :201). Proof size is constant in the execution length."""
+
+    def __init__(self, pcd=None, device="cuda"):
+        """pcd: the CycleSpPCD to run (by default one over MNT4 -> MNT6 on
+        ``device``: "cuda" unless the caller asks for the CPU)."""
+        from .pcd_cycle import CycleSpPCD
+        self.pcd = pcd or CycleSpPCD(device=device)
+        self.p = self.pcd.A.r
+
+    def predicate(self, arch: RamZkSnarkArchParams):
+        h = RamCycleCompliancePredicate(self.p, arch)
+        h.generate_r1cs_constraints()
+        return h
+
+    def generator(self, arch: RamZkSnarkArchParams, seed=None,
+                  timings: Optional[dict] = None) -> RamZkSnarkCycleKeypair:
+        """timings: optional dict that receives predicate_build and the
+        phases of CycleSpPCD.generator."""
+        clock = PhaseClock(timings, self.pcd.g16_a.device)
+        handler = self.predicate(arch)
+        clock.lap("predicate_build")
+        pk, vk = self.pcd.generator(handler, seed=seed, timings=timings)
+        return RamZkSnarkCycleKeypair(arch=arch, pcd_pk=pk, pcd_vk=vk)
+
+    def _trace(self, arch, program, primary_input, aux_tape, time_bound):
+        boot = tinyram_boot_trace(arch.ap, program, primary_input)
+        assert max(boot) < arch.dummy_addr, "boot exceeds delegated memory"
+        mem = make_delegated_memory(self.p, arch, boot)
+        ex = TinyRAMUnifiedExecutor(arch.ap, program)
+        _, _, trace = ex.run_from_boot(boot, primary_input, aux_tape,
+                                       max_steps=time_bound)
+        while len(trace) < time_bound:
+            last = trace[-1]
+            trace.append(dataclasses.replace(
+                last, timestamp=last.timestamp + 1, pc=last.pc_after,
+                regs_before=list(last.regs_after),
+                flag_before=last.flag_after, mem_op=None))
+        return mem, trace
+
+    def prover(self, kp: RamZkSnarkCycleKeypair, program: TinyRAMProgram,
+               primary_input: List[int], time_bound: int,
+               aux_tape: List[int], seed=None,
+               timings: Optional[dict] = None):
+        """One PCD step per CPU step; returns the final CyclePCDProof
+        (constant size -- message + one translation proof). timings:
+        optional dict that receives trace (the execution) and
+        predicate_build, and CycleSpPCD.prover's phases summed over the
+        steps."""
+        from .compliance_predicate import PCDLocalData
+        lap = {}
+        clock = PhaseClock(None if timings is None else lap,
+                           self.pcd.g16_a.device)
+        arch = kp.arch
+        mem, trace = self._trace(arch, program, primary_input, aux_tape,
+                                 time_bound)
+        msg = RamPCDMessage.initial(arch, mem.get_root())
+        clock.lap("trace")
+        spent = dict(lap)
+        cur = None
+        for step in trace:
+            handler = self.predicate(arch)
+            handler.set_step_context(msg, step, mem)
+            clock.lap("predicate_build")
+            cur = self.pcd.prover(kp.pcd_pk, handler,
+                                  [] if cur is None else [cur],
+                                  PCDLocalData(values=[]), seed=seed,
+                                  timings=lap)
+            clock.lap("step")
+            for k, v in lap.items():
+                if k not in ("trace", "step"):
+                    spent[k] = spent.get(k, 0.0) + v
+            lap.clear()
+            msg = handler.last_msg_out
+        if timings is not None:
+            timings.update(spent)
+        return cur
+
+    def verifier(self, pcd_vk, arch: RamZkSnarkArchParams,
+                 program: TinyRAMProgram, primary_input: List[int],
+                 time_bound: int, proof) -> bool:
+        """Host endpoint checks against the boot trace + ONE pairing
+        check (the PCD verifier) -- ram_zksnark.tcc:201."""
+        final = payload_to_ram_msg(self.p.bit_length(), arch,
+                                   list(proof.msg.payload))
+        boot = tinyram_boot_trace(arch.ap, program, primary_input)
+        mem = make_delegated_memory(self.p, arch, boot)
+        init = RamPCDMessage.initial(arch, mem.get_root())
+        if not (proof.msg.type == RamCycleCompliancePredicate.TYPE
+                and final.timestamp == time_bound
+                and final.has_accepted == 1
+                and final.root_initial == init.root
+                and final.pc_addr_initial == 0
+                and final.flag_initial == 0
+                and final.regs_initial == [0] * arch.ap.k):
+            return False
+        return self.pcd.verifier(pcd_vk, proof.msg, proof)

@@ -2,7 +2,11 @@
 reference reductions/r1cs_to_qap/r1cs_to_qap.tcc).
 
 * ``qap_instance_map_with_evaluation`` (tcc:106-175): evaluate the QAP at
-  a secret point t, host-side python ints, once per circuit at setup.
+  a secret point t, host-side python ints, once per circuit at setup;
+  ``qap_instance_map_on_device`` gives the same integers from the device
+  R1CS's transposed products (A^T u, B^T u, C^T u for the Lagrange
+  coefficients u at t), what the Groth16, BCTV14 and ADSNARK keygens
+  take.
 * ``qap_witness_map`` (tcc:209-344): the prover hot path -- 3 sparse
   mat-vecs + input-consistency rows, one stacked iFFT and coset FFT,
   pointwise a*b - c, icosetFFT with divide-by-Z -- over (N, m) Montgomery
@@ -45,15 +49,14 @@ class QAPInstanceEvaluation:
     num_variables: int
 
 
-def qap_instance_map_with_evaluation(cs, domain, t: int, compacted=None):
-    """compacted: cs.compacted(), if the caller has it (the device form
-    reads it too). The sums are reduced mod p once each, at the end: the
-    same values as a reduction a term."""
+def qap_instance_map_with_evaluation(cs, domain, t: int):
+    """The host form, the tests' reference for qap_instance_map_on_device.
+    The sums are reduced mod p once each, at the end: the same values as a
+    reduction a term."""
     p = cs.p
     nv = cs.num_variables
     u = domain.lagrange_coeffs_at(t)
-    if compacted is None:
-        compacted = cs.compacted()
+    compacted = cs.compacted()
     At = [0] * (nv + 1)
     Bt = [0] * (nv + 1)
     Ct = [0] * (nv + 1)
@@ -70,6 +73,31 @@ def qap_instance_map_with_evaluation(cs, domain, t: int, compacted=None):
     return QAPInstanceEvaluation(
         t=t, At=At, Bt=Bt, Ct=Ct, Ht=Ht, Zt=domain.vanishing_eval(t),
         degree=domain.m, num_inputs=cs.num_inputs, num_variables=nv)
+
+
+def qap_instance_map_on_device(r1cs_dev, domain, t: int):
+    """qap_instance_map_with_evaluation's A_i(t), B_i(t), C_i(t) as the
+    device R1CS's transposed products with u = L_j(t) (mont_mul on the
+    card): the same integers, decoded to the host; t^i and Z(t) on the
+    host."""
+    fk = domain.fk
+    p = r1cs_dev.p
+    n, k = r1cs_dev.num_constraints, r1cs_dev.num_inputs
+    nv = r1cs_dev.num_variables
+    u = domain.lagrange_coeffs_at(t)
+    u_mont = fk.encode(u)
+    At, Bt, Ct = (fk.decode(fk.from_mont(m.evaluate_transposed(
+        fk, u_mont, nv + 1)), mont=False)
+        for m in (r1cs_dev.A, r1cs_dev.B, r1cs_dev.C))
+    # input consistency: A_i(t) += L_{n + i}(t) for i = 0..num_inputs
+    for i in range(k + 1):
+        At[i] = (At[i] + u[n + i]) % p
+    Ht = [1] * (domain.m + 1)
+    for i in range(1, domain.m + 1):
+        Ht[i] = Ht[i - 1] * t % p
+    return QAPInstanceEvaluation(
+        t=t, At=At, Bt=Bt, Ct=Ct, Ht=Ht, Zt=domain.vanishing_eval(t),
+        degree=domain.m, num_inputs=k, num_variables=nv)
 
 
 def qap_witness_map(r1cs_dev, domain, assignment_mont):

@@ -16,7 +16,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .variable import LinearCombination, LinearTerm, compact_terms
+from .variable import LinearCombination, LinearTerm
 
 
 class R1CSConstraint:
@@ -73,16 +73,19 @@ class R1CSConstraintSystem:
 
     def swap_AB_if_beneficial(self):
         """Swap A<->B when B is denser in non-input variables (the reference
-        heuristic reduces prover G2 work since the B query is the G2 MSM)."""
-        a_nz, b_nz = set(), set()
-        for c in self.constraints:
-            for t in c.a.terms:
-                if t.index > self.primary_input_size:
-                    a_nz.add(t.index)
-            for t in c.b.terms:
-                if t.index > self.primary_input_size:
-                    b_nz.add(t.index)
-        if len(b_nz) > len(a_nz):
+        heuristic reduces prover G2 work since the B query is the G2 MSM).
+        Every term counts, whatever its coefficient; the native codec's
+        ``mark`` reads the terms."""
+        from ..native import limbcodec
+        mark = limbcodec().mark
+        k = self.primary_input_size
+        counts = []
+        for name in "ab":
+            seen = bytearray(self.num_variables + 1)
+            mark([getattr(c, name).terms for c in self.constraints], seen)
+            counts.append(seen.count(1, k + 1))
+        a_nz, b_nz = counts
+        if b_nz > a_nz:
             for c in self.constraints:
                 c.a, c.b = c.b, c.a
             return True
@@ -92,17 +95,17 @@ class R1CSConstraintSystem:
         """The A, B and C matrices as flat (rows, cols, coeffs) lists, each
         constraint's terms merged by index, reduced mod p, zeros dropped,
         in index order (variable.compact_terms, LinearCombination.compact's
-        terms): what the QAP evaluation and the device form read, made once
-        for both. Flat lists of integers hold no object the collector
-        tracks, at any size."""
-        p = self.p
+        terms): what the device form reads (and the host QAP evaluation,
+        the tests' reference), by the native codec's ``compact``
+        (compact_terms in C).
+        Flat lists of integers hold no object the collector tracks, at any
+        size."""
+        from ..native import limbcodec
+        compact = limbcodec().compact
         mats = tuple(([], [], []) for _ in range(3))
-        for j, con in enumerate(self.constraints):
-            for (rows, cols, coeffs), lc in zip(mats, (con.a, con.b, con.c)):
-                idx, cf = compact_terms(lc.terms, p)
-                rows.extend([j] * len(idx))
-                cols.extend(idx)
-                coeffs.extend(cf)
+        for name, (rows, cols, coeffs) in zip("abc", mats):
+            compact([getattr(con, name).terms for con in self.constraints],
+                    self.p, rows, cols, coeffs)
         return mats
 
     # -- device compilation ----------------------------------------------------------
@@ -159,6 +162,21 @@ class SparseMatrix:
         sums.index_add_(1, self.rows, prod.to(torch.int64))
         return fk.reduce_lazy(sums)
 
+    def evaluate_transposed(self, fk, vec, num_out: int):
+        """M^T v: sum over rows j of M_{j,i} v_j for all columns i (the
+        keygen's A_i(t) = sum_j A_{j,i} L_j(t)).
+
+        vec: (N, >= num_rows) Montgomery limbs. Returns (N, num_out)
+        Montgomery values: gather by row, product (mont_mul), index_add_
+        by column into int64 lazy columns, one lazy reduction (a column's
+        sum of its terms, each below p, stays below R * p)."""
+        import torch
+        prod = fk.mul(vec[:, self.rows], self.coeffs)      # (N, nnz)
+        sums = torch.zeros((fk.N, num_out), dtype=torch.int64,
+                           device=prod.device)
+        sums.index_add_(1, self.cols, prod.to(torch.int64))
+        return fk.reduce_lazy(sums)
+
 
 @dataclasses.dataclass
 class R1CSDevice:
@@ -192,3 +210,19 @@ class R1CSDevice:
                    num_constraints=cs.num_constraints,
                    num_inputs=cs.num_inputs,
                    num_variables=cs.num_variables, p=cs.p)
+
+    def first_unsatisfied_row(self, fk, assignment_mont) -> Optional[int]:
+        """The first row j with <A_j, s> * <B_j, s> != <C_j, s>, or None:
+        the host check's verdict (R1CSConstraintSystem.is_satisfied), from
+        the three mat-vecs of the witness map, one product and one
+        subtraction (the mont_mul and fp_addsub kernels on the card). Rows
+        are the constraints in order: compaction merges each row's terms
+        and swap_AB_if_beneficial swaps A and B whole, neither changes the
+        product. assignment_mont: (N, num_vars+1) Montgomery limbs with the
+        constant 1 at index 0."""
+        import torch
+        n = self.num_constraints
+        aA, aB, aC = (m.evaluate(fk, assignment_mont, n)
+                      for m in (self.A, self.B, self.C))
+        bad = torch.nonzero(~fk.is_zero(fk.sub(fk.mul(aA, aB), aC)))
+        return int(bad[0, 0]) if bad.numel() else None

@@ -957,3 +957,296 @@ def test_ram_zksnark_succinct_on_card():
         proof.msg_final, has_accepted=0))
     assert not rzs.verifier_succinct(vk, arch, bw6, prog, primary, T, false)
     _pcd_log("ram_zksnark succinct verifier (accept, reject twice)", t0, {})
+
+
+def _to_cpu(pk):
+    """A Groth16 proving key with every tensor (queries, device R1CS) moved
+    to the CPU: what the plain versions prove with."""
+    import dataclasses
+    dev = pk.r1cs_dev
+    mats = {n: dataclasses.replace(getattr(dev, n), **{
+        f: getattr(getattr(dev, n), f).cpu() for f in ("rows", "cols",
+                                                        "coeffs")})
+        for n in ("A", "B", "C")}
+    queries = {n: tuple(t.cpu() for t in getattr(pk, n)) for n in (
+        "A_query", "B_query_g2", "B_query_g1", "H_query", "L_query")}
+    return dataclasses.replace(pk, r1cs_dev=dataclasses.replace(
+        dev, **mats), **queries)
+
+
+@pytest.fixture(scope="module")
+def cycle_chain():
+    """CycleSpPCD over MNT4 -> MNT6 on the card with the tally predicate
+    of arity 1: the generator, then steps at depths 0-3 (local 5, 10, 20,
+    40), each consuming the previous step's translation proof; the
+    translation board's assignment of the depth-1 step is kept."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from libsnark_tpu_torch.proof_systems.compliance_predicate import (
+        PCDLocalData, TallyCompliancePredicate)
+    from libsnark_tpu_torch.proof_systems.pcd_cycle import CycleSpPCD
+    pcd = CycleSpPCD()
+
+    def tally():
+        h = TallyCompliancePredicate(pcd.A.r, max_arity=1)
+        h.generate_r1cs_constraints()
+        return h
+
+    torch.cuda.reset_peak_memory_stats()
+    t0, t = time.perf_counter(), {}
+    pk, vk = pcd.generator(tally(), seed=31, timings=t)
+    _pcd_log("cycle_sp_pcd generator", t0, t)
+    proofs, depth1 = [], None
+    for depth, local in enumerate((5, 10, 20, 40)):
+        t0, t = time.perf_counter(), {}
+        proofs.append(pcd.prover(pk, tally(), proofs[-1:],
+                                 PCDLocalData([local]), seed=11 + depth,
+                                 timings=t))
+        _pcd_log(f"cycle_sp_pcd prover depth {depth}", t0, t)
+        if depth == 1:
+            T = pcd.translation_board(pk.kp_a.vk)["pb"]
+            depth1 = (T.primary_input(), T.auxiliary_input())
+    return dict(pcd=pcd, pk=pk, vk=vk, proofs=proofs, depth1=depth1)
+
+
+def test_cycle_sp_pcd_depth_3_on_card(cycle_chain):
+    """A depth-3 chain of CycleSpPCD steps on the card (each a compliance
+    prove over MNT4 and a translation prove over MNT6): the tally payloads
+    [5, 1], [15, 2], [35, 3], [75, 4]; the verifier accepts every depth's
+    proof and rejects the last under a changed payload element."""
+    from libsnark_tpu_torch.proof_systems.compliance_predicate import (
+        PCDMessage)
+    from libsnark_tpu_torch.proof_systems.pcd_cycle import CyclePCDProof
+    c = cycle_chain
+    pcd, vk, proofs = c["pcd"], c["vk"], c["proofs"]
+    assert [p.msg.payload for p in proofs] == [[5, 1], [15, 2], [35, 3],
+                                               [75, 4]]
+    t0 = time.perf_counter()
+    assert all(pcd.verifier(vk, p.msg, p) for p in proofs)
+    bad = PCDMessage(1, [76, 4])
+    assert not pcd.verifier(vk, bad, CyclePCDProof(
+        msg=bad, translation_proof=proofs[-1].translation_proof))
+    _pcd_log("cycle_sp_pcd verifier (4 accepted, 1 rejected)", t0, {})
+
+
+def test_cycle_translation_step_card_equals_cpu(cycle_chain):
+    """The depth-1 step's translation prove (Groth16 over MNT6 on a 2^15
+    domain): its witness map H on the card equals the port's CPU plain
+    versions' under the same proving key (moved to the CPU) and board
+    assignment, and a second card prove at the same seed gives the same
+    proof, which verifies. (A whole CPU plain prove at this size takes
+    hours: its G2 MSM over Fq3 runs the one-lane generic-a formulas.)"""
+    from libsnark_tpu_torch.proof_systems.groth16 import Groth16
+    from libsnark_tpu_torch.reductions.r1cs_to_qap import (
+        qap_domain, qap_witness_map)
+    c = cycle_chain
+    pcd, pk = c["pcd"], c["pk"].kp_b.pk
+    primary, aux = c["depth1"]
+    r = pcd.B.r
+    full = [1] + [v % r for v in primary] + [v % r for v in aux]
+    H = {}
+    for label, g16, key in (("card", pcd.g16_b, pk),
+                            ("cpu", Groth16(get_curve("mnt6"), device="cpu"),
+                             _to_cpu(pk))):
+        t0 = time.perf_counter()
+        domain = g16.domain_for(qap_domain, key.r1cs_dev)
+        H[label] = g16.fr.decode(qap_witness_map(
+            key.r1cs_dev, domain, g16.fr.encode(full)))
+        _pcd_log(f"cycle translation witness map ({label})", t0, {})
+    assert H["card"] == H["cpu"]
+    proof = pcd.g16_b.prover(pk, primary, aux, seed=12 + 7)
+    assert proof == c["proofs"][1].translation_proof
+    assert pcd.g16_b.verifier_strong_IC(c["pk"].kp_b.vk, primary, proof)
+
+
+def test_cycle_device_check_equals_host_check_on_card(cycle_chain):
+    """The device satisfaction check on the card (mont_mul and fp_addsub
+    at 19 limbs over the proving key's device R1CS) against
+    Protoboard.first_unsatisfied on the translation board: satisfied, a
+    statement bit flipped with the verifier gadget's witness made again,
+    one auxiliary value changed."""
+    c = cycle_chain
+    pcd, pk = c["pcd"], c["pk"]
+    T = pcd.translation_board(pk.kp_a.vk)
+    pb, dev = T["pb"], pk.kp_b.pk.r1cs_dev
+    assert pb.first_unsatisfied() is None
+    assert pcd.g16_b.first_unsatisfied(dev, pb) is None
+    b = T["hbits"][3]
+    pb.setval(b, 1 - pb.val(b))
+    T["ver"].generate_witness()
+    bad = pb.first_unsatisfied()
+    assert bad is not None and pcd.g16_b.first_unsatisfied(dev, pb) == bad
+    pb.setval(b, 1 - pb.val(b))
+    T["ver"].generate_witness()
+    i = pb.num_variables // 3
+    pb._values[i] = (pb._values[i] + 1) % pb.p
+    bad = pb.first_unsatisfied()
+    assert bad is not None and pcd.g16_b.first_unsatisfied(dev, pb) == bad
+    pb._values[i] = (pb._values[i] - 1) % pb.p
+
+
+def test_sp_pcd_device_check_equals_host_check_on_card():
+    """The device check on SpPCD's one-proof aggregation circuit over
+    BW6-761 (69,527 constraints; a trapdoor inner proof over BLS12-377):
+    the same verdict and message as Protoboard.first_unsatisfied when
+    satisfied, with one statement bit flipped (and the verifier gadget's
+    witness made again) and with one auxiliary value changed; the host
+    check's and the device check's seconds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import gc
+    from libsnark_tpu_torch.proof_systems.groth16 import (
+        Groth16, Groth16Proof, Groth16VerificationKey)
+    from libsnark_tpu_torch.proof_systems.pcd import SpPCD
+    from libsnark_tpu_torch.relations.r1cs import R1CSConstraintSystem
+    from libsnark_tpu_torch.relations.variable import Variable
+    bls, bw6 = get_curve("bls12_377"), get_curve("bw6_761")
+    rng = random.Random(3)
+    r = bls.r
+    # a trapdoor vk / proof of a one-constraint system with 4 inputs
+    # (tests/_torch_port.py's trapdoor_groth16 needs the test helpers)
+    from libsnark_tpu_torch.ops.fp import FpKernel
+    from libsnark_tpu_torch.reductions.r1cs_to_qap import (
+        qap_domain, qap_instance_map_with_evaluation)
+    stmt = [1, 35, 4, 2]
+    cs = R1CSConstraintSystem(r, 4, 1)
+    w = Variable(5)
+    cs.add_constraint(w * 1, w * 1, w * 1, "w_bool")
+    t, alpha, beta, gamma, delta, rr, ss = (rng.randrange(1, r)
+                                            for _ in range(7))
+    fr = FpKernel(bls.fr_params, "cpu")
+    qap = qap_instance_map_with_evaluation(
+        cs, qap_domain(fr, bls.fr_params, cs), t)
+    full = [1] + stmt + [0]
+    A_e = (alpha + sum(s * a for s, a in zip(full, qap.At)) + rr * delta) % r
+    B_e = (beta + sum(s * b for s, b in zip(full, qap.Bt)) + ss * delta) % r
+    pub = sum(full[i] * (beta * qap.At[i] + alpha * qap.Bt[i] + qap.Ct[i])
+              for i in range(5)) % r
+    C_e = (A_e * B_e - alpha * beta - pub) * pow(delta, -1, r) % r
+    G1, G2 = bls.G1.one(), bls.G2.one()
+    vk = Groth16VerificationKey(
+        alpha_g1=G1 * alpha, beta_g2=G2 * beta, gamma_g2=G2 * gamma,
+        delta_g2=G2 * delta,
+        gamma_ABC=[G1 * ((beta * qap.At[i] + alpha * qap.Bt[i] + qap.Ct[i])
+                         * pow(gamma, -1, r) % r) for i in range(5)])
+    proof = Groth16Proof(g_A=G1 * A_e, g_B=G2 * B_e, g_C=G1 * C_e)
+    sp = SpPCD(bls, bw6)
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        pb, bits, gadgets = sp.aggregation_witness(vk, r.bit_length(),
+                                                   [stmt], [proof])
+        g16 = Groth16(bw6)
+        dev = pb.get_constraint_system().to_device(g16.fr)
+        _pcd_log("sp_pcd aggregation circuit + its device R1CS", t0, {})
+        checks = []
+        for label in ("satisfied", "statement bit", "auxiliary value"):
+            if label == "statement bit":
+                b = bits[0][1][0]
+                pb.setval(b, 1 - pb.val(b))
+                gadgets[0].generate_witness()
+            elif label == "auxiliary value":
+                b = bits[0][1][0]
+                pb.setval(b, 1 - pb.val(b))
+                gadgets[0].generate_witness()
+                i = pb.num_variables // 2
+                pb._values[i] = (pb._values[i] + 1) % pb.p
+            t0 = time.perf_counter()
+            host = pb.first_unsatisfied()
+            t1 = time.perf_counter()
+            device = g16.first_unsatisfied(dev, pb)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            print(f"sp_pcd check {label}: host {t1 - t0:.2f} s, device "
+                  f"{t2 - t1:.2f} s: {device}", flush=True)
+            checks.append((host, device))
+        assert checks[0] == (None, None)
+        assert all(h is not None and h == d for h, d in checks[1:])
+    finally:
+        gc.enable()
+
+
+def test_cycle_mp_pcd_two_predicates_on_card():
+    """CycleMpPCD over MNT4 -> MNT6 with two predicates (the tally of
+    arity 1 twice: two compliance keys, two translation keys, their
+    processed vks committed in one knapsack-Merkle set): a base step
+    under predicate 0, then a depth-1 step under predicate 1 consuming
+    it (a cross-predicate chain); the verifier accepts both and rejects a
+    changed payload and an out-of-range predicate index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+    from libsnark_tpu_torch.proof_systems.compliance_predicate import (
+        PCDLocalData, PCDMessage, TallyCompliancePredicate)
+    from libsnark_tpu_torch.proof_systems.mp_pcd_cycle import CycleMpPCD
+    mp = CycleMpPCD()
+
+    def tally():
+        h = TallyCompliancePredicate(mp.A.r, max_arity=1)
+        h.generate_r1cs_constraints()
+        return h
+
+    torch.cuda.reset_peak_memory_stats()
+    t0, t = time.perf_counter(), {}
+    pk, vk = mp.generator([tally(), tally()], seed=41, timings=t)
+    _pcd_log("cycle_mp_pcd generator", t0, t)
+    t0, t = time.perf_counter(), {}
+    p0 = mp.prover(pk, 0, tally(), [], PCDLocalData([5]), seed=3,
+                   timings=t)
+    _pcd_log("cycle_mp_pcd prover (predicate 0, depth 0)", t0, t)
+    t0, t = time.perf_counter(), {}
+    p1 = mp.prover(pk, 1, tally(), [p0], PCDLocalData([10]), seed=4,
+                   timings=t)
+    _pcd_log("cycle_mp_pcd prover (predicate 1, depth 1)", t0, t)
+    assert (p0.predicate_idx, p1.predicate_idx) == (0, 1)
+    assert (p0.msg.payload, p1.msg.payload) == ([5, 1], [15, 2])
+    t0 = time.perf_counter()
+    assert mp.verifier(vk, p0.msg, p0) and mp.verifier(vk, p1.msg, p1)
+    bad = PCDMessage(1, [16, 2])
+    assert not mp.verifier(vk, bad, dataclasses.replace(p1, msg=bad))
+    assert not mp.verifier(vk, p1.msg, dataclasses.replace(
+        p1, predicate_idx=2))
+    _pcd_log("cycle_mp_pcd verifier (2 accepted, 2 rejected)", t0, {})
+
+
+def test_ram_zksnark_cycle_two_steps_on_card():
+    """RamZkSnarkCycle (the unbounded RAM zkSNARK over the MNT cycle) at
+    T = 2 on TinyRAM w = 16, k = 2 with a delegated tree of depth 4: a
+    real chain of two one-CPU-step PCD proofs; the verifier accepts the
+    final proof, and rejects a false final claim (a changed register in
+    the final message) and the proof under a longer time bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+    from libsnark_tpu_torch.proof_systems.compliance_predicate import (
+        PCDMessage)
+    from libsnark_tpu_torch.proof_systems.ram_zksnark import (
+        RamZkSnarkArchParams, RamZkSnarkCycle, payload_to_ram_msg,
+        ram_cycle_payload)
+    from libsnark_tpu_torch.relations.tinyram import (
+        Opcode, TinyRAMParams, TinyRAMProgram)
+    arch = RamZkSnarkArchParams(ap=TinyRAMParams(w=16, k=2), tree_depth=4)
+    prog = TinyRAMProgram()                 # store, then answer: 2 steps
+    prog.add(Opcode.STOREW, True, 0, 0, 5)
+    prog.add(Opcode.ANSWER, True, 0, 0, 0)
+    T = 2
+    rzc = RamZkSnarkCycle()
+    torch.cuda.reset_peak_memory_stats()
+    t0, t = time.perf_counter(), {}
+    kp = rzc.generator(arch, seed=23, timings=t)
+    _pcd_log("ram_zksnark_cycle generator", t0, t)
+    t0, t = time.perf_counter(), {}
+    proof = rzc.prover(kp, prog, [], T, [], seed=5, timings=t)
+    _pcd_log(f"ram_zksnark_cycle prover ({T} steps)", t0, t)
+    t0 = time.perf_counter()
+    assert rzc.verifier(kp.pcd_vk, arch, prog, [], T, proof)
+    ds = rzc.p.bit_length()
+    final = payload_to_ram_msg(ds, arch, proof.msg.payload)
+    regs = list(final.regs)
+    regs[1] += 1
+    false = PCDMessage(proof.msg.type, ram_cycle_payload(
+        ds, arch, dataclasses.replace(final, regs=regs)))
+    assert not rzc.verifier(kp.pcd_vk, arch, prog, [], T,
+                            dataclasses.replace(proof, msg=false))
+    assert not rzc.verifier(kp.pcd_vk, arch, prog, [], T + 1, proof)
+    _pcd_log("ram_zksnark_cycle verifier (accepted, 2 rejected)", t0, {})

@@ -143,7 +143,8 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "libsnark_tpu_torch").rglob("*.py"))
     # the gadget layer, the PCD systems, Fp3, the curves with an
-    # a-coefficient and the RAM systems among them
+    # a-coefficient, the RAM systems, the cycle systems and the host
+    # formats among them
     for sub in ("gadgets/verifier_gadgets.py", "gadgets/hashes/knapsack.py",
                 "proof_systems/pcd.py", "proof_systems/mp_pcd.py",
                 "ops/fp3.py", "curves/mnt.py", "curves/edwards.py",
@@ -154,7 +155,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "gadgets/fooram_checker.py", "gadgets/ram_universal.py",
                 "relations/examples.py", "proof_systems/ram_ppzksnark.py",
                 "proof_systems/ram_zksnark.py", "gadgetlib2.py",
-                "interop.py"):
+                "interop.py", "gadgets/gadget_from_r1cs.py",
+                "proof_systems/pcd_cycle.py", "proof_systems/mp_pcd_cycle.py",
+                "default_types.py", "gadgets/kzg10_verifier_gadget.py",
+                "gadgets/bctv14_verifier_gadget.py", "libsnark_compat.py",
+                "compat_spec_decoder.py", "serialization.py"):
         assert REPO / "libsnark_tpu_torch" / sub in files, sub
     files.append(REPO / "chip_smoke.py")
     files.append(REPO / "scripts" / "probe_h100.py")

@@ -138,3 +138,103 @@ def test_builds_at_once_leave_one_whole_library(tmp_path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     assert mod.decode(mod.encode([5, 1 << 31], 2), 2, 2) == [5, 1 << 31]
+
+
+@pytest.mark.parametrize("p", [(1 << 61) - 1, get_curve("mnt4").r,
+                               get_curve("bw6_761").fq_params.p])
+def test_native_compact_equals_compact_terms(p):
+    """The codec's ``compact`` (R1CSConstraintSystem.compacted's merge)
+    against variable.compact_terms on seeded term lists: duplicate
+    indices, coefficients of 0, 1, -1, machine words, words whose sums
+    pass 2^100, ints of p and above, negative ints, runs that cancel to 0
+    mod p, an empty list; rows, indices and coefficients equal."""
+    from libsnark_tpu_torch.relations.variable import (
+        LinearTerm, compact_terms)
+    rng = random.Random(p % 1000)
+    picks = [0, 1, -1, p, -p, p - 1, 2 * p + 3, (1 << 63) - 1, -(1 << 63),
+             1 << 64, -(1 << 70)]
+    lists = [[]]
+    for _ in range(300):
+        n = rng.randrange(1, 40)
+        lists.append([LinearTerm(rng.randrange(12), rng.choice(picks) if
+                                 rng.random() < 0.5 else rng.randrange(
+                                     -(1 << 300), 1 << 300))
+                      for _ in range(n)])
+    lists.append([LinearTerm(3, 5), LinearTerm(3, p - 5)])   # cancels
+    lists.append([LinearTerm(2, (1 << 63) - 1)] * 4096)      # word overflow
+    rows, cols, coeffs = [], [], []
+    native.limbcodec().compact(lists, p, rows, cols, coeffs)
+    want = ([], [], [])
+    for j, terms in enumerate(lists):
+        idx, cf = compact_terms(terms, p)
+        want[0].extend([j] * len(idx))
+        want[1].extend(idx)
+        want[2].extend(cf)
+    assert (rows, cols, coeffs) == want
+    with pytest.raises(ValueError):
+        native.limbcodec().compact(lists, 0, [], [], [])
+
+
+class _ComputedTerm:
+    """A term without __slots__ whose coeff is a new int on every read,
+    held by no one else."""
+
+    def __init__(self, index, coeff):
+        self.index = index
+        self._text = str(coeff)
+
+    @property
+    def coeff(self):
+        return int(self._text)
+
+
+def test_native_compact_reads_computed_coefficients():
+    """``compact`` on terms read through getattr, whose wide coefficients
+    no one else keeps alive: the same as compact_terms on their values."""
+    from libsnark_tpu_torch.relations.variable import (
+        LinearTerm, compact_terms)
+    p = get_curve("mnt4").r
+    rng = random.Random(7)
+    lists = [[_ComputedTerm(rng.randrange(6), rng.randrange(
+        -(1 << 400), 1 << 400) if rng.random() < 0.7 else rng.randrange(9))
+              for _ in range(rng.randrange(1, 30))] for _ in range(200)]
+    rows, cols, coeffs = [], [], []
+    native.limbcodec().compact(lists, p, rows, cols, coeffs)
+    want = ([], [], [])
+    for j, terms in enumerate(lists):
+        idx, cf = compact_terms([LinearTerm(t.index, t.coeff)
+                                 for t in terms], p)
+        want[0].extend([j] * len(idx))
+        want[1].extend(idx)
+        want[2].extend(cf)
+    assert (rows, cols, coeffs) == want
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_swap_ab_counts_every_term(seed):
+    """swap_AB_if_beneficial (the codec's ``mark`` counts the variables
+    above the inputs that A and B use) swaps exactly when the set form it
+    replaced would: every term counts, a zero coefficient too."""
+    from libsnark_tpu_torch.relations.r1cs import R1CSConstraintSystem
+    from libsnark_tpu_torch.relations.variable import (
+        LinearCombination, LinearTerm)
+    rng = random.Random(seed)
+    k, aux = 3, 40
+    cs = R1CSConstraintSystem(97, k, aux)
+
+    def lc(width):
+        out = LinearCombination()
+        out.terms = [LinearTerm(rng.randrange(k + aux + 1),
+                                rng.choice([0, 1, 5, 96]))
+                     for _ in range(rng.randrange(width))]
+        return out
+
+    for _ in range(30):
+        cs.add_constraint(lc(4 + seed), lc(7 - seed), lc(3))
+    a_nz = {t.index for c in cs.constraints for t in c.a.terms if t.index > k}
+    b_nz = {t.index for c in cs.constraints for t in c.b.terms if t.index > k}
+    before = [(c.a, c.b) for c in cs.constraints]
+    assert cs.swap_AB_if_beneficial() == (len(b_nz) > len(a_nz))
+    swapped = len(b_nz) > len(a_nz)
+    assert [(c.a, c.b) for c in cs.constraints] == (
+        [(b, a) for a, b in before] if swapped else before)
