@@ -12,7 +12,10 @@
    loop holds, cuobjdump -sass, IMAD.WIDE counted as one lane instruction
    and as two; mad_wide's loop must be one IMAD.WIDE.U32 a step and
    nothing else) and the Montgomery-product bodies at 16 and 24
-   limbs, with the instructions of each kernel's main loop; and
+   limbs (and at 19 and 12: fp_mul_half alone at 19), with the
+   instructions of each kernel's main loop; the latency of one dependent
+   wide multiply-add, and each body's latency against the chain of 4 NW of
+   them that every body runs in order; and
    the eleven layout and row-copy kernels in every case of
    probes.layout_cases (the TPU scripts' shapes, odd offsets, shifts
    outside [0, axis), tiles with no word above 7, trip counts 1..6), with
@@ -106,12 +109,23 @@
    and the keygen's five fixed-base queries again with the per-window madd
    loop (before madd_windows) and with madd_windows: equal points, the
    parts of the phase and the madd family's device time (CUDA events
-   around each call) - bound of each.
+   around each call) - bound of each. Over BLS12-377 also the
+   multi-device prover on the path's keypair, witness and seed
+   (sharded_phase: a one-rank NCCL group, prover_sharded twice, each proof
+   equal to the path's and verified, a changed input rejected; the
+   four-step NTT at 2^20 against the radix-2 forms; msm_simple on 2^12
+   points against Pippenger's sum) and the MXU NTT (mxu_phase: fft, ifft
+   and icoset_fft_divz at 2^20 in int8 and bf16, and fft over BW6-761's
+   Fr, each equal to the radix-2 form and timed beside it with its
+   launches; the shares of the matrix products and of mul_wide in the
+   profiled fft; the products alone at the top level's shapes); mul_wide
+   is held against its plain version at 2^20 lanes at 16 and 24 limbs in
+   step 4.
 6b. Runs BCTV14, GM17 and DFGK14 over alt_bn128 through their entry
-   points, each witness map on a domain of 2^20: BCTV14 on
-   generate_r1cs_example(r, 2^20 - 3, 2) (QAP), GM17 on
-   generate_r1cs_example(r, 2^19 - 3, 2) (SAP, 2n + 2k + 1 = 2^20 - 1 rows),
-   DFGK14 on generate_uscs_example(r, 2^20, 2) (SSP). Each: a seeded keygen
+   points, each witness map on a domain of 2^k (--systems-log2, 17): BCTV14
+   on generate_r1cs_example(r, 2^k - 3, 2) (QAP), GM17 on
+   generate_r1cs_example(r, 2^(k-1) - 3, 2) (SAP, 2n + 2k + 1 = 2^k - 1
+   rows), DFGK14 on generate_uscs_example(r, 2^k, 2) (SSP). Each: a seeded keygen
    (device fixed-base path) under torch.profiler with its phases, one
    prove with its phases and one more under the profiler (the proofs must
    be equal), peak device memory, verify accepted and a wrong input
@@ -119,7 +133,7 @@
    horner_combine (G1 and G2) must each have launched on the path. Then
    BACS and TBCS round trips at 2^12 gates.
 6c. Runs ADSNARK over alt_bn128 through its entry points on
-   generate_r1cs_example(r, 2^18 - 3, 16) (--adsnark-log2; a worker
+   generate_r1cs_example(r, 2^17 - 3, 16) (--adsnark-log2; a worker
    process makes it):
    the authority's seeded keys and the 16 inputs' signed data, a seeded
    keygen under torch.profiler with its phases, a prove with its phases
@@ -138,7 +152,7 @@
    mont_mul and fp_addsub at 19 limbs (MNT4's and MNT6's Fq and Fr, R =
    2^304) and at 12 limbs (edwards) on 2^20 lanes against their plain
    versions, bit-exact; then
-   Groth16 over MNT4 and MNT6 at 2^17 - 3 constraints (--mnt-log2; at
+   Groth16 over MNT4 and MNT6 at 2^16 - 3 constraints (--mnt-log2; at
    2^18 - 3 MNT6's witness map takes its extended domain of 2 x 2^17)
    and over edwards at 2^15 - 3 (--edwards-log2), each with 2 inputs (a
    worker process makes the circuit): one scalar_mul_const a group
@@ -174,12 +188,14 @@
    element. mont_mul and fp_addsub at 19 limbs must launch, no group
    kernel may (the table's "pcd_cycle" counts). The path runs in a
    spawned process of its own (PathProcess: its own launch counters,
-   profiler, device memory statistics and two verifier workers) beside
-   the mnt path, 6d and 6e, all host-bound. The two processes take turns
-   on the card (card_turn): the parent holds the card for each of its
-   timed or profiled phases, the path's process for each Groth16 call
-   that runs there and for its profiled step, so no measured phase shares
-   the card; host work overlaps. Its log lines are printed when it ends,
+   profiler, device memory statistics and two verifier workers), started
+   after the Groth16 paths of 6, beside 6b, 6c, 6d and 6e, all
+   host-bound. The two processes take turns on the card (card_turn): the
+   parent holds the card for each of its timed or profiled phases and
+   yardsticks, the path's process for each Groth16 call that runs there
+   (a keygen's from its QAP at t to its last fixed-base query as one
+   turn), its profiled step included, so no measured phase shares the
+   card; host work overlaps. Its log lines are printed when it ends,
    after 6e, and a failure there fails the run.
 6e. Runs the RAM systems through their entry points (ram_path), TinyRAM
    with 16 registers of 32 bits: the RAM ppzkSNARK (the universal circuit
@@ -341,6 +357,9 @@ TPU_KERNEL = {
     # the field addition and subtraction: jnp code that XLA fuses on the
     # TPU (FpKernel.add / sub), no Pallas kernel
     "fp_addsub": "libsnark_tpu/ops/fp.py:144",
+    # the product with a wide operand of the MXU NTT: a jnp scan on the TPU
+    # (FpKernel.mul_wide), no Pallas kernel
+    "mul_wide": "libsnark_tpu/ops/fp.py:258",
     "dbl": "libsnark_tpu/ops/pallas_ec.py:355",
     "madd": "libsnark_tpu/ops/pallas_ec.py:255",
     # the fixed-base scan of the JAX batch_exp (libsnark_tpu/ops/msm.py:
@@ -373,6 +392,7 @@ TPU_KERNEL = {
 SOURCE = {
     "mont_mul": "libsnark_tpu_torch/csrc/fp.cu",
     "fp_addsub": "libsnark_tpu_torch/csrc/fp.cu",
+    "mul_wide": "libsnark_tpu_torch/csrc/fp.cu",
     "dbl": "libsnark_tpu_torch/csrc/ec.cu",
     "madd": "libsnark_tpu_torch/csrc/ec.cu",
     "madd_win": "libsnark_tpu_torch/csrc/ec.cu",
@@ -456,6 +476,48 @@ def on_card(fn):
         with card_turn():
             return fn(*a, **kw)
     return turn
+
+
+class HeldTurn:
+    """One card turn over a stretch of calls: ``begin(fn)`` wraps the call
+    that opens it (the turn is taken before fn runs, unless it is held
+    already), ``end(fn)`` the one that closes it (released when fn
+    returns or raises); a failure in the opening call releases it too.
+    Calls between them that take a turn of their own (on_card) nest inside
+    it. The cycle process holds one such turn from a Groth16 keygen's QAP
+    at t to its last fixed-base query, instead of one turn a call: each of
+    those short calls waited for a whole parent phase."""
+
+    def __init__(self):
+        self.stack = None
+
+    def release(self):
+        if self.stack is not None:
+            stack, self.stack = self.stack, None
+            stack.close()
+
+    def begin(self, fn):
+        @functools.wraps(fn)
+        def opened(*a, **kw):
+            if self.stack is None:
+                stack = contextlib.ExitStack()
+                stack.enter_context(card_turn())
+                self.stack = stack
+            try:
+                return fn(*a, **kw)
+            except BaseException:
+                self.release()
+                raise
+        return opened
+
+    def end(self, fn):
+        @functools.wraps(fn)
+        def closed(*a, **kw):
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.release()
+        return closed
 
 
 def rate_bound_ms(per_step: dict, steps: int, wide: float) -> float:
@@ -698,25 +760,47 @@ def check_probes(K, fqs):
                 f"{r['gsteps_per_s'] * 1e9 / INT32_OPS_PER_S:.3f} x "
                 f"INT32_OPS_PER_S ({INT32_OPS_PER_S:.4g})")
     from libsnark_tpu_torch.ops import cuda_lib
-    log("probe: Montgomery-product bodies (2^20 lanes x 64 chained products)")
-    for r in probes.measure_cios([fk for fk in fqs
-                                  if fk.nw in cuda_lib.PROBE_WIDTHS]):
+    log("probe: Montgomery-product bodies (2^20 lanes x 64 chained products; "
+        "at 19 and 12 limbs 2^16 lanes x 16, fp_mul_half alone at 19: the "
+        "plain chain there takes ~0.25 s a product on 2^16 lanes)")
+    new = [fk for fk in fqs if fk.N in (12, 19)]
+    rows = probes.measure_cios([fk for fk in fqs if fk not in new
+                                and fk.nw in cuda_lib.PROBE_WIDTHS])
+    rows += probes.measure_cios(new, L=1 << 16, K=16)
+    for r in rows:
         key = f"probe_cios_{r['variant']}_n{r['N']}"
         ops = r["lanes"] * r["K"] * r["wide_mads_per_product"]
         K.add("probe_cios", key, 0 if r["exact"] else 1, r["ms"],
               r["plain_ms"], 3 * 4 * r["N"] * r["lanes"], ops)
         log(f"    N={r['N']} {r['variant']}: {r['gproducts_per_s']:.3f} G "
             f"products/s = {ops / r['ms'] / 1e9:.3f}e12 wide mads/s")
+    dep = probes.measure_dep_mad()
+    if not dep["exact"]:
+        raise AssertionError("the dependent multiply-add probe differs from "
+                             "its plain chain")
+    log(f"probe: one dependent wide multiply-add (IMAD.WIDE.U32, one thread, "
+        f"{dep['K']} in a chain): {dep['ns']:.4f} ns")
     log("probe: latency of one dependent product (K chained products over "
-        "one element: one thread, or one lane group for 'lanes')")
+        "one element: one thread, or one lane group for 'lanes'); its "
+        "latency bound: the multiply-adds every body runs one after another "
+        "(probes.dependent_mads: 4 NW) times that latency")
     for r in probes.measure_product_latency(fqs):
         if not r["exact"]:
             raise AssertionError(f"product latency probe N={r['N']} "
                                  f"{r['variant']} differs from its plain chain")
         ms = r["latency_us"] / 1e3
         PRODUCT_LATENCY_MS[r["N"]] = min(PRODUCT_LATENCY_MS.get(r["N"], ms), ms)
+        chain = probes.dependent_mads(-(-r["N"] // 2))
+        bound_us = chain * dep["ns"] / 1e3
+        key = f"probe_cios_{r['variant']}_n{r['N']}"
+        if key in K.rows:
+            K.rows[key].update(latency_us=r["latency_us"],
+                               latency_bound_us=bound_us,
+                               dependent_mads=chain)
         log(f"    N={r['N']} {r['variant']}: {r['latency_us']:.4f} us a product "
-            f"({r['K']} products in {r['ms']:.4f} ms)")
+            f"({r['K']} products in {r['ms']:.4f} ms); latency bound "
+            f"{bound_us:.4f} us ({chain} dependent wide multiply-adds) -> "
+            f"{r['latency_us'] / bound_us:.2f}x")
     check_layout(K)
     for key, n in probes.LAUNCHES.items():
         if n == 0:
@@ -1816,10 +1900,20 @@ def main_path(curve, log2: int, paths: dict, circuit=None,
             strategy].prover(kp.pk, primary, aux, seed=9), paths)
         if timed != proof:
             raise AssertionError(f"the profiled proof ({strategy}) differs")
+    more = {}
     if curve.name == "bls12_377":
         if caller_split(f"prove_{curve.name}", lambda: g16.prover(
                 kp.pk, primary, aux, seed=9), paths) != proof:
             raise AssertionError("the proof under PortCallers differs")
+        # the multi-device prover (one rank) and the MXU NTT on this path's
+        # keypair, witness and seeded proof
+        t0 = time.perf_counter()
+        more[f"prove_sharded_{curve.name}"] = sharded_phase(
+            curve, g16, kp, primary, aux, proof)
+        log(f"  sharded phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        more.update(mxu_phase(paths))
+        log(f"  mxu phase {time.perf_counter() - t0:.1f} s")
     total = path_totals(phases, curve.name, [
         f"mont_mul_n{g16.fq.N}", f"mont_mul_n{g16.fr.N}"] + [
         counter_key(k, ck.fk) for k in (
@@ -1828,17 +1922,20 @@ def main_path(curve, log2: int, paths: dict, circuit=None,
     if extras:
         prove_encode_in_turns(g16, kp, primary, aux, proof, curve.name)
     # the kernels the path no longer runs count where their forms still do
-    yardsticks = {
-        f"prove_dense_gathered_{curve.name}": dense_gathered_prove(
-            curve, systems["dense"], kp, primary, aux, proof),
-        # (without extras on 2^16 scalars: a yardstick, not the keygen)
-        f"fixed_base_loop_{curve.name}": {
-            k: n for k, n in fixed_base_before_after(
-                curve, g16, kp.pk.H_query[0].shape[-1] if extras
-                else 1 << 16).items()
-            if k.startswith("madd_fp")},
-        f"window_table_loop_{curve.name}": window_table_before_after(curve,
-                                                                     g16)}
+    # (their times in the card's turn: the cycle process may be running)
+    with card_turn():
+        yardsticks = {
+            f"prove_dense_gathered_{curve.name}": dense_gathered_prove(
+                curve, systems["dense"], kp, primary, aux, proof),
+            # (without extras on 2^16 scalars: a yardstick, not the keygen)
+            f"fixed_base_loop_{curve.name}": {
+                k: n for k, n in fixed_base_before_after(
+                    curve, g16, kp.pk.H_query[0].shape[-1] if extras
+                    else 1 << 16).items()
+                if k.startswith("madd_fp")},
+            f"window_table_loop_{curve.name}":
+                window_table_before_after(curve, g16),
+            **more}
     if not extras:
         return total, yardsticks
     gen = torch.Generator(device="cuda").manual_seed(77)
@@ -1861,6 +1958,192 @@ def main_path(curve, log2: int, paths: dict, circuit=None,
                 f"({counts.numel()} segments, {int(counts.sum())} rows)")
 
     return total, yardsticks
+
+
+def sharded_phase(curve, g16, kp, primary, aux, proof) -> dict:
+    """The multi-device prover on the card over a one-rank NCCL group (a
+    ``file://`` rendezvous in a temporary directory; the group is destroyed
+    whatever happens): prover_sharded with the path's keypair, witness and
+    seed, twice (the first builds the four-step tables), each proof equal
+    to the path's prover proof bit for bit, verified and rejected for a
+    changed primary input; the four-step NTT at the path's domain size
+    against its Radix2Domain (fft, ifft, icoset_fft_divz: equal limbs, CUDA-event
+    times); msm_simple on 2^12 points of the A query against the Pippenger
+    MSM (equal affine limbs). One card: NCCL refuses two ranks on one
+    device, so D = 1 here and D > 1 is held by the CPU tests over gloo.
+    Returns the launches of its phases."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from libsnark_tpu_torch.ops.cuda_ec import counter_key
+    from libsnark_tpu_torch.parallel.msm_sharded import sharded_msm
+    from libsnark_tpu_torch.parallel.ntt_sharded import FourStepDomain
+    from libsnark_tpu_torch.reductions.r1cs_to_qap import qap_domain
+    phases = {}
+    tmp = tempfile.mkdtemp(prefix="lsn_nccl_")
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        log(f"sharded: NCCL process group (world size "
+            f"{dist.get_world_size()}) in {time.perf_counter() - t0:.3f} s")
+        for label in ("prove_sharded", "prove_sharded[again]"):
+            got = timed_phase(phases, label, lambda t: g16.prover_sharded(
+                kp.pk, primary, aux, seed=9, timings=t))
+            if got != proof:
+                raise AssertionError(f"{label}: the sharded proof differs "
+                                     "from the path's prover proof")
+        bad = [(primary[0] + 1) % curve.r] + list(primary[1:])
+        t1 = time.perf_counter()
+        ok, bad_ok = VERIFIERS.verdicts(g16, [
+            ("verifier_strong_IC", (kp.vk, primary, got)),
+            ("verifier_strong_IC", (kp.vk, bad, got))])
+        log(f"  sharded proof equal to the path's proof; verify "
+            f"{time.perf_counter() - t1:.2f} s: accepted={ok} "
+            f"wrong-input-rejected={not bad_ok}")
+        if not ok or bad_ok:
+            raise AssertionError("the sharded proof's verification failed")
+        with card_turn():
+            fr = g16.fr
+            ref = g16.domain_for(qap_domain, kp.pk.r1cs_dev)
+            t1 = time.perf_counter()
+            fs = FourStepDomain(fr, curve.fr_params, ref.logm)
+            fs.device_tables()
+            torch.cuda.synchronize()
+            log(f"  four-step domain 2^{ref.logm} (n1 {fs.n1}, n2 {fs.n2}): "
+                f"tables {time.perf_counter() - t1:.3f} s")
+            gen = torch.Generator(device="cuda").manual_seed(81)
+            a = rand_field(fr, (ref.m,), gen)
+            for name in ("fft", "ifft", "icoset_fft_divz"):
+                got_t = getattr(fs, name)(a)
+                if not torch.equal(got_t, getattr(ref, name)(a)):
+                    raise AssertionError(f"four-step {name} differs from "
+                                         "Radix2Domain's")
+                ms = cuda_ms(lambda: getattr(fs, name)(a), 3)
+                r2 = cuda_ms(lambda: getattr(ref, name)(a), 3)
+                log(f"  four-step {name} at 2^{ref.logm}: equal limbs; "
+                    f"{ms:.3f} ms, radix-2 {r2:.3f} ms")
+            m = 1 << 12
+            P = tuple(x[..., :m] for x in kp.pk.A_query)
+            sc = rand_field(fr, (m,), gen)      # canonical: plain scalars
+            want = g16.msm_affine("g1", P, sc, 8)
+            t1 = time.perf_counter()
+            simple = g16.g1.to_affine(g16.msm_g1.msm_simple(P, sc))
+            torch.cuda.synchronize()
+            t_simple = time.perf_counter() - t1
+            if max_abs_err(simple, want):
+                raise AssertionError("msm_simple differs from Pippenger")
+            got_s = sharded_msm(g16.msm_g1, None, P, sc, c=8, affine=True,
+                                method="simple")
+            if max_abs_err(got_s, want):
+                raise AssertionError("sharded_msm(method=simple) differs")
+            log(f"  msm_simple on {m} points: equal to Pippenger's affine "
+                f"sum, {t_simple:.3f} s (dbl and madd launches a bit)")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = phase_totals(phases)
+    require_launched("the sharded prove", total, [
+        f"mont_mul_n{g16.fq.N}", f"mont_mul_n{g16.fr.N}"] + [
+        counter_key(k, ck.fk) for k in (
+            "add", "bucket_reduce", "horner_combine")
+        for ck in (g16.g1, g16.g2)])
+    return total
+
+
+_GEMM = re.compile(r"gemm|xmma|cutlass|nvjet|imma|s8s8|bf16", re.I)
+
+
+def mxu_phase(paths: dict) -> dict:
+    """The MXU NTT (ops/ntt_mxu.py) on the card at 2^20 over BLS12-377's
+    Fr, both operand types: the domain made with mxu=True against the
+    radix-2 forms (fft, ifft, icoset_fft_divz: equal limbs), each timed
+    (CUDA events) beside the radix-2 form with its launches (mul_wide,
+    matrix products); the forward forms once more under the device
+    profiler, the shares of the matrix products (_int_mm / the bf16 mm,
+    by kernel name) and of mul_wide in its device time; _int_mm and the
+    bf16 product alone at the level's shapes; the forward form over
+    BW6-761's Fr (24 limbs) against its radix-2 form. Returns {run:
+    launches}."""
+    from libsnark_tpu_torch import get_curve
+    from libsnark_tpu_torch.ops import (launch_counts, ntt_mxu,
+                                        reset_launch_counts)
+    from libsnark_tpu_torch.ops.fp import FpKernel
+    from libsnark_tpu_torch.ops.ntt import Radix2Domain
+    counts = {}
+    gen = torch.Generator(device="cuda").manual_seed(92)
+    for cname, logm, dtypes in (("bls12_377", 20, ("int8", "bf16")),
+                                ("bw6_761", 20, ("int8",))):
+        curve = get_curve(cname)
+        fr = FpKernel(curve.fr_params)
+        ref = Radix2Domain(fr, curve.fr_params, logm)
+        a = rand_field(fr, (1 << logm,), gen)
+        label = f"ntt_mxu_{cname}"
+        counts[label] = {}
+        names = (("fft", "ifft", "icoset_fft_divz") if cname == "bls12_377"
+                 else ("fft",))
+        with card_turn():
+            for dtype in dtypes:
+                mx = Radix2Domain(fr, curve.fr_params, logm, mxu=True,
+                                  dtype=dtype)
+                t0 = time.perf_counter()
+                for kind in ("fwd", "inv", "icoset_divz"):
+                    mx.mxdft(kind).device_tables()
+                torch.cuda.synchronize()
+                log(f"mxu {cname} {dtype} 2^{logm}: tables "
+                    f"{time.perf_counter() - t0:.3f} s (three kinds)")
+                for name in names:
+                    reset_launch_counts()
+                    mm0 = ntt_mxu.MATMULS[dtype]
+                    got = getattr(mx, name)(a)
+                    n = {k: v for k, v in launch_counts().items() if v}
+                    mm = ntt_mxu.MATMULS[dtype] - mm0
+                    for k, v in n.items():
+                        counts[label][k] = counts[label].get(k, 0) + v
+                    if not torch.equal(got, getattr(ref, name)(a)):
+                        raise AssertionError(f"mxu {cname} {dtype} {name} "
+                                             "differs from the radix-2 form")
+                    ms = cuda_ms(lambda: getattr(mx, name)(a), 5)
+                    r2 = cuda_ms(lambda: getattr(ref, name)(a), 5)
+                    log(f"  {name}: equal limbs; {ms:.3f} ms against the "
+                        f"radix-2 form's {r2:.3f} ms ({r2 / ms:.2f}x); "
+                        f"launches {json.dumps(n)}, {mm} matrix products")
+                if cname != "bls12_377":
+                    continue
+                _, rows, busy, wall, _, _, others = profiled_rows(
+                    lambda: mx.fft(a))
+                kern = sum(r["ms"] for r in rows.values())
+                gemm = sum(ms for ms, _, nm in others if _GEMM.search(nm))
+                paths[f"ntt_mxu_{dtype}_{cname}"] = {
+                    "kernels": rows, "busy_ms": busy, "wall_ms": wall,
+                    "matmul_ms": gemm, "other_ms": sum(o[0] for o in others),
+                    "other_ops": [{"name": nm[:120], "launches": k, "ms": ms}
+                                  for ms, k, nm in others[:5]]}
+                log(f"  fft profiled: wall {wall:.3f} ms, device busy "
+                    f"{busy:.3f} ms; matrix products {gemm:.3f} ms "
+                    f"({gemm / busy:.1%}), mul_wide {kern:.3f} ms "
+                    f"({kern / busy:.1%}), the rest {busy - gemm - kern:.3f}"
+                    " ms; largest others: " + "; ".join(
+                        f"{nm[:60]} {ms:.3f} ms x{k}"
+                        for ms, k, nm in others[:4]))
+                # the products alone at the top level's shapes (2^16
+                # subproblems of radix 16; the fold over 2^20 lanes)
+                mxd = mx.mxdft("fwd")
+                tb = mxd.device_tables()
+                for what, W, B in (("dft", tb["AM"][0], 1 << (logm - 4)),
+                                   ("fold", tb["fold"], 1 << logm)):
+                    xT = torch.randint(0, 16, (B, W.k), generator=gen,
+                                       device="cuda", dtype=torch.int8)
+                    ms = cuda_ms(lambda: W.matmul(xT), 5)
+                    ops = 2 * B * W.k * W.rows
+                    peak = 1979e12 if dtype == "int8" else 989e12
+                    b_ms, by = bound_ms(B * W.k + W.k * W.rows
+                                        + 4 * B * W.rows, ops, peak)
+                    log(f"  {dtype} product alone ({what}: {B} x {W.k} by "
+                        f"{W.k} x {W.rows}): {ms:.4f} ms, bound {b_ms:.4f} ms"
+                        f" ({by}), {ops / ms / 1e9:.1f} TOP/s")
+        log(f"  launches {label}: {json.dumps(counts[label])}")
+    return counts
 
 
 def phase_totals(phases: dict) -> dict:
@@ -2516,8 +2799,9 @@ def cycle_path_process(conn, lock, waiting):
     run on the card (the QAP at t, the fixed-base queries, the check on the
     device R1CS, the prove) and the field's Montgomery conversion (the
     device R1CS's coefficients) each take the card's turn (lock, waiting:
-    card_turn's); only the copies of host arrays to the card run outside
-    the turns. Sends ("ok", launches, paths, log lines) or ("error",
+    card_turn's), a keygen's from the QAP at t to its last fixed-base query
+    as one turn (HeldTurn); only the copies of host arrays to the card run
+    outside the turns. Sends ("ok", launches, paths, log lines) or ("error",
     traceback, None, log lines)."""
     global LOG_LINES, VERIFIERS, CARD, IN_PATH_PROCESS
     import traceback
@@ -2530,11 +2814,16 @@ def cycle_path_process(conn, lock, waiting):
         from libsnark_tpu_torch.proof_systems import groth16
         FpKernel.to_mont = on_card(FpKernel.to_mont)
         for name in ("prover", "first_unsatisfied", "fixed_base_g1",
-                     "fixed_base_g2", "fixed_base_points_g1"):
+                     "fixed_base_g2"):
             setattr(groth16.Groth16, name,
                     on_card(getattr(groth16.Groth16, name)))
-        groth16.qap_instance_map_on_device = on_card(
+        # a keygen: one turn from the QAP at t to the last fixed-base
+        # query (gamma_ABC), its host work between them inside it
+        keygen = HeldTurn()
+        groth16.qap_instance_map_on_device = keygen.begin(
             groth16.qap_instance_map_on_device)
+        groth16.Groth16.fixed_base_points_g1 = keygen.end(on_card(
+            groth16.Groth16.fixed_base_points_g1))
         cuda_lib.build_all()
         VERIFIERS = VerifierPool(2)
         try:
@@ -3185,11 +3474,35 @@ def kzg_path(curve, log2: int, small_log2=None, paths=None) -> dict:
 # profiler kernel names (demangled or mangled) -> launch-counter families
 _KERNEL_NAME = re.compile(r"(?:^|[\s:]|_Z\d+)([a-z_]+)_kernel(?:<(\d+)(?:, (\d+))?"
                           r"(?:, \d+)*>|ILi(\d+)E(?:Li(\d+)E)?)")
-_FAMILY = {"mont_mul": "mont_mul", "fp_addsub": "fp_addsub", "dbl": "dbl",
+_FAMILY = {"mont_mul": "mont_mul", "fp_addsub": "fp_addsub",
+           "mul_wide": "mul_wide", "dbl": "dbl",
            "add": "add", "madd": "madd",
            "madd_windows": "madd_win", "aadd": "aadd",
            "aadd_rows": "aadd_rows", "dbl_chain": "dbl_chain",
            "bucket_reduce": "bucket_reduce", "horner": "horner_combine"}
+
+
+def check_mul_wide(fr, K, gen):
+    """mul_wide (the MXU NTT's per-level product) at 2^20 lanes with Wa = N
+    + 2 limbs of a (all-0xFFFF and zero lanes planted) and b a whole table
+    of canonical values (0, 1, p - 1 planted), against its plain version on
+    every lane; timed. Once per width."""
+    from libsnark_tpu_torch.ops import cuda_fp
+    key = f"mul_wide_n{fr.N}"
+    if key in K.rows:
+        return
+    L, wa = 1 << 20, fr.N + 2
+    a = torch.randint(0, 1 << 16, (wa, L), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    a[:, :2] = (1 << 16) - 1
+    a[:, 2] = 0
+    b = plant_edges(fr, rand_field(fr, (L,), gen))
+    err = max_abs_err([cuda_fp.mul_wide(fr, a, b)],
+                      [cuda_fp.mul_wide_plain(fr, a, b)])
+    ms = cuda_ms(lambda: cuda_fp.mul_wide(fr, a, b), 50)
+    pms = cuda_ms(lambda: cuda_fp.mul_wide_plain(fr, a, b), 1)
+    nbytes, ops = unit_cost(key)
+    K.add("mul_wide", key, err, ms, pms, nbytes * L, ops * L, wide_limbs=wa)
 
 
 def kernel_key(name: str):
@@ -3199,7 +3512,7 @@ def kernel_key(name: str):
         return None
     fam = _FAMILY[m.group(1)]
     nw = int(m.group(2) or m.group(4))
-    if fam in ("mont_mul", "fp_addsub"):    # <NW, NL, ..>: NL limbs
+    if fam in ("mont_mul", "fp_addsub", "mul_wide"):  # <NW, NL, ..>: NL
         return f"{fam}_n{int(m.group(3) or m.group(5))}"
     ext = int(m.group(3) or m.group(5))
     return f"{fam}_{'fp2' if ext == 2 else 'fp'}_n{2 * nw}"
@@ -3227,6 +3540,8 @@ def unit_cost(key: str):
         return 12 * N, wm
     if fam == "fp_addsub":
         return 12 * N, 0
+    if fam == "mul_wide":            # the MXU NTT's: Wa = N + 2 limbs of a
+        return 4 * (N + 2 + 2 * N), -(-(N + 2) // 2) * (2 * nw + 1)
     if fam == "bucket_reduce":
         return 4 * FW + 4, PRODUCTS["madd"] * per * wm
     if fam == "horner_combine":      # throughput; latency: latency_bound_ms
@@ -3340,7 +3655,8 @@ def device_profile(fn):
 
 def profiled_rows(fn):
     """fn() under the device profiler, with the counts set to 0 just before:
-    (result, {path kernel key: row}, busy ms, wall ms, the keys whose
+    (result, {path kernel key: row}, busy ms, wall ms less the waits for
+    the card's turns, the keys whose
     profiled kernels differ in number from the wrappers' launches, the
     runtime's kernel launches the profiler kept no device record of, the
     device operations that are no hand-written kernel as (ms, launches,
@@ -3349,7 +3665,11 @@ def profiled_rows(fn):
                                         live_pair_counts, reset_launch_counts,
                                         work_counts)
     reset_launch_counts()
+    waited = TURN_WAITED
     out, per, busy, wall, lost = device_profile(fn)
+    # in a path's own process fn's card calls wait for their turns: that
+    # wait is the other process's time, not the path's
+    wall -= (TURN_WAITED - waited) * 1e3
     launches, work, depth = launch_counts(), work_counts(), depth_counts()
     live = live_pair_counts()
     rows, others = {}, []
@@ -3389,8 +3709,13 @@ def path_timing(label: str, fn, paths: dict):
     not record, no more in all than the runtime's launches that have no
     device record; else it fails. A wrapper that counts a launch it did
     not make (the runtime sees no launch) or launches without counting
-    still fails."""
-    with card_turn():
+    still fails.
+
+    In a path's own process the calls of fn that run on the card take
+    their turns themselves (on_card), as in timed_phase: the card is not
+    held through the path's host work, and the waits are left out of the
+    wall time."""
+    with contextlib.nullcontext() if IN_PATH_PROCESS else card_turn():
         out, rows, busy, wall, differ, lost, others = profiled_rows(fn)
         if differ:
             log(f"  path {label}: profiled / launched differ {differ}; "
@@ -3597,21 +3922,23 @@ def main(argv=None) -> int:
                     help="alt_bn128 Groth16 circuit: 2^k - 3 constraints "
                          "(18: the run's time limit leaves 2^20 to "
                          "BLS12-377 and to the proof-systems path)")
-    ap.add_argument("--systems-log2", type=int, default=18,
+    ap.add_argument("--systems-log2", type=int, default=17,
                     help="BCTV14, GM17 and DFGK14 over alt_bn128: witness "
-                         "map on a domain of 2^k (18: the run's time limit "
-                         "leaves 2^20 to the ADSNARK and BW6-761 paths)")
+                         "map on a domain of 2^k (17: the run's time limit, "
+                         "with the sharded and MXU phases)")
     ap.add_argument("--new-log2", type=int, default=19,
                     help="Groth16 over BW6-761: 2^k - 3 constraints (19: "
                          "the run's time limit, with the PCD and mnt "
                          "paths)")
-    ap.add_argument("--adsnark-log2", type=int, default=18,
+    ap.add_argument("--adsnark-log2", type=int, default=17,
                     help="ADSNARK over alt_bn128 (16 authenticated inputs): "
-                         "2^k - 3 constraints (18: the run's time limit)")
-    ap.add_argument("--mnt-log2", type=int, default=17,
+                         "2^k - 3 constraints (17: the run's time limit, "
+                         "with the sharded and MXU phases)")
+    ap.add_argument("--mnt-log2", type=int, default=16,
                     help="Groth16 over MNT4 and MNT6: 2^k - 3 constraints "
-                         "(17: the run's time limit; 18 gives MNT6 its "
-                         "extended domain of 2 x 2^17)")
+                         "(16: the run's time limit, with the sharded and "
+                         "MXU phases; 18 gives MNT6 its extended domain of "
+                         "2 x 2^17)")
     ap.add_argument("--edwards-log2", type=int, default=15,
                     help="Groth16 over edwards: 2^k - 3 constraints (15: "
                          "the run's time limit)")
@@ -3676,7 +4003,10 @@ def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rng = random.Random(1234)
     K = Kernels()
-    check_probes(K, [g.fq for g in systems.values()])
+    from libsnark_tpu_torch.ops.fp import FpKernel
+    # the product bodies at 19 and 12 limbs too (MNT4's, edwards' Fq)
+    check_probes(K, [g.fq for g in systems.values()] + [
+        FpKernel(get_curve(name).fq_params) for name in ("mnt4", "edwards")])
     for name, g16 in systems.items():
         log(f"--- kernels against their plain versions: {name}")
         # at 48 limbs (BW6-761) the plain versions run on part of each
@@ -3691,6 +4021,8 @@ def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
             ("fp_addsub", lambda: check_fp_addsub(
                 g16.fr, g16.fq, K, gen,
                 plain_lanes=1 << 16 if small else None)),
+            # Fr at 16 limbs (alt_bn128, BLS12-377) and 24 (BW6-761)
+            ("mul_wide", lambda: check_mul_wide(g16.fr, K, gen)),
             ("ec", lambda: check_ec(g16.curve, g16, K, gen, rng)),
             ("madd_windows", lambda: check_madd_windows(
                 g16.curve, g16, K, gen, rng,
@@ -3738,6 +4070,13 @@ def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
                 for key, n in yard.items():
                     K.count(key, label, n)
             log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
+        # the cycle PCD path runs in its own process beside the proof-
+        # systems, ADSNARK, BW6-761, mnt, PCD and RAM paths (host-bound,
+        # 73-99 % idle on the card), the two processes taking turns on the
+        # card: started here, it ends before the RAM path does
+        log("pcd_cycle path: started in its own process, beside the "
+            "systems, adsnark, bw6_761, mnt, pcd and ram paths")
+        cycle = PathProcess(cycle_path_process)
         for label, counts in proof_systems_path(
                 get_curve("alt_bn128"), args.systems_log2, paths,
                 circuits).items():
@@ -3760,12 +4099,6 @@ def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
             for key, n in yard.items():
                 K.count(key, label, n)
         log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
-        # the cycle PCD path runs in its own process beside the mnt, PCD
-        # and RAM paths (all four host-bound, 73-99 % idle on the card),
-        # the two processes taking turns on the card
-        log("pcd_cycle path: started in its own process, beside the mnt, "
-            "pcd and ram paths")
-        cycle = PathProcess(cycle_path_process)
         for name, counts in mnt_path(args, K, gen, paths, circuits).items():
             for key, n in counts.items():
                 # mont_mul_n19 keeps the MNT4 path's count

@@ -333,16 +333,61 @@ static int cios_launch(int variant, const void* a, const void* b, void* out,
   return (int)cudaGetLastError();
 }
 
-// nw: 32-bit words per element (8, 12; 24 for variants 2-4 only, the
-// product latency at 48 limbs); M: the Mod<nw> of that width
+// variant 5: fp_mul_half, the kernels' product at an odd limb count (19
+// limbs in NW = 10 words, R = 2^304: MNT4 and MNT6), NL limbs in and out
+template <int NW, int NL>
+__global__ void __launch_bounds__(256)
+half_chain_kernel(const int32_t* __restrict__ a,
+                  const int32_t* __restrict__ b, int32_t* __restrict__ out,
+                  int64_t L, int K, const __grid_constant__ Mod<NW> M) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= L) return;
+  Fp<NW> x = fp_load<NW, NL>(a, L, i);
+  Fp<NW> y = fp_load<NW, NL>(b, L, i);
+  for (int k = 0; k < K; ++k) x = fp_mul_half<NW>(x, y, M);
+  fp_store<NW, NL>(out, L, i, x);
+}
+
+// nw: 32-bit words per element (6, 8, 12: every variant but 5; 24:
+// variants 2-4, the product latency at 48 limbs; 10: variant 5 alone, 19
+// limbs); M: the Mod<nw> of that width
 extern "C" int lsn_probe_cios(int nw, int variant, const void* a,
                               const void* b, void* out, long long L, int K,
                               const void* M, void* stream) {
   if (L <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (nw == 8) return cios_launch<8>(variant, a, b, out, L, K, M, s);
-  if (nw == 12) return cios_launch<12>(variant, a, b, out, L, K, M, s);
-  if (nw == 24 && variant >= 2)
+  if (nw == 6 && variant <= 4)
+    return cios_launch<6>(variant, a, b, out, L, K, M, s);
+  if (nw == 8 && variant <= 4)
+    return cios_launch<8>(variant, a, b, out, L, K, M, s);
+  if (nw == 12 && variant <= 4)
+    return cios_launch<12>(variant, a, b, out, L, K, M, s);
+  if (nw == 24 && variant >= 2 && variant <= 4)
     return chain_launch<24>(variant, a, b, out, L, K, M, s);
+  if (nw == 10 && variant == 5) {
+    half_chain_kernel<10, 19><<<(unsigned)((L + 255) / 256), 256, 0, s>>>(
+        (const int32_t*)a, (const int32_t*)b, (int32_t*)out, L, K,
+        *(const Mod<10>*)M);
+    return (int)cudaGetLastError();
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// The latency of one dependent wide multiply-add: one thread runs K steps
+// of x = lo(x) * y + x, each an IMAD.WIDE.U32 whose operands are the
+// previous step's result, so the time over K is that instruction's
+// latency (the yardstick of the products' latency bounds: their dependent
+// chains in such instructions).
+__global__ void dep_mad_kernel(uint32_t y, unsigned long long* out, int K) {
+  uint64_t x = y | 1u;
+#pragma unroll 8
+  for (int k = 0; k < K; ++k) x = (uint64_t)(uint32_t)x * y + x;
+  *out = x;
+}
+
+extern "C" int lsn_probe_dep_mad(unsigned y, void* out, int K,
+                                 void* stream) {
+  dep_mad_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+      y, (unsigned long long*)out, K);
+  return (int)cudaGetLastError();
 }

@@ -19,6 +19,8 @@ from __future__ import annotations
 import functools
 import hashlib
 
+_new = object.__new__
+
 
 # ---------------------------------------------------------------------------
 # Prime field
@@ -70,30 +72,44 @@ def make_prime_field(p: int, name: str = "Fp"):
             return self.n == 0
 
         # -- arithmetic -----------------------------------------------------
+        # (results are made by _new and a reduced int: the pairings'
+        # tower spends most of its time in these)
         def __add__(self, o):
-            return Fp(self.n + as_int(o))
+            r = _new(Fp)
+            r.n = (self.n + (o if isinstance(o, int) else o.n)) % p
+            return r
 
         __radd__ = __add__
 
         def __sub__(self, o):
-            return Fp(self.n - as_int(o))
+            r = _new(Fp)
+            r.n = (self.n - (o if isinstance(o, int) else o.n)) % p
+            return r
 
         def __rsub__(self, o):
-            return Fp(as_int(o) - self.n)
+            r = _new(Fp)
+            r.n = ((o if isinstance(o, int) else o.n) - self.n) % p
+            return r
 
         def __mul__(self, o):
-            return Fp(self.n * as_int(o))
+            r = _new(Fp)
+            r.n = self.n * (o if isinstance(o, int) else o.n) % p
+            return r
 
         __rmul__ = __mul__
 
         def __neg__(self):
-            return Fp(-self.n)
+            r = _new(Fp)
+            r.n = -self.n % p
+            return r
 
         def __pow__(self, e):
             return Fp(pow(self.n, int(e), p))
 
         def squared(self):
-            return Fp(self.n * self.n)
+            r = _new(Fp)
+            r.n = self.n * self.n % p
+            return r
 
         def inverse(self):
             if self.n == 0:
@@ -232,30 +248,35 @@ def make_quadratic_ext(base, non_residue, name="Fp2"):
         def is_zero(self):
             return self.c0.is_zero() and self.c1.is_zero()
 
+        # (results are made by _mk from base elements: the pairings' tower
+        # spends most of its time in these)
         def __add__(self, o):
-            o = self._coerce(o)
-            return Ext(self.c0 + o.c0, self.c1 + o.c1)
+            if type(o) is not Ext:
+                o = self._coerce(o)
+            return _mk(self.c0 + o.c0, self.c1 + o.c1)
 
         __radd__ = __add__
 
         def __sub__(self, o):
-            o = self._coerce(o)
-            return Ext(self.c0 - o.c0, self.c1 - o.c1)
+            if type(o) is not Ext:
+                o = self._coerce(o)
+            return _mk(self.c0 - o.c0, self.c1 - o.c1)
 
         def __rsub__(self, o):
             return self._coerce(o) - self
 
         def __neg__(self):
-            return Ext(-self.c0, -self.c1)
+            return _mk(-self.c0, -self.c1)
 
         def __mul__(self, o):
             if isinstance(o, int):
                 return Ext(self.c0 * o, self.c1 * o)
-            o = self._coerce(o)
+            if type(o) is not Ext:
+                o = self._coerce(o)
             # Karatsuba: (a0 + a1 s)(b0 + b1 s) = a0b0 + beta a1b1 + ((a0+a1)(b0+b1) - a0b0 - a1b1) s
             v0 = self.c0 * o.c0
             v1 = self.c1 * o.c1
-            return Ext(v0 + beta * v1,
+            return _mk(v0 + beta * v1,
                        (self.c0 + self.c1) * (o.c0 + o.c1) - v0 - v1)
 
         __rmul__ = __mul__
@@ -264,7 +285,7 @@ def make_quadratic_ext(base, non_residue, name="Fp2"):
             # complex squaring
             a, b = self.c0, self.c1
             v = a * b
-            return Ext((a + b) * (a + beta * b) - v - beta * v, v + v)
+            return _mk((a + b) * (a + beta * b) - v - beta * v, v + v)
 
         def inverse(self):
             # (a - b s)/(a^2 - beta b^2)
@@ -356,6 +377,11 @@ def make_quadratic_ext(base, non_residue, name="Fp2"):
             x1 = self.c1 * (x0 + x0).inverse()
             return Ext(x0, x1)
 
+    def _mk(c0, c1):
+        r = _new(Ext)
+        r.c0, r.c1 = c0, c1
+        return r
+
     return Ext
 
 
@@ -393,30 +419,33 @@ def make_cubic_ext(base, non_residue, name="Fp3"):
             return self.c0.is_zero() and self.c1.is_zero() and self.c2.is_zero()
 
         def __add__(self, o):
-            o = self._coerce(o)
-            return Ext(self.c0 + o.c0, self.c1 + o.c1, self.c2 + o.c2)
+            if type(o) is not Ext:
+                o = self._coerce(o)
+            return _mk(self.c0 + o.c0, self.c1 + o.c1, self.c2 + o.c2)
 
         __radd__ = __add__
 
         def __sub__(self, o):
-            o = self._coerce(o)
-            return Ext(self.c0 - o.c0, self.c1 - o.c1, self.c2 - o.c2)
+            if type(o) is not Ext:
+                o = self._coerce(o)
+            return _mk(self.c0 - o.c0, self.c1 - o.c1, self.c2 - o.c2)
 
         def __rsub__(self, o):
             return self._coerce(o) - self
 
         def __neg__(self):
-            return Ext(-self.c0, -self.c1, -self.c2)
+            return _mk(-self.c0, -self.c1, -self.c2)
 
         def __mul__(self, o):
             if isinstance(o, int):
                 return Ext(self.c0 * o, self.c1 * o, self.c2 * o)
-            o = self._coerce(o)
+            if type(o) is not Ext:
+                o = self._coerce(o)
             a0, a1, a2 = self.c0, self.c1, self.c2
             b0, b1, b2 = o.c0, o.c1, o.c2
             v0, v1, v2 = a0 * b0, a1 * b1, a2 * b2
             # Toom/Karatsuba style (CH-SQR3 layout as in libff Fp3_model):
-            return Ext(
+            return _mk(
                 v0 + beta * ((a1 + a2) * (b1 + b2) - v1 - v2),
                 (a0 + a1) * (b0 + b1) - v0 - v1 + beta * v2,
                 (a0 + a2) * (b0 + b2) - v0 - v2 + v1,
@@ -533,6 +562,11 @@ def make_cubic_ext(base, non_residue, name="Fp3"):
                 t = t * c
                 r_ = r_ * b
             return r_
+
+    def _mk(c0, c1, c2):
+        r = _new(Ext)
+        r.c0, r.c1, r.c2 = c0, c1, c2
+        return r
 
     return Ext
 

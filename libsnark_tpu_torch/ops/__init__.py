@@ -2,13 +2,14 @@
 
 Kernel wrappers (each counts its launches on the card and their work, per
 coordinate field and field width):
-  cuda_fp.mont_mul / add_sub             csrc/fp.cu
+  cuda_fp.mont_mul / add_sub / mul_wide  csrc/fp.cu
   cuda_ec.dbl / add / madd / aadd        csrc/ec.cu
   cuda_ec.madd_windows / aadd_rows       csrc/ec.cu
   cuda_bucket.bucket_reduce / horner     csrc/bucket.cu
   cuda_bucket.dbl_chain                  csrc/bucket.cu
 The probe kernels (csrc/probe.cu, csrc/probe_layout.cu) count in
-``libsnark_tpu_torch.probes``.
+``libsnark_tpu_torch.probes``, the MXU NTT's matrix products (torch's)
+in ``ntt_mxu.MATMULS``.
 """
 from . import cuda_bucket, cuda_ec, cuda_fp
 

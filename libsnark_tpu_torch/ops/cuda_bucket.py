@@ -38,7 +38,10 @@ chain's latency, 3 levels of dependent products a doubling (``DEPTH``).
 
 The plain versions run the same sequence of group operations with torch
 ops over plain field products, so kernel and plain results are equal
-limb for limb, Jacobian coordinates included.
+limb for limb, Jacobian coordinates included. On the CPU, for a few
+lanes, the plain Horner chain runs the same formulas on Python integers
+(ops/int_lanes.py): a torch call a field operation of one lane would
+otherwise take most of a small prove.
 """
 from __future__ import annotations
 
@@ -47,8 +50,11 @@ import ctypes
 import torch
 
 from . import cuda_lib
-from .cuda_ec import (add_plain, counter_key, counter_keys, dbl_plain,
-                      ext_of, lead_of, madd_plain, width_args)
+from .cuda_ec import (add_formula, add_plain, counter_key, counter_keys,
+                      dbl_formula, dbl_plain, ext_of, lead_of, madd_plain,
+                      width_args)
+from .cuda_fp import small_lanes
+from .int_lanes import on_lanes
 from .limbs import words_to_limbs
 
 LAUNCHES = dict.fromkeys(counter_keys(("bucket_reduce", "horner_combine",
@@ -71,8 +77,10 @@ def _field_view(fk, a):
 
 
 def bucket_reduce_plain(fk, rows, gidx, starts, counts, order=None):
-    """Per-segment Jacobian sums, one masked madd round per row depth.
-    ``order`` (which thread takes which segment) changes nothing here."""
+    """Per-segment Jacobian sums, one madd round per row depth over the
+    segments that reach it (a segment past its count keeps its sum, as the
+    kernel's thread does). ``order`` (which thread takes which segment)
+    changes nothing here."""
     FW = ext_of(fk) * fk.N
     m = rows.shape[0]
     nb = counts.shape[0]
@@ -82,18 +90,20 @@ def bucket_reduce_plain(fk, rows, gidx, starts, counts, order=None):
     acc = (one, one, zero)
     counts64 = counts.to(torch.int64)
     maxc = int(counts64.max()) if nb else 0
+    starts = starts.to(torch.int64)
     for k in range(maxc):
-        live = k < counts64
-        pos = torch.clamp(starts + k, max=gidx.shape[0] - 1)
-        g = gidx[pos].to(torch.int64)
+        sel = torch.nonzero(counts64 > k).reshape(-1)   # the live segments
+        g = gidx[starts[sel] + k].to(torch.int64)
         neg = g >= m
         i = torch.where(neg, g - m, g)
-        r = words_to_limbs(rows[i].T)                 # (2FW, nb) limbs
+        r = words_to_limbs(rows[i].T)                 # (2FW, live) limbs
         x = _field_view(fk, r[:FW])
         y = _field_view(fk, r[FW:])
-        q_inf = fk.is_zero(y) | ~live
+        q_inf = fk.is_zero(y)
         y = fk.select(neg, fk.as_plain().neg(y), y)
-        acc = madd_plain(fk, acc, (x, y, q_inf))
+        out = madd_plain(fk, tuple(a[..., sel] for a in acc), (x, y, q_inf))
+        acc = tuple(a.index_copy(a.dim() - 1, sel, o)
+                    for a, o in zip(acc, out))
     return tuple(a.reshape(FW, nb) for a in acc)
 
 
@@ -140,13 +150,32 @@ def bucket_reduce(fk, rows, gidx, starts, counts, order=None):
     return tuple(outs)
 
 
+def _horner_chain(W: int, c: int):
+    """The Horner chain over one lane's W window sums (v: X, Y, Z of each
+    window in turn), for int_lanes.on_lanes."""
+    def chain(F, v, m):
+        acc = tuple(v[3 * (W - 1):])
+        for w in range(W - 2, -1, -1):
+            for _ in range(c):
+                acc = dbl_formula(F, acc)
+            acc = add_formula(F, acc, tuple(v[3 * w:3 * w + 3]))
+        return acc
+    return chain
+
+
 def horner_combine_plain(fk, S, c: int):
     """The same chain with torch ops. S: (X, Y, Z) of shape (FW, W), or
     (FW, W, B) for B independent combines at once (one column each);
-    returns (FW, 1), or (FW, B)."""
+    returns (FW, 1), or (FW, B). On the CPU, for a few lanes, on Python
+    integers (the same formulas, the same limbs)."""
     FW = ext_of(fk) * fk.N
     W = S[0].shape[1]
     batch = S[0].shape[2:]
+    if small_lanes(S[0]):
+        out = on_lanes(fk, _horner_chain(W, c), [
+            _field_view(fk, a[:, w]) for w in range(W) for a in S])
+        if out is not None:
+            return tuple(a.reshape(FW, -1) for a in out)
     pt = lambda w: tuple(_field_view(fk, a[:, w:w + 1] if not batch
                                      else a[:, w]) for a in S)
     acc = pt(W - 1)

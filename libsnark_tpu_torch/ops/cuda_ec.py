@@ -36,6 +36,8 @@ import ctypes
 import torch
 
 from . import cuda_lib
+from .cuda_fp import small_lanes
+from .int_lanes import on_lanes
 from .limbs import LIMB_BITS, words_to_limbs
 
 def counter_keys(kernels):
@@ -106,6 +108,24 @@ def dbl_formula(F, P):
     eight_c = F.double(F.double(F.double(C)))
     Y3 = F.sub(F.mul(E, F.sub(D, X3)), eight_c)
     Z3 = F.double(F.mul(Y, Z))
+    return (X3, Y3, Z3)
+
+
+def dbl_generic_formula(F, P, mul_by_a):
+    """dbl-2007-bl with M = 3*XX + a*ZZ^2 (generic a; mul_by_a multiplies
+    by the curve's a), the independent products stacked into one call
+    each, as in the JAX package."""
+    X, Y, Z = P
+    s1 = F.stack([X, Y, Z])
+    XX, YY, ZZ = F.unstack(F.mul(s1, s1))
+    s2 = F.stack([YY, F.add(X, YY), ZZ, F.add(Y, Z)])
+    YYYY, t, ZZ2, w = F.unstack(F.mul(s2, s2))
+    S = F.double(F.sub(F.sub(t, XX), YYYY))
+    M = F.add(F.add(F.add(XX, XX), XX), mul_by_a(ZZ2))
+    X3 = F.sub(F.sqr(M), F.double(S))
+    Y3 = F.sub(F.mul(M, F.sub(S, X3)),
+               F.double(F.double(F.double(YYYY))))
+    Z3 = F.sub(F.sub(w, YY), ZZ)
     return (X3, Y3, Z3)
 
 
@@ -206,18 +226,41 @@ def aadd_formula(F, P_aff, Q_aff, dbl_fn=None):
 
 # ---------------------------------------------------------------- plain
 
-def dbl_plain(fk, P, reps: int = 1):
-    F = fk.as_plain()
+# On the CPU, up to int_lanes.INT_LANES lanes, dbl / add / madd run their
+# formulas lane by lane on Python integers (int_lanes.on_lanes: the same
+# limbs); else, and for limbs outside [0, 2^16), the torch forms.
+
+def _dbl_reps(F, P, reps: int):
     for _ in range(reps):
         P = dbl_formula(F, P)
     return P
 
 
+def dbl_plain(fk, P, reps: int = 1):
+    if small_lanes(P[0]):
+        out = on_lanes(fk, lambda F, v, m: _dbl_reps(F, tuple(v), reps),
+                       list(P))
+        if out is not None:
+            return out
+    return _dbl_reps(fk.as_plain(), P, reps)
+
+
 def add_plain(fk, P, Q):
+    if small_lanes(P[0], Q[0]):
+        out = on_lanes(fk, lambda F, v, m: add_formula(
+            F, tuple(v[:3]), tuple(v[3:])), list(P) + list(Q))
+        if out is not None:
+            return out
     return add_formula(fk.as_plain(), P, Q)
 
 
 def madd_plain(fk, P, Q_aff, valid=None):
+    if small_lanes(P[0], Q_aff[0]):
+        out = on_lanes(fk, lambda F, v, m: madd_formula(
+            F, tuple(v[:3]), (v[3], v[4], m[0]), m[1]),
+            list(P) + list(Q_aff[:2]), (Q_aff[2], valid))
+        if out is not None:
+            return out
     return madd_formula(fk.as_plain(), P, Q_aff, valid)
 
 

@@ -17,6 +17,12 @@ the CPU, up to SMALL_LANES lanes, the same REDC on Python integers.
 The wrapper takes it only for tensors on the CPU; a CUDA tensor always
 launches the kernel.
 
+``mul_wide`` launches the product with a wide first operand of the same
+source (``mul_wide_kernel``: a of Wa >= N limbs, a b 2^(-16 Wa) mod p, the
+JAX package's ``FpKernel.mul_wide``, a jnp scan there): the per-level
+product of the MXU NTT (ops/ntt_mxu.py). Its plain version is the same
+REDC with R = 2^(16 Wa) (``redc``'s ``low``).
+
 ``add_sub`` launches the field addition and subtraction of the same
 source (``fp_addsub_kernel``: one thread a lane, no products, the JAX
 package's ``FpKernel.add`` / ``sub``); its plain version is
@@ -39,6 +45,7 @@ from .limbs import LIMB_BITS, LIMB_MASK, ints_to_limbs, limbs_to_ints
 # each
 LAUNCHES = {f"{k}_n{n}": 0 for k in ("mont_mul", "fp_addsub")
             for n in cuda_lib.FIELD_LIMBS}
+LAUNCHES.update({f"mul_wide_n{n}": 0 for n in cuda_lib.WIDE_LIMBS})
 WORK = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -84,27 +91,29 @@ def cond_sub_p(fk, r: torch.Tensor) -> torch.Tensor:
     return torch.where((c < 0).unsqueeze(0), r, d)[: fk.N]
 
 
-def redc(fk, T: torch.Tensor) -> torch.Tensor:
+def redc(fk, T: torch.Tensor, low: int = None) -> torch.Tensor:
     """Montgomery reduction of lazy non-negative int64 columns T (value
-    < R*p, at most 2N columns): (T + m p) / R with m = -T p^-1 mod R.
+    < R*p, at most low + N columns): (T + m p) / R with m = -T p^-1 mod R,
+    R = 2^(16 low) (low = N, the field's R, by default).
 
     The low half of U = T + m p is 0 mod R, so once every column is at
-    most 2^16 its value is 0 or exactly R: the carry into column N is
-    whether any low column is non-zero. That replaces the N-column carry
-    ripple through the low half. Canonical output (N limbs)."""
+    most 2^16 its value is 0 or exactly R: the carry into column low is
+    whether any low column is non-zero. That replaces the carry ripple
+    through the low half. Canonical output (N limbs)."""
     N = fk.N
-    np_ = fk.nprime_col(T.device, T.dim() - 1)
-    m, _ = normalize(mul_columns(T[:N], np_)[:N])          # mod R
-    U = torch.zeros((2 * N + 1,) + tuple(T.shape[1:]), dtype=torch.int64,
+    low = low or N
+    np_ = fk.nprime_col(T.device, T.dim() - 1, low)
+    m, _ = normalize(mul_columns(T[:low], np_)[:low])      # mod R
+    U = torch.zeros((low + N + 1,) + tuple(T.shape[1:]), dtype=torch.int64,
                     device=T.device)
     U[:T.shape[0]] += T
-    U[:2 * N] += mul_columns(m, fk.p_col(T.device, T.dim() - 1))
+    U[:low + N] += mul_columns(m, fk.p_col(T.device, T.dim() - 1))
     while int(U.max()) > 1 << LIMB_BITS:
         hi = U[:-1] >> LIMB_BITS
         U[:-1] &= LIMB_MASK
         U[1:] += hi
-    high = U[N:]
-    high[0] += U[:N].ne(0).any(dim=0).to(torch.int64)
+    high = U[low:]
+    high[0] += U[:low].ne(0).any(dim=0).to(torch.int64)
     r, _ = normalize(high)
     return cond_sub_p(fk, r)
 
@@ -218,6 +227,84 @@ def mont_mul(fk, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     cuda_lib.check(code, f"mont_mul at {fk.N} limbs")
     LAUNCHES[f"mont_mul_n{fk.N}"] += 1
     WORK[f"mont_mul_n{fk.N}"] += L
+    return out
+
+
+def _lead_expand(t: torch.Tensor, batch) -> torch.Tensor:
+    """(K, *tb) -> (K, *batch), tb broadcasting against batch from the
+    right (the limb axis stays in front)."""
+    pad = (1,) * (len(batch) - (t.dim() - 1))
+    return t.reshape((t.shape[0],) + pad + tuple(t.shape[1:])).expand(
+        (t.shape[0],) + tuple(batch))
+
+
+def mul_wide_plain(fk, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b * 2^(-16 Wa) mod p for a of Wa >= N 16-bit limbs (value below
+    2^(16 Wa)) and canonical b (N limbs; its batch broadcasts against a's
+    from the right): one schoolbook product of Wa x N limbs, then the REDC
+    with R = 2^(16 Wa); up to SMALL_LANES lanes on the CPU, the same REDC on
+    Python integers. Canonical output."""
+    wa, N = a.shape[0], fk.N
+    if wa < N:
+        raise ValueError(f"mul_wide: a has {wa} limbs, fewer than {N}")
+    batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+    a64 = _lead_expand(a.to(torch.int64), batch).reshape(wa, -1)
+    b64 = _lead_expand(b.to(torch.int64), batch).reshape(N, -1)
+    if small_lanes(a64[:1], b64[:1]) and int(a64.min()) >= 0 \
+            and int(a64.max()) <= LIMB_MASK and int(b64.min()) >= 0 \
+            and int(b64.max()) <= LIMB_MASK:
+        shift = LIMB_BITS * wa
+        R = 1 << shift
+        key = ("ints_wide", wa)
+        if key not in fk._consts:
+            fk._consts[key] = (-pow(fk.p, -1, R)) % R
+        nprime, p = fk._consts[key], fk.p
+        out = []
+        for x, y in zip(limbs_to_ints(a64.numpy()), limbs_to_ints(b64.numpy())):
+            t = x * y
+            u = (t + (t * nprime % R) * p) >> shift
+            out.append(u - p if u >= p else u)
+        return ints_lanes(fk, out, (N,) + batch)
+    step = max(1, PLAIN_CHUNK_BYTES // (8 * wa * N))
+    out = [redc(fk, mul_columns(a64[:, i:i + step], b64[:, i:i + step]),
+                low=wa)
+           for i in range(0, a64.shape[1], step)]
+    return torch.cat(out, dim=1).to(torch.int32).reshape((N,) + batch)
+
+
+def mul_wide(fk, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b * 2^(-16 Wa) mod p: a (Wa, *batch) int32 16-bit limbs with Wa >=
+    N, b (N, *bb) canonical, broadcasting against a's batch from the right.
+    CUDA tensors launch ``mul_wide_kernel`` (b is read in place when its
+    batch is the trailing part of a's, as a twiddle table or one constant
+    is); CPU tensors take the plain version."""
+    if not a.is_cuda:
+        return mul_wide_plain(fk, a, b)
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError("mul_wide takes int32 limb tensors")
+    wa, N = a.shape[0], fk.N
+    if f"mul_wide_n{N}" not in LAUNCHES:
+        raise ValueError(f"no mul_wide kernel built for {N} limbs "
+                         f"(16-bit limbs: {cuda_lib.WIDE_LIMBS})")
+    if wa < N or b.shape[0] != N or b.device != a.device:
+        raise ValueError("mul_wide: a must be (Wa >= N, *batch) and b (N, "
+                         "*bb) on one device")
+    batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+    a2 = _lead_expand(a, batch).contiguous()
+    bb = tuple(b.shape[1:])
+    if batch[len(batch) - len(bb):] == bb:
+        b2, Lb = b.contiguous(), math.prod(bb)
+    else:
+        b2 = _lead_expand(b, batch).contiguous()
+        Lb = math.prod(batch)
+    L = math.prod(batch)
+    out = torch.empty((N,) + batch, dtype=torch.int32, device=a.device)
+    code = cuda_lib.lib("fp").lsn_mul_wide(
+        N, a2.data_ptr(), wa, b2.data_ptr(), Lb, out.data_ptr(), L,
+        ctypes.addressof(fk.mod), cuda_lib.stream_ptr(a2))
+    cuda_lib.check(code, f"mul_wide at {N} limbs")
+    LAUNCHES[f"mul_wide_n{N}"] += 1
+    WORK[f"mul_wide_n{N}"] += L
     return out
 
 

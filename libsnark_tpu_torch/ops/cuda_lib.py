@@ -41,9 +41,11 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 FIELD_LIMBS = (12, 16, 19, 24, 48)  # 16-bit limbs that fp.cu's product takes
+WIDE_LIMBS = (12, 16, 19, 24)   # ... and its product with a wide operand
 GROUP_WIDTHS = (8, 12, 24)  # words of the group kernels over Fp
 FP2_WIDTHS = (8, 12)      # the widths of the group kernels over Fp2 too
-PROBE_WIDTHS = (8, 12)    # csrc/probe.cu's widths (at 24: the latency probe)
+PROBE_WIDTHS = (6, 8, 12)  # csrc/probe.cu's widths (at 24: the latency
+                           # probe; at 10 words, 19 limbs: fp_mul_half)
 SOURCES = ("fp", "ec", "bucket", "probe", "probe_layout")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -55,7 +57,8 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _ARGTYPES = {
     "fp": {"lsn_mont_mul": [_I, _VP, _VP, _VP, _LL, _VP, _VP],
-           "lsn_fp_addsub": [_I, _I, _VP, _VP, _VP, _LL, _VP, _VP]},
+           "lsn_fp_addsub": [_I, _I, _VP, _VP, _VP, _LL, _VP, _VP],
+           "lsn_mul_wide": [_I, _VP, _I, _VP, _LL, _VP, _LL, _VP, _VP]},
     "ec": {
         "lsn_ec_dbl": [_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _I, _VP,
                        _VP],
@@ -78,6 +81,7 @@ _ARGTYPES = {
     "probe": {
         "lsn_probe_rate": [_I, _VP, _VP, _VP, _LL, _I, _VP],
         "lsn_probe_cios": [_I, _I, _VP, _VP, _VP, _LL, _I, _VP, _VP],
+        "lsn_probe_dep_mad": [_U, _VP, _I, _VP],
     },
     "probe_layout": {
         "lsn_layout_row_copy": [_VP, _VP, _VP, _I, _I, _LL, _LL, _I, _VP],

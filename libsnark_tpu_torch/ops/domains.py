@@ -155,6 +155,24 @@ class TwoPartDomain:
         return [(self.m, 1), (self.n1, (-self.c2) % p),
                 (self.n2, p - 1), (0, self.c2 % p)]
 
+    def add_poly_z(self, coeff: int, H):
+        """H + coeff * Z(x) as a new tensor, Z = (x^n1 - 1)(x^n2 - c2)
+        = x^m - c2*x^n1 - x^n2 + c2 (n1 > n2) or
+          x^m - (1 + c2)*x^n1 + c2 (n1 == n2)."""
+        fk, p = self.fk, self.p
+        updates = {self.m: coeff, 0: coeff * self.c2 % p}
+        if self.n1 == self.n2:
+            updates[self.n1] = (-coeff * (1 + self.c2)) % p
+        else:
+            updates[self.n1] = (-coeff * self.c2) % p
+            updates[self.n2] = (-coeff) % p
+        H = H.clone()
+        for idx, v in updates.items():
+            c = fk.encode([v], device=H.device)[:, 0]
+            c = c.reshape((fk.N,) + (1,) * (H.dim() - 2))
+            H[..., idx] = fk.add(H[..., idx], c.expand(H[..., idx].shape))
+        return H
+
     # -------------------------------------------------------- host lagrange
     def domain_elements(self):
         p = self.p

@@ -21,11 +21,16 @@ from . import cuda_ec
 class CurveKernel:
     """Batched Jacobian group ops over field kernel ``fk``."""
 
-    def __init__(self, fk, name="G", mul_by_a=None, a_tag=""):
+    def __init__(self, fk, name="G", mul_by_a=None, a_tag="",
+                 a_coeffs=None):
+        """mul_by_a: multiplies a field tensor by the curve's a (None: a =
+        0); a_coeffs: a's plain coefficients over fk (the integer forms of
+        the plain versions take them)."""
         self.fk = fk
         self.name = name
         self.mul_by_a = mul_by_a
         self.a_tag = a_tag
+        self.a_coeffs = a_coeffs
 
     def __hash__(self):
         return hash((self.name, self.fk, self.a_tag))
@@ -55,19 +60,7 @@ class CurveKernel:
     def _dbl_generic(self, P):
         """dbl-2007-bl with M = 3*XX + a*ZZ^2 (generic a), the independent
         products stacked into one call each, as in the JAX package."""
-        fk = self.fk
-        X, Y, Z = P
-        s1 = fk.stack([X, Y, Z])
-        XX, YY, ZZ = fk.unstack(fk.mul(s1, s1))
-        s2 = fk.stack([YY, fk.add(X, YY), ZZ, fk.add(Y, Z)])
-        YYYY, t, ZZ2, w = fk.unstack(fk.mul(s2, s2))
-        S = fk.double(fk.sub(fk.sub(t, XX), YYYY))
-        M = fk.add(fk.add(fk.add(XX, XX), XX), self.mul_by_a(ZZ2))
-        X3 = fk.sub(fk.sqr(M), fk.double(S))
-        Y3 = fk.sub(fk.mul(M, fk.sub(S, X3)),
-                    fk.double(fk.double(fk.double(YYYY))))
-        Z3 = fk.sub(fk.sub(w, YY), ZZ)
-        return (X3, Y3, Z3)
+        return cuda_ec.dbl_generic_formula(self.fk, P, self.mul_by_a)
 
     def dbl(self, P):
         """Jacobian doubling; uniform over Z = 0."""

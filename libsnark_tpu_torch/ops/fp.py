@@ -23,8 +23,8 @@ import torch
 
 from . import cuda_lib
 from .cuda_fp import (add_sub, cond_sub_p, ints_lanes, lane_ints,
-                      lanes_shape, mont_mul, mont_mul_plain, normalize, redc,
-                      small_lanes)
+                      lanes_shape, mont_mul, mont_mul_plain, mul_wide,
+                      mul_wide_plain, normalize, redc, small_lanes)
 from .limbs import LIMB_BITS, LIMB_MASK, int_to_limbs, ints_to_limbs
 
 I32 = torch.int32
@@ -76,16 +76,18 @@ class FpKernel:
             self._consts[key] = torch.tensor(limbs, dtype=I64, device=device)
         return self._consts[key].reshape((width,) + (1,) * batch_ndim)
 
-    def nprime_col(self, device, batch_ndim: int):
-        """-p^-1 mod R as an int64 (N, 1, ..) column (for REDC)."""
-        key = ("nprime", str(device))
+    def nprime_col(self, device, batch_ndim: int, low: int = None):
+        """-p^-1 mod 2^(16 low) as an int64 (low, 1, ..) column (for REDC;
+        low = N, the field's R, by default)."""
+        low = low or self.N
+        key = ("nprime", str(device), low)
         if key not in self._consts:
-            R = 1 << (LIMB_BITS * self.N)
+            R = 1 << (LIMB_BITS * low)
             npr = (-pow(self.p, -1, R)) % R
             self._consts[key] = torch.tensor(
-                [int(v) for v in int_to_limbs(npr, self.N)], dtype=I64,
+                [int(v) for v in int_to_limbs(npr, low)], dtype=I64,
                 device=device)
-        return self._consts[key].reshape((self.N,) + (1,) * batch_ndim)
+        return self._consts[key].reshape((low,) + (1,) * batch_ndim)
 
     def const(self, x: int, batch_ndim: int = 0, device=None) -> torch.Tensor:
         """A host int's canonical limbs as an int32 (N, 1, ..) tensor."""
@@ -157,6 +159,16 @@ class FpKernel:
         if self.plain:
             return mont_mul_plain(self, a, b)
         return mont_mul(self, a, b)
+
+    def mul_wide(self, a, b):
+        """Montgomery product for a WIDE first operand: a (Wa, *batch) with
+        Wa >= N 16-bit limbs (value < 2^(16 Wa)), b (N, *bb) < p,
+        broadcasting against a's batch from the right. Returns canonical
+        a*b*2^(-16 Wa) mod p; the caller tracks the extra 2^(-16 (Wa - N))
+        against ``mul``'s R^-1. The ``mul_wide`` kernel on the card."""
+        if self.plain:
+            return mul_wide_plain(self, a, b)
+        return mul_wide(self, a, b)
 
     def sqr(self, a):
         return self.mul(a, a)

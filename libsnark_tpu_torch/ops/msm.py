@@ -51,8 +51,11 @@ import math
 import torch
 
 from .cuda_bucket import bucket_reduce, dbl_chain, horner_combine
-from .cuda_ec import (aadd_rows, aadd_rows_composed, ext_of, lead_of,
-                      madd_windows, windows_scan)
+from .cuda_ec import (aadd_rows, aadd_rows_composed, add_formula,
+                      dbl_generic_formula, ext_of, lead_of, madd_windows,
+                      windows_scan)
+from .cuda_fp import small_lanes
+from .int_lanes import on_lanes
 from .limbs import LIMB_BITS, ints_to_limbs, limbs_to_words
 
 
@@ -446,12 +449,52 @@ class MSMKernel:
     def combine_windows_loop(self, S, c: int):
         """The same sum as a loop from the top window down: acc <-
         dbl_n(acc, c) + S_w (the JAX package's scan for curves with an
-        a-coefficient)."""
+        a-coefficient). On the CPU, for a curve whose kernel carries its
+        a-coefficient's integers, the same formulas on Python integers
+        (ops/int_lanes.py: the same limbs)."""
         ck = self.ck
+        W = S[0].shape[0]
+        if ck.a_coeffs is not None and small_lanes(S[0]):
+            ks = ck.a_coeffs
+
+            def chain(F, v, m):
+                dbl = lambda P: dbl_generic_formula(
+                    F, P, lambda x: F.mul_const(x, ks))
+                acc = (F.one(()), F.one(()), F.zero())
+                for w in range(W - 1, -1, -1):
+                    for _ in range(c):
+                        acc = dbl(acc)
+                    acc = add_formula(F, acc, tuple(v[3 * w:3 * w + 3]), dbl)
+                return acc
+            acc = on_lanes(self.fk, chain, [a[w] for w in range(W)
+                                            for a in S])
+            if acc is not None:
+                return acc
         acc = ck.zero((1,), S[0].device)
-        for w in range(S[0].shape[0] - 1, -1, -1):
+        for w in range(W - 1, -1, -1):
             acc = ck.add(ck.dbl_n(acc, c), tuple(a[w] for a in S))
         return acc
+
+    # ------------------------------------------------------- double and add
+    def msm_simple(self, points_aff, scalars):
+        """Per-lane double-and-add MSM (the JAX package's scan): over the
+        scalar bits, most significant first, every lane doubles and, where
+        its bit is set, adds its own point (``madd`` with ``valid``: the
+        other lanes keep their sum); then the halving add tree over the
+        lanes. O(bits m) group work, far more than Pippenger's: the
+        yardstick form, and the local MSM of ``sharded_msm(...,
+        method="simple")``. On the card the ``dbl`` and ``madd`` kernels
+        (two launches a bit), then the ``add`` kernel's tree; a curve with
+        an a-coefficient takes the torch formulas. Returns a Jacobian point
+        with batch shape (1,)."""
+        ck = self.ck
+        m = scalars.shape[-1]
+        sc = scalars.to(torch.int64)
+        acc = ck.zero((m,), scalars.device)
+        for b in range(self.scalar_bits - 1, -1, -1):
+            bit = ((sc[b // LIMB_BITS] >> (b % LIMB_BITS)) & 1).bool()
+            acc = ck.madd(ck.dbl(acc), points_aff, valid=bit)
+        return self._tree_reduce_points(acc)
 
     # ------------------------------------------------------------ fixed base
     def window_table(self, base_aff, c: int, num_windows: int):

@@ -8,9 +8,14 @@ the whole array. Twiddle, coset and power tables are built on the device
 by doubling (log2(n) products), so no table of size m is computed by
 Python on the host.
 
-The JAX package's MXU digit-matmul path and its compile-lean gather form
-for small m are TPU/XLA strategies; both compute the same DFT, and since
-every value is canonical the outputs here are bit-identical to them.
+With ``mxu=True`` the domain's transforms take the digit-matrix form of
+ops/ntt_mxu.py instead (``MxDft``: radix-16 levels as int8 or bfloat16
+products on the tensor cores, the ``mul_wide`` kernel a level): the JAX
+package's MXU route, which it switches with LIBSNARK_TPU_NTT_MXU; here an
+explicit argument, off by default. ``fft_mxu`` / ``ifft_mxu`` run that form
+whatever the switch. The JAX package's compile-lean gather form for small m
+is an XLA strategy; every form computes the same DFT, and since every value
+is canonical the outputs are bit-identical.
 """
 from __future__ import annotations
 
@@ -64,9 +69,16 @@ class Radix2Domain:
     """Evaluation domain of size m = 2^logm over the scalar field
     (libfqfft basic_radix2_domain)."""
 
-    def __init__(self, fr_kernel, params, logm: int):
+    def __init__(self, fr_kernel, params, logm: int, mxu: bool = False,
+                 dtype: str = "int8"):
+        """mxu: route fft, ifft and the coset forms through the digit
+        matrix products (``MxDft``) of operand type ``dtype`` ("int8" or
+        "bf16")."""
         assert logm <= params.two_adicity, \
             f"domain 2^{logm} exceeds field two-adicity {params.two_adicity}"
+        self.mxu = mxu
+        self.mxu_dtype = dtype
+        self._mx = {}
         self.fk = fr_kernel
         self.params = params
         self.logm = logm
@@ -122,12 +134,61 @@ class Radix2Domain:
 
     def fft(self, a):
         """Evaluate: coefficients -> values on the domain (natural order)."""
+        if self.mxu:
+            return self.fft_mxu(a)
         return self._fft_core(a, self.device_tables()["roots"])
 
     def ifft(self, a):
         """Interpolate: values -> coefficients, scaled by 1/m."""
+        if self.mxu:
+            return self.ifft_mxu(a)
         out = self._fft_core(a, self.device_tables()["roots_inv"])
         return self.fk.mul_small(out, self.m_inv)
+
+    # ------------------------------------------------------ the MXU route
+    MXU_KINDS = ("fwd", "inv", "coset", "icoset", "icoset_divz")
+
+    def mxdft(self, kind: str, dtype: str = None) -> "MxDft":
+        """Cached MxDft of one kind: "fwd", "inv" (1/m in the final
+        constant), "coset" (g^j input scaling in the matrices), "icoset"
+        (inverse, g^-k output scaling) and "icoset_divz" (that and 1/Z(g),
+        constant on the coset, in the final constant: the witness map's
+        divide-by-Z and icosetFFT as one transform)."""
+        dtype = dtype or self.mxu_dtype
+        key = (kind, dtype)
+        if key not in self._mx:
+            from .ntt_mxu import MxDft
+            args = dict(dtype=dtype)
+            if kind == "fwd":
+                mx = MxDft(self.fk, self.logm, self.omega, **args)
+            elif kind == "inv":
+                mx = MxDft(self.fk, self.logm, self.omega_inv,
+                           scale=self.m_inv, **args)
+            elif kind == "coset":
+                mx = MxDft(self.fk, self.logm, self.omega,
+                           coset_in=self.generator, **args)
+            elif kind == "icoset":
+                mx = MxDft(self.fk, self.logm, self.omega_inv,
+                           scale=self.m_inv, coset_out=self.generator_inv,
+                           **args)
+            elif kind == "icoset_divz":
+                zinv = pow(self.vanishing_eval(self.generator), -1, self.p)
+                mx = MxDft(self.fk, self.logm, self.omega_inv,
+                           scale=self.m_inv * zinv % self.p,
+                           coset_out=self.generator_inv, **args)
+            else:
+                raise ValueError(f"unknown MxDft kind {kind!r}; available: "
+                                 f"{self.MXU_KINDS}")
+            self._mx[key] = mx
+        return self._mx[key]
+
+    def fft_mxu(self, a, dtype: str = None):
+        """DFT via the digit matrix products (natural order, == fft)."""
+        return self.mxdft("fwd", dtype).apply(a)
+
+    def ifft_mxu(self, a, dtype: str = None):
+        """Inverse DFT via the digit matrix products (1/m included)."""
+        return self.mxdft("inv", dtype).apply(a)
 
     # ------------------------------------------------------------- coset forms
     def _mul_by_table(self, a, tbl):
@@ -136,9 +197,13 @@ class Radix2Domain:
     def coset_fft(self, a):
         """Evaluate on the coset g * domain (g the multiplicative
         generator)."""
+        if self.mxu:
+            return self.mxdft("coset").apply(a)
         return self.fft(self._mul_by_table(a, self.device_tables()["coset"]))
 
     def icoset_fft(self, a):
+        if self.mxu:
+            return self.mxdft("icoset").apply(a)
         return self._mul_by_table(self.ifft(a),
                                   self.device_tables()["coset_inv"])
 
@@ -153,12 +218,28 @@ class Radix2Domain:
         return self.fk.mul_small(a, zi)
 
     def icoset_fft_divz(self, a):
-        """icosetFFT(divide_by_Z_on_coset(a))."""
+        """icosetFFT(divide_by_Z_on_coset(a)); on the MXU route one
+        transform with 1/Z(g) in its final constant."""
+        if self.mxu:
+            return self.mxdft("icoset_divz").apply(a)
         return self.icoset_fft(self.divide_by_z_on_coset(a))
 
     def z_sparse(self):
         """Vanishing polynomial as sparse (index, int_coeff) pairs."""
         return [(self.m, 1), (0, self.p - 1)]
+
+    def add_poly_z(self, coeff: int, H):
+        """H + coeff * Z(x) = H + coeff (x^m - 1) for H (N, *batch, >= m+1)
+        Montgomery limbs, as a new tensor (libfqfft add_poly_Z)."""
+        fk = self.fk
+        c = fk.encode([coeff], device=H.device)[:, 0]
+        cm = fk.encode([self.p - coeff], device=H.device)[:, 0]
+        c = c.reshape((fk.N,) + (1,) * (H.dim() - 2))
+        cm = cm.reshape(c.shape)
+        H = H.clone()
+        H[..., self.m] = fk.add(H[..., self.m], c.expand(H[..., self.m].shape))
+        H[..., 0] = fk.add(H[..., 0], cm.expand(H[..., 0].shape))
+        return H
 
     # ----------------------------------------------------- lagrange (host side)
     def lagrange_coeffs_at(self, t: int) -> list:
@@ -185,6 +266,13 @@ class Radix2Domain:
         invs = batch_inverse(diffs, p)
         zt_minv = zt * self.m_inv % p
         return [zt_minv * xs[i] % p * invs[i] % p for i in range(m)]
+
+    def domain_elements(self) -> list:
+        """[w^0 .. w^(m-1)] as host ints."""
+        out = [1] * self.m
+        for i in range(1, self.m):
+            out[i] = out[i - 1] * self.omega % self.p
+        return out
 
     def domain_elements_mont(self):
         """[w^0 .. w^(m-1)] as an (N, m) Montgomery tensor on the kernel's

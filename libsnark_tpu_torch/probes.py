@@ -69,12 +69,41 @@ RATE_OPS = ("mul_lo", "mad_lo", "mad_hi", "mad_wide", "add64", "shift_and",
 # CIOS; separated operand scanning; field.cuh's carry chain with its rounds
 # unrolled and in a loop of two rounds; field.cuh's lane-split product
 CIOS_VARIANTS = ("cios", "sos", "chain", "chain_rolled", "lanes")
+# field.cuh's fp_mul_half, the kernels' product at 19 limbs (R = 2^304),
+# where the five above (R = 2^(32 NW)) do not apply: variant 5 of the C entry
+HALF_VARIANT = "half"
 LAUNCHES = {f"probe_rate_{op}": 0 for op in RATE_OPS}
 # the product bodies of the kernels: the latency probe's, at every width
 LATENCY_VARIANTS = ("chain", "chain_rolled", "lanes")
 LAUNCHES.update({f"probe_cios_{v}_n{2 * nw}": 0 for v in CIOS_VARIANTS
-                 for nw in cuda_lib.GROUP_WIDTHS
+                 for nw in cuda_lib.GROUP_WIDTHS + (6,)
                  if nw in cuda_lib.PROBE_WIDTHS or v in LATENCY_VARIANTS})
+LAUNCHES[f"probe_cios_{HALF_VARIANT}_n19"] = 0
+LAUNCHES["probe_dep_mad"] = 0
+
+
+def bodies(fk, latency: bool = False) -> tuple:
+    """The product bodies the CIOS probe builds at fk's width: the five at
+    6, 8 and 12 words, the kernels' three (LATENCY_VARIANTS) at 24 (latency
+    only), fp_mul_half at 19 limbs; with latency, those of the latency
+    probe."""
+    if fk.N % 2:
+        return (HALF_VARIANT,)
+    if latency or fk.nw not in cuda_lib.PROBE_WIDTHS:
+        return LATENCY_VARIANTS
+    return CIOS_VARIANTS
+
+
+def dependent_mads(nw: int) -> int:
+    """Multiply-adds on a chain that every body of the product must run one
+    after another: round i needs the low word t_0 that round i - 1 left,
+    and t_0 takes four dependent steps a round (t_0 + a_0 b_i, m = t_0
+    n0inv, the carry of m p_0 + t_0, the next t_0 = m p_1 + t_1 + that
+    carry), NW rounds: 4 NW. What the bodies add to it (the carries
+    across the words, the lane-split product's shuffles and votes, the
+    final subtraction) is left out, so the chain bounds every variant
+    from below."""
+    return 4 * nw
 
 # layout probes, in the order of the TPU kernels they replace; the three
 # reshapes, each with a C entry of its own, in the order of enum ReshapeMode
@@ -233,9 +262,9 @@ def mont_mul_lanes_plain(fk, a: torch.Tensor, b: torch.Tensor):
 def cios_chain(fk, variant: str, a: torch.Tensor, b: torch.Tensor, K: int):
     """x <- x * b (Montgomery) K times per lane, a and b canonical (N, L)
     int32 limbs of the field kernel ``fk``; ``variant`` picks the body."""
-    if variant not in CIOS_VARIANTS:
+    if variant not in CIOS_VARIANTS + (HALF_VARIANT,):
         raise ValueError(f"unknown CIOS variant {variant!r}; "
-                         f"available: {CIOS_VARIANTS}")
+                         f"available: {CIOS_VARIANTS + (HALF_VARIANT,)}")
     if a.dtype != torch.int32 or b.dtype != torch.int32 \
             or a.shape != b.shape or a.dim() != 2 or a.shape[0] != fk.N:
         raise ValueError("cios_chain takes two (N, L) int32 limb tensors")
@@ -244,7 +273,8 @@ def cios_chain(fk, variant: str, a: torch.Tensor, b: torch.Tensor, K: int):
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
     code = cuda_lib.lib("probe").lsn_probe_cios(
-        fk.nw, CIOS_VARIANTS.index(variant), a.data_ptr(), b.data_ptr(),
+        fk.nw, (CIOS_VARIANTS + (HALF_VARIANT,)).index(variant),
+        a.data_ptr(), b.data_ptr(),
         out.data_ptr(), a.shape[1], K, ctypes.addressof(fk.mod),
         cuda_lib.stream_ptr(a))
     cuda_lib.check(code, f"probe_cios[{variant}]")
@@ -754,7 +784,7 @@ def measure_cios(fks, L: int = 1 << 20, K: int = 64, seed: int = 8) -> list:
         want = cios_chain_plain(fk, a, b, K)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        for variant in CIOS_VARIANTS:
+        for variant in bodies(fk):
             got = cios_chain(fk, variant, a, b, K)
             ms = _cuda_ms(lambda: cios_chain(fk, variant, a, b, K), 5)
             rows.append({"N": fk.N, "bits": fk.p.bit_length(),
@@ -768,11 +798,12 @@ def measure_cios(fks, L: int = 1 << 20, K: int = 64, seed: int = 8) -> list:
 
 
 def measure_product_latency(fks, K: int = 2048, seed: int = 9,
-                            variants=LATENCY_VARIANTS) -> list:
+                            variants=None) -> list:
     """One row per (field kernel, variant): K chained products over ONE
     element, so the time over K is the latency of one dependent product
     (one thread for the carry chains, one lane group for ``lanes``), in us;
-    exact against the plain chain. Needs the card."""
+    exact against the plain chain. variants: the latency bodies of each
+    width (``bodies``) by default. Needs the card."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
     for fk in fks:
@@ -786,13 +817,42 @@ def measure_product_latency(fks, K: int = 2048, seed: int = 9,
             return torch.cat([lo, hi], dim=0)
         a, b = rand(), rand()
         want = cios_chain_plain(fk, a, b, K)
-        for variant in variants:
+        for variant in variants or bodies(fk, latency=True):
             got = cios_chain(fk, variant, a, b, K)
             ms = _cuda_ms(lambda: cios_chain(fk, variant, a, b, K), 3)
             rows.append({"N": fk.N, "variant": variant,
                          "exact": bool(torch.equal(got, want)), "K": K,
                          "ms": ms, "latency_us": ms * 1e3 / K})
     return rows
+
+
+def dep_mad(y: int, K: int) -> torch.Tensor:
+    """K dependent wide multiply-adds x = lo(x) y + x in one thread (x
+    starts at y | 1), the final x as a one-element int64 tensor on the
+    card."""
+    out = torch.empty(1, dtype=torch.int64, device="cuda")
+    code = cuda_lib.lib("probe").lsn_probe_dep_mad(
+        y & _M32, out.data_ptr(), K, torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(code, "probe_dep_mad")
+    LAUNCHES["probe_dep_mad"] += 1
+    return out
+
+
+def dep_mad_plain(y: int, K: int) -> int:
+    x = (y & _M32) | 1
+    for _ in range(K):
+        x = ((x & _M32) * (y & _M32) + x) & ((1 << 64) - 1)
+    return x
+
+
+def measure_dep_mad(K: int = 1 << 16, y: int = 0x9E3779B9) -> dict:
+    """The latency of one dependent wide multiply-add (ns), from one
+    thread's chain of K of them; exact against the plain chain."""
+    got = dep_mad(y, K)
+    ms = _cuda_ms(lambda: dep_mad(y, K), 5)
+    want = dep_mad_plain(y, K)
+    return {"K": K, "ms": ms, "ns": ms * 1e6 / K,
+            "exact": int(got.item()) & ((1 << 64) - 1) == want}
 
 
 def _empty_launch():
@@ -941,6 +1001,10 @@ def _kernel_label(mangled: str):
     m = re.search(r"lanes_chain_kernelILi(\d+)E", mangled)
     if m:
         return f"probe_cios_lanes_n{2 * int(m.group(1))}"
+    if "half_chain_kernel" in mangled:
+        return f"probe_cios_{HALF_VARIANT}_n19"
+    if "dep_mad_kernel" in mangled:
+        return "probe_dep_mad"
     m = re.search(r"cios_kernelILi(\d+)ELi(\d+)E", mangled)
     if m:
         return f"probe_cios_{CIOS_VARIANTS[int(m.group(2))]}_n{2 * int(m.group(1))}"

@@ -26,6 +26,100 @@ from ..ops.msm import MSMKernel
 from ..profiling import enter_block
 
 
+def _int_madd(group):
+    """acc + Q over a prime field on plain integers, madd-2007-bl (no
+    inversion; it holds for any curve coefficient a): acc a Jacobian (X,
+    Y, Z) (None: infinity), Q affine (x, y) (None: infinity). Where acc ==
+    Q the doubling is the host's affine one."""
+    p = group.F.modulus
+
+    def madd(acc, Q):
+        if Q is None:
+            return acc
+        if acc is None:
+            return (Q[0], Q[1], 1)
+        X1, Y1, Z1 = acc
+        Z1Z1 = Z1 * Z1 % p
+        H = (Q[0] * Z1Z1 - X1) % p
+        r = 2 * (Q[1] * Z1 % p * Z1Z1 - Y1) % p
+        if H == 0:
+            if r:
+                return None                    # acc == -Q
+            P = _to_affine_host(group, [acc])[0]
+            P = P + group.point(*Q)            # acc == Q: the doubling
+            return None if P.is_zero() else (int(P.x), int(P.y), 1)
+        HH = H * H % p
+        I = 4 * HH % p
+        J = H * I % p
+        V = X1 * I % p
+        X3 = (r * r - J - 2 * V) % p
+        return (X3, (r * (V - X3) - 2 * Y1 * J) % p,
+                ((Z1 + H) * (Z1 + H) - Z1Z1 - HH) % p)
+    return madd
+
+
+def _to_affine_host(group, jac) -> list:
+    """Jacobian integer triples over a prime field (None: infinity) ->
+    affine host points, the Z inverses by one batched inversion
+    (Montgomery's trick): the points are unique, so the same as affine
+    additions give."""
+    p = group.F.modulus
+    live = [j for j in jac if j is not None]
+    prefix, acc = [], 1
+    for _, _, Z in live:
+        prefix.append(acc)
+        acc = acc * Z % p
+    inv = pow(acc, -1, p) if live else None
+    zinv = [None] * len(live)
+    for i in range(len(live) - 1, -1, -1):
+        zinv[i] = inv * prefix[i] % p
+        inv = inv * live[i][2] % p
+    out, k = [], 0
+    for j in jac:
+        if j is None:
+            out.append(group.zero())
+            continue
+        zi = zinv[k]
+        k += 1
+        zi2 = zi * zi % p
+        out.append(group.point(j[0] * zi2 % p, j[1] * zi2 % p * zi % p))
+    return out
+
+
+def _host_window_table(base, c: int, W: int) -> list:
+    """The fixed-base table rows T[w][j] = j 2^(c w) base (j < 2^c) over a
+    prime field, each row summed in Jacobian form on integers and made
+    affine by one batched inversion: entries (x, y) (None: infinity)."""
+    group = base.group
+    madd = _int_madd(group)
+    rows, B = [], base
+    for _ in range(W):
+        Bq = (int(B.x), int(B.y))
+        jac, acc = [None], None
+        for _ in range((1 << c) - 1):
+            acc = madd(acc, Bq)
+            jac.append(acc)
+        aff = _to_affine_host(group, jac + [madd(acc, Bq)])
+        rows.append([None if P.is_zero() else (int(P.x), int(P.y))
+                     for P in aff[:-1]])
+        B = aff[-1]                            # 2^c B, the next row's
+    return rows
+
+
+def _host_window_table_affine(base, c: int, W: int) -> list:
+    """The same table by affine host additions (extension fields)."""
+    zero = base.group.zero()
+    rows, B = [], base
+    for _ in range(W):
+        row, acc = [zero], zero
+        for _ in range((1 << c) - 1):
+            acc = acc + B
+            row.append(acc)
+        rows.append(row)
+        B = acc + B
+    return rows
+
+
 class PhaseClock:
     """Wall time per phase, each ended by a device synchronize; inert when
     the caller passes no dict."""
@@ -66,7 +160,8 @@ class PairingSystem:
         g1_mul_a = ((lambda x, fk=self.fq, k=a_int: fk.mul_small(x, k))
                     if a_int else None)
         self.g1 = CurveKernel(self.fq, f"{curve.name}.G1",
-                              mul_by_a=g1_mul_a, a_tag=str(a_int))
+                              mul_by_a=g1_mul_a, a_tag=str(a_int),
+                              a_coeffs=(a_int,) if a_int else None)
         deg = getattr(curve, "g2_field_degree", 2)
         if deg == 1:
             # k = 6 (BW6-761): G2 lies over Fq itself, a2 = 0, so its group
@@ -87,7 +182,8 @@ class PairingSystem:
                       if any(ks) else None)
             self.g2 = CurveKernel(self.fq2, f"{curve.name}.G2",
                                   mul_by_a=mul_a2,
-                                  a_tag=str(ks) if any(ks) else "")
+                                  a_tag=str(ks) if any(ks) else "",
+                                  a_coeffs=ks if any(ks) else None)
         else:
             raise NotImplementedError(f"G2 over a field of degree {deg}")
         sbits = curve.r.bit_length()
@@ -190,30 +286,31 @@ class PairingSystem:
         c = min(range(2, 11), key=lambda c: -(-bits // c) * (
             (1 << c) + len(scalars)))
         W = -(-bits // c)
-        zero = base_host.group.zero()
-        table = []
-        B = base_host
-        for _ in range(W):
-            row = [zero]
-            acc = zero
-            for _ in range((1 << c) - 1):
-                acc = acc + B
-                row.append(acc)
-            table.append(row)
-            B = acc + B
+        group = base_host.group
+        zero = group.zero()
         mask = (1 << c) - 1
-        pts = []
+        # over a prime field the table and the sums run in Jacobian form on
+        # plain integers, each made affine by one batched inversion; over
+        # an extension field in affine host points
+        prime = group.F.degree == 1
+        table = (_host_window_table(base_host, c, W) if prime
+                 else _host_window_table_affine(base_host, c, W))
+        madd = _int_madd(group) if prime else (
+            lambda acc, Q: (zero if acc is None else acc) + Q)
+        sums = []
         for s in scalars:
             s = int(s) % r
-            acc = zero
+            acc = None
             w = 0
             while s:
                 d = s & mask
                 if d:
-                    acc = acc + table[w][d]
+                    acc = madd(acc, table[w][d])
                 s >>= c
                 w += 1
-            pts.append(acc)
+            sums.append(acc)
+        pts = (_to_affine_host(group, sums) if prime else
+               [zero if P is None else P for P in sums])
         pts += [zero] * (self.bucket(len(pts)) - len(pts))
         return ck.encode_points(pts, jacobian=False)
 

@@ -10,6 +10,8 @@ generator :226/:430, prover :464, verifiers :605-745).
   the mat-vecs), the A / B1 / H / L G1 MSMs and the B G2 MSM (bucket
   accumulation by ``msm_strategy``, then the Horner kernel), then a few
   host point operations;
+* prover_sharded: the same prove over the ranks of a torch.distributed
+  process group (parallel/: the four-step NTT, point-sharded MSMs);
 * verifier: host pairings.
 
 Seeds drive ``random.Random`` exactly as in the JAX package, so a seeded
@@ -146,7 +148,71 @@ class Groth16(PairingSystem):
         """Prove. timings: optional dict that receives wall seconds per
         phase (each phase ends with a device synchronize)."""
         clock = PhaseClock(timings, self.device)
-        curve, r = self.curve, self.curve.r
+        dev = pk.r1cs_dev
+        domain = self.domain_for(qap_domain, dev)
+        msm_c = default_window_bits(dev.num_variables + 1)
+
+        def msm(which, q, sc):
+            return self.msm_affine(which, q, self.pad_to(sc, q[0].shape[-1]),
+                                   msm_c)
+        return self._prove(pk, primary, auxiliary, seed, clock, domain, msm)
+
+    def prover_sharded(self, pk, primary: list, auxiliary: list, group=None,
+                       seed: Optional[int] = None,
+                       timings: Optional[dict] = None):
+        """Multi-device prove over the ranks of a ``torch.distributed``
+        process group (None: the world group): the witness map on the
+        four-step distributed NTT (``FourStepDomain`` on a power-of-two m,
+        else ``ShardedTwoPartDomain``), then the five MSMs point-sharded
+        (``sharded_msm``, affine results, replicated), then the same host
+        combine as ``prover`` (the reference's OpenMP chunking, redesigned
+        as SPMD; every rank calls it with the same arguments and gets the
+        same proof). The MSMs' affine results depend neither on the window
+        c nor on the rank count, so at the same seed the proof is
+        ``prover``'s bit for bit. Raises when no process group is
+        initialized: it never runs the single-device prover in its place.
+        On the card the group is NCCL (gloo is for CPU tensors)."""
+        import torch.distributed as dist
+        from ..parallel.msm_sharded import pad_for_mesh, sharded_msm
+        from ..parallel.ntt_sharded import (FourStepDomain,
+                                            ShardedTwoPartDomain)
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                "prover_sharded needs an initialized torch.distributed "
+                "process group (init_process_group); prover() is the "
+                "single-device prove")
+        clock = PhaseClock(timings, self.device)
+        dev = pk.r1cs_dev
+        D = dist.get_world_size(group)
+        base = self.domain_for(qap_domain, dev)
+        key = ("sharded", base.m, D, dist.get_rank(group), id(group))
+        domain = self._domains.get(key)
+        if domain is None:
+            params = self.curve.fr_params
+            if base.m & (base.m - 1) == 0:
+                domain = FourStepDomain(self.fr, params,
+                                        base.m.bit_length() - 1, group)
+            else:
+                # the reference's default domain selection (extended /
+                # step): both parts distribute as four-step NTTs
+                domain = ShardedTwoPartDomain(
+                    self.fr, params, base.n1.bit_length() - 1,
+                    base.n2.bit_length() - 1, group)
+            self._domains[key] = domain
+        msm_c = max(4, default_window_bits(dev.num_variables + 1))
+        kernels = {"g1": self.msm_g1, "g2": self.msm_g2}
+
+        def msm(which, q, sc):
+            q2, sc2 = pad_for_mesh(q, self.pad_to(sc, q[0].shape[-1]), D)
+            return sharded_msm(kernels[which], group, q2, sc2, c=msm_c,
+                               affine=True)
+        return self._prove(pk, primary, auxiliary, seed, clock, domain, msm)
+
+    def _prove(self, pk, primary, auxiliary, seed, clock, domain, msm):
+        """The prove over ``domain`` (the witness map's transforms) and
+        ``msm(which, query, plain scalars)`` -> device affine point, which
+        pads the scalars to the query's lanes."""
+        r = self.curve.r
         if seed is None:
             rnd_r = secrets.randbelow(r)
             rnd_s = secrets.randbelow(r)
@@ -155,30 +221,25 @@ class Groth16(PairingSystem):
             rnd_r, rnd_s = rng.randrange(r), rng.randrange(r)
 
         dev = pk.r1cs_dev
-        domain = self.domain_for(qap_domain, dev)
         full = [1] + [v % r for v in primary] + [v % r for v in auxiliary]
         assignment_mont = self.fr.encode(full)
-        msm_c = default_window_bits(dev.num_variables + 1)
         clock.lap("prove_encode")
 
         H = qap_witness_map(dev, domain, assignment_mont)       # (N, m)
-        H_plain = self.pad_to(self.fr.from_mont(H)[..., : domain.m - 1],
-                              pk.H_query[0].shape[-1])
+        H_plain = self.fr.from_mont(H)[..., : domain.m - 1]
         assign_plain = self.fr.from_mont(assignment_mont)
-        full_p = self.pad_to(assign_plain, pk.A_query[0].shape[-1])
-        aux_plain = self.pad_to(assign_plain[..., dev.num_inputs + 1:],
-                                pk.L_query[0].shape[-1])
+        aux_plain = assign_plain[..., dev.num_inputs + 1:]
         clock.lap("witness_map")
 
-        At_a = self.msm_affine("g1", pk.A_query, full_p, msm_c)
+        At_a = msm("g1", pk.A_query, assign_plain)
         clock.lap("msm_A")
-        Bt2_a = self.msm_affine("g2", pk.B_query_g2, full_p, msm_c)
+        Bt2_a = msm("g2", pk.B_query_g2, assign_plain)
         clock.lap("msm_B_g2")
-        Bt1_a = self.msm_affine("g1", pk.B_query_g1, full_p, msm_c)
+        Bt1_a = msm("g1", pk.B_query_g1, assign_plain)
         clock.lap("msm_B_g1")
-        Ht_a = self.msm_affine("g1", pk.H_query, H_plain, msm_c)
+        Ht_a = msm("g1", pk.H_query, H_plain)
         clock.lap("msm_H")
-        Lt_a = self.msm_affine("g1", pk.L_query, aux_plain, msm_c)
+        Lt_a = msm("g1", pk.L_query, aux_plain)
         clock.lap("msm_L")
 
         dec1, dec2 = self.decode_g1, self.decode_g2

@@ -107,6 +107,19 @@ def trapdoor_groth16(curve, cs, primary, aux, seed=99):
     return vk, proof
 
 
+def dummy_vk(curve, statement, seed=7):
+    """tests/test_pcd_cycle.py's _dummy_vk on the port: a trapdoor (vk,
+    proof) under a one-input always-satisfiable system, statement as its
+    input (the same seed gives the same vk)."""
+    from libsnark_tpu_torch.relations.r1cs import R1CSConstraintSystem
+    from libsnark_tpu_torch.relations.variable import Variable
+    cs = R1CSConstraintSystem(curve.r, 1, 1)
+    w = Variable(2)
+    cs.add_constraint(w * 1, w * 1, w * 1, "w_bool")
+    return trapdoor_groth16(curve, cs, [statement % curve.r], [0],
+                            seed=seed)
+
+
 def host_point(curve, group, xy):
     """coords' inverse for one point of ``group`` (curve.G1 or curve.G2)
     of either package's curve."""

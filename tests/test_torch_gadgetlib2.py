@@ -269,6 +269,9 @@ def adapter_proofs():
         torch.set_num_threads(n)
     jcs, jprimary, jaux, _ = _adapter(MODULES["jax"], jcurve.r)
     jg16 = JaxGroth16(jcurve)
+    # the JAX package's host fixed base: the affine points of its device
+    # path, without that path's compile
+    jg16.host_keygen = True
     jkp = jg16.generator(jcs, seed=5)
     jproof = jg16.prover(jkp.pk, jprimary, jaux, seed=6)
     assert jg16.verifier_strong_IC(jkp.vk, jprimary, jproof)

@@ -1250,3 +1250,97 @@ def test_ram_zksnark_cycle_two_steps_on_card():
                             dataclasses.replace(proof, msg=false))
     assert not rzc.verifier(kp.pcd_vk, arch, prog, [], T + 1, proof)
     _pcd_log("ram_zksnark_cycle verifier (accepted, 2 rejected)", t0, {})
+
+
+@pytest.mark.parametrize("curve_name", ["alt_bn128", "bw6_761", "mnt4",
+                                        "edwards"])
+def test_mul_wide_matches_plain_on_card(curve_name):
+    """The product with a wide operand at 16, 24, 19 and 12 limbs: Wa = N +
+    2 (the MXU NTT's), 2N and an odd N + 5 (the half-word round), random
+    and all-0xFFFF wide operands, b whole, a broadcast table and one
+    constant, against its plain version; one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    fk = PairingSystem(get_curve(curve_name), device="cuda").fr
+    N, L = fk.N, 1 << 14
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b = fk.encode(_ints(fk.p, L, 31), mont=False)
+    for wa in (N + 2, 2 * N, N + 5):
+        a = torch.randint(0, 1 << 16, (wa, L), dtype=torch.int32,
+                          device="cuda", generator=gen)
+        a[:, :3] = (1 << 16) - 1
+        for bb in (b, b[:, :64].reshape(N, 1, 64), b[:, :1]):
+            aa = a.reshape((wa, L // 64, 64)) if bb.dim() == 3 else a
+            key = f"mul_wide_n{N}"
+            before = cuda_fp.LAUNCHES[key]
+            got = cuda_fp.mul_wide(fk, aa, bb)
+            assert cuda_fp.LAUNCHES[key] == before + 1
+            assert torch.equal(got, cuda_fp.mul_wide_plain(fk, aa, bb))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+def test_mxu_ntt_matches_radix2_on_card(dtype):
+    """The MXU route at 2^16 over BLS12-377's Fr (fft, ifft, the coset
+    forms, icoset_fft_divz as one transform) equals the radix-2 forms, and
+    the 2^12 forms equal the CPU's plain versions; mul_wide launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from libsnark_tpu_torch.ops import ntt_mxu
+    from libsnark_tpu_torch.ops.ntt import Radix2Domain
+    curve = get_curve("bls12_377")
+    fk = PairingSystem(curve, device="cuda").fr
+    a = fk.encode(_ints(fk.p, 1 << 16, 41))
+    ref = Radix2Domain(fk, curve.fr_params, 16)
+    mx = Radix2Domain(fk, curve.fr_params, 16, mxu=True, dtype=dtype)
+    before = (cuda_fp.LAUNCHES["mul_wide_n16"], ntt_mxu.MATMULS[dtype])
+    for name in ("fft", "ifft", "coset_fft", "icoset_fft",
+                 "icoset_fft_divz"):
+        assert torch.equal(getattr(mx, name)(a), getattr(ref, name)(a)), name
+    assert cuda_fp.LAUNCHES["mul_wide_n16"] > before[0]
+    assert ntt_mxu.MATMULS[dtype] > before[1]
+    small = Radix2Domain(fk, curve.fr_params, 12)
+    cpu = Radix2Domain(PairingSystem(curve, device="cpu").fr,
+                       curve.fr_params, 12)
+    b = a[:, :1 << 12]
+    assert torch.equal(small.fft_mxu(b, dtype).cpu(),
+                       cpu.fft_mxu(b.cpu(), dtype))
+
+
+def test_four_step_and_msm_simple_on_card(tmp_path):
+    """FourStepDomain at 2^16 over a one-rank NCCL group equals the
+    radix-2 forms on the card; msm_simple on 2^10 points equals the
+    Pippenger MSM's affine sum; sharded_msm's two methods agree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import torch.distributed as dist
+    from libsnark_tpu_torch.ops.ntt import Radix2Domain
+    from libsnark_tpu_torch.parallel.msm_sharded import sharded_msm
+    from libsnark_tpu_torch.parallel.ntt_sharded import FourStepDomain
+    curve = get_curve("bls12_377")
+    ps = PairingSystem(curve, device="cuda")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        fk = ps.fr
+        a = fk.encode(_ints(fk.p, 1 << 16, 43))
+        fs = FourStepDomain(fk, curve.fr_params, 16)
+        ref = Radix2Domain(fk, curve.fr_params, 16)
+        for name in ("fft", "ifft", "icoset_fft_divz"):
+            assert torch.equal(getattr(fs, name)(a), getattr(ref, name)(a))
+        m = 1 << 10
+        rng = random.Random(44)
+        pts = [curve.G1.one() * rng.randrange(1, curve.r) for _ in range(8)]
+        P = ps.g1.encode_points([pts[i % 8] for i in range(m)],
+                                jacobian=False)
+        sc = ps.scalars_to_dev([rng.randrange(curve.r) for _ in range(m)])
+        want = ps.msm_affine("g1", P, sc, 8)
+        simple = ps.g1.to_affine(ps.msm_g1.msm_simple(P, sc))
+        for x, y in zip(simple, want):
+            assert torch.equal(x, y)
+        for method in ("pippenger", "simple"):
+            got = sharded_msm(ps.msm_g1, None, P, sc, c=8, affine=True,
+                              method=method)
+            for x, y in zip(got, want):
+                assert torch.equal(x, y)
+    finally:
+        dist.destroy_process_group()

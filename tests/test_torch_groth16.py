@@ -143,8 +143,8 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "libsnark_tpu_torch").rglob("*.py"))
     # the gadget layer, the PCD systems, Fp3, the curves with an
-    # a-coefficient, the RAM systems, the cycle systems and the host
-    # formats among them
+    # a-coefficient, the RAM systems, the cycle systems, the host formats,
+    # the multi-device prover and the digit-matrix NTT among them
     for sub in ("gadgets/verifier_gadgets.py", "gadgets/hashes/knapsack.py",
                 "proof_systems/pcd.py", "proof_systems/mp_pcd.py",
                 "ops/fp3.py", "curves/mnt.py", "curves/edwards.py",
@@ -159,7 +159,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "proof_systems/pcd_cycle.py", "proof_systems/mp_pcd_cycle.py",
                 "default_types.py", "gadgets/kzg10_verifier_gadget.py",
                 "gadgets/bctv14_verifier_gadget.py", "libsnark_compat.py",
-                "compat_spec_decoder.py", "serialization.py"):
+                "compat_spec_decoder.py", "serialization.py",
+                "parallel/msm_sharded.py", "parallel/ntt_sharded.py",
+                "ops/ntt_mxu.py"):
         assert REPO / "libsnark_tpu_torch" / sub in files, sub
     files.append(REPO / "chip_smoke.py")
     files.append(REPO / "scripts" / "probe_h100.py")
