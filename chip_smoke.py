@@ -214,6 +214,20 @@
    Peak device memory and launches of each phase; every kernel of each
    system must have launched (the table's "ram_ppzksnark_alt_bn128" and
    "ram_zksnark_bls12_377" counts).
+6f. Runs the port's front-ends through their main on the card
+   (front_ends_phase), after the RAM path: profile_r1cs_gg_ppzksnark
+   262133 10 (Groth16 over alt_bn128 on a 2^18 domain: its timer blocks'
+   seconds, peak device memory and launches; mont_mul, fp_addsub,
+   dbl_chain, madd_win, bucket_reduce, horner_combine and add, G1 and G2,
+   must launch, aadd_rows and the public dbl and aadd must not; its proof
+   must equal Groth16.prover(seed=2) on the keypair it returns), then the
+   RAM ppzkSNARK demo trio (TinyRAM w = 16, k = 4, time bound 4, boot-trace
+   bound 8) into a temporary directory: the generator demo writes vk.txt
+   and pk.pt from the card, the prover demo reads pk.pt back onto it and
+   proves (bucket_reduce, horner_combine and add on G1 and G2 must launch),
+   the verifier demo exits 0, and non-zero after one boot-input word is
+   changed (the table's "front_end_groth16_alt_bn128" and
+   "front_end_ram_demo" counts).
 7. Runs KZG10 through its entry points: over BLS12-377 at degree 2^22 - 1
    and over alt_bn128 at 2^20 - 1: setup(seed=3) on the device, then for a
    seeded random polynomial commit, create_evaluation_witness,
@@ -253,6 +267,8 @@ BCTV14, GM17, DFGK14 and ADSNARK paths: keygen + prove), "pcd" (the
 SpPCD's outer prove over BW6-761), "pcd_cycle" (the cycle PCD's
 generator and two steps over MNT4 and MNT6), "ram_ppzksnark_alt_bn128" and
 "ram_zksnark_bls12_377" (the RAM systems: keygen + prove),
+"front_end_groth16_alt_bn128" (the Groth16 profile's keygen + prove)
+and "front_end_ram_demo" (the RAM generator and prover demos),
 "fixed_base_loop_<curve>" (the
 single-launch madd: the keygen's fixed base as the per-window loop),
 "window_table_loop_<curve>" (the public dbl: the keygen's window tables
@@ -3092,6 +3108,128 @@ def ram_path(paths: dict, steps: int) -> dict:
     return out
 
 
+# the Groth16 profile's circuit: 262,133 constraints and 10 inputs, a 2^18
+# QAP domain (262,133 + 10 + 1 = 2^18)
+FRONT_END_CONSTRAINTS, FRONT_END_INPUTS = 262133, 10
+
+
+def front_ends_phase() -> dict:
+    """The port's front-ends through their main on the card (step 6f):
+    profile_r1cs_gg_ppzksnark 262133 10 (its timer blocks' seconds, peak
+    memory and launches; the alt_bn128 Groth16 kernels must launch, aadd_rows
+    and the public dbl and aadd must not; its proof equal to a direct
+    Groth16.prover(seed=2) on the keypair it returns), then the RAM demo trio
+    at its defaults into a temporary directory (pk.pt written from the card
+    and read back onto it by the prover demo, whose BCTV14 prove must launch
+    bucket_reduce and horner_combine on G2; the verifier demo exits 0, and
+    non-zero after one boot-input word is changed). Returns the launches of
+    the profile ("front_end_groth16_alt_bn128") and of the two RAM demos
+    that run on the card ("front_end_ram_demo"): the kernel table's counts."""
+    import gc
+    import os
+    import tempfile
+    from libsnark_tpu_torch import get_curve
+    from libsnark_tpu_torch.demos import (demo_ram_ppzksnark_generator,
+                                          demo_ram_ppzksnark_prover,
+                                          demo_ram_ppzksnark_verifier)
+    from libsnark_tpu_torch.ops.cuda_ec import counter_key
+    from libsnark_tpu_torch.profiles import profile_r1cs_gg_ppzksnark
+    from libsnark_tpu_torch.profiling import PROFILER
+    from libsnark_tpu_torch.proof_systems.groth16 import Groth16
+    from libsnark_tpu_torch.reductions.r1cs_to_qap import qap_domain
+    from libsnark_tpu_torch.serialization import Codec
+    t_phase = time.perf_counter()
+    curve = get_curve("alt_bn128")
+    g16 = Groth16(curve)                                   # device="cuda"
+    phases, res = {}, {}
+
+    def front_end(main, argv, t, **kw):
+        """main(argv) with the seconds of the port's profiler blocks it
+        ran in t."""
+        PROFILER.totals.clear()
+        rc = main(argv, **kw)
+        t.update(PROFILER.totals)
+        if rc != 0:
+            raise AssertionError(f"{main.__module__} {argv}: exit code {rc}")
+        return rc
+
+    argv = [str(FRONT_END_CONSTRAINTS), str(FRONT_END_INPUTS)]
+    log(f"front_ends: profile_r1cs_gg_ppzksnark {' '.join(argv)} (device "
+        "cuda)")
+    # the example circuit holds ~1.3e6 linear terms: the collector's full
+    # passes would take longer than building it
+    gc.collect()
+    gc.freeze()
+    gc.disable()
+    try:
+        timed_phase(phases, "profile_r1cs_gg_ppzksnark", lambda t: front_end(
+            profile_r1cs_gg_ppzksnark.main, argv, t, result=res))
+        kp, proof = res["keypair"], res["proof"]
+        m = g16.domain_for(qap_domain, kp.pk.r1cs_dev).m
+        log(f"  {kp.pk.r1cs_dev.num_constraints} constraints, "
+            f"{kp.pk.r1cs_dev.num_inputs} inputs: domain m = {m}")
+        if m != 1 << 18:
+            raise AssertionError(f"the profile's domain is {m}, not 2^18")
+        again = timed_phase(phases, "prover (direct)", lambda t: g16.prover(
+            kp.pk, res["primary"], res["auxiliary"], seed=2, timings=t))
+        if again != proof:
+            raise AssertionError("the profile's proof differs from "
+                                 "Groth16.prover's on its keypair")
+        log("  the profile's proof equals Groth16.prover(seed=2) on its "
+            "keypair")
+        del kp, proof, again, res
+    finally:
+        gc.enable()
+        gc.unfreeze()
+    groth16 = phases.pop("profile_r1cs_gg_ppzksnark")
+    require_launched("front_ends: profile_r1cs_gg_ppzksnark", groth16, [
+        f"mont_mul_n{g16.fr.N}", f"fp_addsub_n{g16.fq.N}"] + [
+        counter_key(k, ck.fk) for k in (
+            "dbl_chain", "madd_win", "bucket_reduce", "horner_combine",
+            "add") for ck in (g16.g1, g16.g2)])
+    level0 = [k for k in groth16 if k.startswith("aadd_rows_")]
+    if level0:
+        raise AssertionError(f"front_ends: aadd_rows launched under the "
+                             f"default strategy: {level0}")
+    torch.cuda.empty_cache()
+    log(f"  groth16 profile part {time.perf_counter() - t_phase:.1f} s")
+
+    t_ram = time.perf_counter()
+    ram = {}
+    with tempfile.TemporaryDirectory() as d:
+        log(f"front_ends: the RAM ppzkSNARK demo trio (device cuda) in {d}")
+        for name, main in (("generator", demo_ram_ppzksnark_generator.main),
+                           ("prover", demo_ram_ppzksnark_prover.main),
+                           ("verifier", demo_ram_ppzksnark_verifier.main)):
+            timed_phase(ram, f"demo_ram_ppzksnark_{name}",
+                        lambda t, main=main: front_end(main, [d], t))
+        log(f"  pk.pt {os.path.getsize(os.path.join(d, 'pk.pt'))} bytes, "
+            f"read back onto the card by the prover demo")
+        codec = Codec(curve)
+        path = os.path.join(d, "boot_input.txt")
+        with open(path, "rb") as f:
+            boot = codec.read_fr_vector(f)
+        boot[len(boot) // 2] = (boot[len(boot) // 2] + 1) % curve.r
+        with open(path, "wb") as f:
+            codec.write_fr_vector(f, boot)
+        rc = demo_ram_ppzksnark_verifier.main([d])
+        log(f"  verifier demo after one boot-input word changed: exit code "
+            f"{rc}")
+        if rc == 0:
+            raise AssertionError("front_ends: the verifier demo accepted a "
+                                 "changed boot input")
+    prover = ram["demo_ram_ppzksnark_prover"]
+    require_launched("front_ends: the RAM prover demo", prover, [
+        counter_key(k, ck.fk) for k in ("bucket_reduce", "horner_combine",
+                                        "add") for ck in (g16.g1, g16.g2)])
+    demo = phase_totals({k: v for k, v in ram.items()
+                         if not k.endswith("verifier")})
+    log(f"  ram demo part {time.perf_counter() - t_ram:.1f} s")
+    log(f"front_ends phase {time.perf_counter() - t_phase:.1f} s")
+    return {"front_end_groth16_alt_bn128": groth16,
+            "front_end_ram_demo": demo}
+
+
 def fixed_base_parts(profiler) -> str:
     """The keygen.fixed_base.* blocks of the port's profiler, seconds."""
     return ", ".join(f"{k.rsplit('.', 1)[1]} {v:.3f}" for k, v in
@@ -4109,6 +4247,10 @@ def kernels_and_paths(args, t_start, cpu_pool, cpu_proofs):
                 K.count(key, label, n)
         log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
         for label, counts in ram_path(paths, args.ram_steps).items():
+            for key, n in counts.items():
+                K.count(key, label, n)
+        log(f"  elapsed {time.perf_counter() - t_start:.1f} s")
+        for label, counts in front_ends_phase().items():
             for key, n in counts.items():
                 K.count(key, label, n)
         log(f"  elapsed {time.perf_counter() - t_start:.1f} s")

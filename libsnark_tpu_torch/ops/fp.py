@@ -142,6 +142,10 @@ class FpKernel:
     def is_zero(self, a):
         return torch.all(a == 0, dim=0)
 
+    def eq(self, a, b):
+        """Batch-shaped bool: every limb of a equals b's (canonical limbs)."""
+        return torch.all(a == b, dim=0)
+
     def select(self, cond, a, b):
         """cond: batch-shaped bool; picks a where True."""
         return torch.where(cond.unsqueeze(0), a, b)
@@ -225,6 +229,16 @@ class FpKernel:
         arr = ints_to_limbs(xs, self.N, self.p)
         out = torch.from_numpy(arr.astype("int32")).to(device or self.device)
         return self.to_mont(out) if mont and out.shape[1] else out
+
+    def encode_scalar(self, x, mont=True, device=None):
+        """One Python int -> (N,) int32 limbs on the kernel's device, the
+        layout of one lane of ``encode`` (Montgomery form unless
+        mont=False), converted on the host."""
+        x = int(x) % self.p
+        if mont:
+            x = x * self.params.R % self.p
+        return torch.from_numpy(int_to_limbs(x, self.N).astype("int32")).to(
+            device or self.device)
 
     def decode(self, arr, mont=True):
         """(N, *batch) limb tensor -> list (flat, batch order) of ints."""

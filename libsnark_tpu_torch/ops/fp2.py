@@ -139,6 +139,9 @@ class Fp2Kernel:
     def is_zero(self, a):
         return torch.logical_and(self.fp.is_zero(a[0]), self.fp.is_zero(a[1]))
 
+    def eq(self, a, b):
+        return torch.logical_and(self.fp.eq(a[0], b[0]), self.fp.eq(a[1], b[1]))
+
     def select(self, cond, a, b):
         return torch.where(cond.unsqueeze(0).unsqueeze(0), a, b)
 

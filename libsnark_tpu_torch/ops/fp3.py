@@ -160,6 +160,10 @@ class Fp3Kernel:
         return (self.fp.is_zero(a[0]) & self.fp.is_zero(a[1])
                 & self.fp.is_zero(a[2]))
 
+    def eq(self, a, b):
+        return (self.fp.eq(a[0], b[0]) & self.fp.eq(a[1], b[1])
+                & self.fp.eq(a[2], b[2]))
+
     def select(self, cond, a, b):
         return torch.where(cond.unsqueeze(0).unsqueeze(0), a, b)
 

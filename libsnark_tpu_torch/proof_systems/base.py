@@ -362,3 +362,11 @@ class PairingSystem:
         one = tuple(a[..., lane:lane + 1] for a in (x, y))
         return ck.decode_affine((one[0], one[1],
                                  inf.reshape(-1)[lane:lane + 1]), group)[0]
+
+    def encode_host_points_g1(self, pts):
+        """Host G1 points -> device affine (x, y, inf) on the system's
+        device."""
+        return self.g1.encode_points(pts, jacobian=False)
+
+    def encode_host_points_g2(self, pts):
+        return self.g2.encode_points(pts, jacobian=False)

@@ -14,10 +14,16 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
+import torch
+
 from .base import PhaseClock
-from .bctv14 import BCTV14
+from .bctv14 import BCTV14, BCTV14ProvingKey, QUERIES
 from ..gadgets.ram_universal import ram_to_r1cs_instance_map
+from ..relations.r1cs import R1CSDevice, SparseMatrix
 from ..relations.tinyram import TinyRAMParams, TinyRAMProgram
+
+PK_FORMAT = "libsnark_tpu_torch.ram_ppzksnark_pk/1"
+MATRIX_FIELDS = ("rows", "cols", "coeffs", "num_rows", "num_cols")
 
 
 @dataclasses.dataclass
@@ -81,3 +87,48 @@ class RAMPpzksnark(BCTV14):
     def ram_verifier(self, vk, boot_primary_input: List[int],
                      proof) -> bool:
         return self.verifier_strong_IC(vk, boot_primary_input, proof)
+
+
+def _moved(v, device):
+    return v.detach().to(device) if isinstance(v, torch.Tensor) else v
+
+
+def save_proving_key(pk: RAMPpzksnarkProvingKey, path):
+    """Writes pk to ``path`` in the port's own format: ``torch.save`` of
+    plain dicts, tuples, ints and tensors, every tensor copied to the CPU
+    first (a file written from the card loads on a machine without one).
+    ``load_proving_key`` reads it back."""
+    r1cs = pk.r1cs_pk.r1cs_dev
+    state = {
+        "format": PK_FORMAT, "ap": (pk.ap.w, pk.ap.k),
+        "boot_trace_size_bound": pk.boot_trace_size_bound,
+        "time_bound": pk.time_bound,
+        "queries": {q: tuple(_moved(a, "cpu")
+                             for a in getattr(pk.r1cs_pk, q))
+                    for q in QUERIES},
+        "matrices": {m: {f: _moved(getattr(getattr(r1cs, m), f), "cpu")
+                         for f in MATRIX_FIELDS} for m in ("A", "B", "C")},
+        "r1cs_sizes": {f: getattr(r1cs, f) for f in (
+            "num_constraints", "num_inputs", "num_variables", "p")}}
+    torch.save(state, path)
+
+
+def load_proving_key(path, device) -> RAMPpzksnarkProvingKey:
+    """The proving key that ``save_proving_key`` wrote to ``path``, its
+    tensors on ``device`` (read with ``weights_only``: the file holds no
+    code)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if state.get("format") != PK_FORMAT:
+        raise ValueError(f"{path}: not a RAM ppzkSNARK proving key of this "
+                         f"package (format {state.get('format')!r})")
+    mats = {m: SparseMatrix(**{f: _moved(v, device) for f, v in
+                               fields.items()})
+            for m, fields in state["matrices"].items()}
+    queries = {q: tuple(_moved(a, device) for a in arrs)
+               for q, arrs in state["queries"].items()}
+    return RAMPpzksnarkProvingKey(
+        ap=TinyRAMParams(*state["ap"]),
+        boot_trace_size_bound=state["boot_trace_size_bound"],
+        time_bound=state["time_bound"],
+        r1cs_pk=BCTV14ProvingKey(**queries, r1cs_dev=R1CSDevice(
+            **mats, **state["r1cs_sizes"])))

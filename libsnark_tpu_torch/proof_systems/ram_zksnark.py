@@ -612,8 +612,9 @@ class RamZkSnark:
             proofs.append(self.g16.prover(pk.inner_pk, primary, aux,
                                           seed=seed))
             clock.lap("inner_prove")
-            for name in ("witness", "inner_prove"):
-                spent[name] += lap[name]
+            if timings is not None:
+                for name in ("witness", "inner_prove"):
+                    spent[name] += lap[name]
         if timings is not None:
             timings.update(spent)
         return msgs, proofs

@@ -7,6 +7,13 @@ Fp and for Fp2 (``Fp2Kernel.encode`` over the same ``FpKernel.encode``).
 
 Values: 0, 1, p - 1, R mod p, p, p + 1, 2p + 5, 2^(16 N) - 1, a negative
 value, then seeded random values below p and below 2^(16 N).
+
+The public helpers beside ``encode``, each against the JAX package's:
+``FpKernel.encode_scalar`` (one element's limbs, Montgomery form or not),
+``eq`` on Fp, Fp2 and Fp3 (batch-shaped bool, planted equal and unequal
+lanes), and ``PairingSystem.encode_host_points_g1`` / ``_g2`` (affine
+limbs and the infinity mask of seeded host points and infinity; G2 over
+Fq2 and over Fq3). Tolerance: zero.
 """
 import random
 
@@ -18,10 +25,14 @@ torch = pytest.importorskip("torch")
 from libsnark_tpu import get_curve as jax_get_curve
 from libsnark_tpu.ops.fp import FpKernel as JaxFp
 from libsnark_tpu.ops.fp2 import Fp2Kernel as JaxFp2
+from libsnark_tpu.ops.fp3 import Fp3Kernel as JaxFp3
+from libsnark_tpu.proof_systems.base import PairingSystem as JaxPairingSystem
 
 from libsnark_tpu_torch import get_curve
 from libsnark_tpu_torch.ops.fp import FpKernel
 from libsnark_tpu_torch.ops.fp2 import Fp2Kernel
+from libsnark_tpu_torch.ops.fp3 import Fp3Kernel
+from libsnark_tpu_torch.proof_systems.base import PairingSystem
 from libsnark_tpu_torch.ops.limbs import from_torch, ints_to_limbs
 
 # (curve, field): Fq of alt_bn128 has 16 limbs, Fq of BLS12-377 24
@@ -83,3 +94,94 @@ def test_fp2_encode_matches_python_form_and_jax(curve):
 def test_encode_of_nothing():
     _, _, _, tfk = _kernels("alt_bn128", "fr")
     assert tuple(tfk.encode([]).shape) == (tfk.N, 0)
+
+
+# ------------------------------------------------------- public helpers
+
+@pytest.mark.parametrize("curve,field", FIELDS + [("mnt4", "fq"),
+                                                  ("edwards", "fq")])
+@pytest.mark.parametrize("mont", [True, False])
+def test_encode_scalar_matches_encode_and_jax(curve, field, mont):
+    jc, tc, _, tfk = _kernels(curve, field)
+    jfk = JaxFp(getattr(jc, f"{field}_params"))
+    rng = np.random.default_rng(tfk.N)
+    xs = [0, 1, tfk.p - 1] + [
+        int.from_bytes(rng.bytes(2 * tfk.N), "little") % tfk.p
+        for _ in range(8)]
+    lanes = from_torch(tfk.encode(xs, mont=mont))
+    for i, x in enumerate(xs):
+        got = tfk.encode_scalar(x, mont=mont)
+        assert got.shape == (tfk.N,) and got.dtype == torch.int32
+        np.testing.assert_array_equal(from_torch(got), lanes[:, i])
+        np.testing.assert_array_equal(
+            from_torch(got), np.asarray(jfk.encode_scalar(x, mont=mont)))
+
+
+def _random_field(p: int, n: int, rng):
+    return [int.from_bytes(rng.bytes(48), "little") % p for _ in range(n)]
+
+
+def _planted_pairs(p: int, deg: int, n: int, seed: int):
+    """(a, b, expected eq) with deg coefficient lists of n lanes: lane i of
+    b equals a's except in coefficient i % (deg + 1) (none when that is
+    deg), and lanes whose changed coefficient lands on the same value."""
+    rng = np.random.default_rng(seed)
+    a = [_random_field(p, n, rng) for _ in range(deg)]
+    b = [list(c) for c in a]
+    want = []
+    for i in range(n):
+        k = i % (deg + 1)
+        if k < deg:
+            b[k][i] = (b[k][i] + 1 + i) % p
+        want.append(k == deg)
+    return a, b, np.array(want)
+
+
+@pytest.mark.parametrize("curve,deg", [("alt_bn128", 1), ("bls12_377", 1),
+                                       ("alt_bn128", 2), ("mnt6", 3),
+                                       ("edwards", 3)])
+def test_eq_matches_jax(curve, deg):
+    """FpKernel.eq, Fp2Kernel.eq and Fp3Kernel.eq on the same limbs as the
+    JAX package's: equal lanes and lanes that differ in one coefficient."""
+    jc, tc, jfq, tfq = _kernels(curve, "fq")
+    if deg == 1:
+        tfk, jfk = tfq, jfq
+    elif deg == 2:
+        tfk = Fp2Kernel(tfq, int(tc.Fq2.NON_RESIDUE))
+        jfk = JaxFp2(jfq, int(jc.Fq2.NON_RESIDUE))
+    else:
+        tfk = Fp3Kernel(tfq, int(tc.Fq3.NON_RESIDUE))
+        jfk = JaxFp3(jfq, int(jc.Fq3.NON_RESIDUE))
+    a, b, want = _planted_pairs(tfq.p, deg, 24, seed=deg)
+
+    def limbs(cs):
+        arr = np.stack([tfq.encode(c).numpy() for c in cs])
+        return arr[0] if deg == 1 else arr
+    got = tfk.eq(torch.from_numpy(limbs(a)), torch.from_numpy(limbs(b)))
+    assert got.dtype == torch.bool and tuple(got.shape) == (24,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    jgot = jfk.eq(limbs(a).astype(np.uint32), limbs(b).astype(np.uint32))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jgot))
+
+
+@pytest.mark.parametrize("curve", ["alt_bn128", "mnt6"])
+def test_encode_host_points_matches_jax(curve):
+    """encode_host_points_g1 / _g2 on seeded multiples of the generators and
+    infinity: the same affine limbs and mask as the JAX package's, on the
+    system's device."""
+    jc, tc = jax_get_curve(curve), get_curve(curve)
+    ps = PairingSystem(tc, device="cpu")
+    jps = JaxPairingSystem(jc)
+    rng = np.random.default_rng(5)
+    ks = [int(k) for k in rng.integers(1, 1 << 62, size=5)]
+    for enc, G, jG in (("encode_host_points_g1", tc.G1, jc.G1),
+                       ("encode_host_points_g2", tc.G2, jc.G2)):
+        pts = [G.one() * k for k in ks] + [G.zero()]
+        jpts = [jG.one() * k for k in ks] + [jG.zero()]
+        got = getattr(ps, enc)(pts)
+        want = getattr(jps, enc)(jpts)
+        assert all(t.device.type == "cpu" for t in got)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(
+                g.numpy().astype(np.int64), np.asarray(w).astype(np.int64),
+                err_msg=f"{curve} {enc}")

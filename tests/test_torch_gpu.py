@@ -1344,3 +1344,98 @@ def test_four_step_and_msm_simple_on_card(tmp_path):
                 assert torch.equal(x, y)
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------------- front-ends
+
+def _front_end(module: str, argv, **kw) -> float:
+    """A front-end's main on the card (no --device: "cuda"); exit code 0
+    required. Returns its wall seconds, printed with the card's name."""
+    import importlib
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    mod = importlib.import_module(f"libsnark_tpu_torch.{module}")
+    t0 = time.perf_counter()
+    rc = mod.main([str(a) for a in argv], **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"front_end {module} {' '.join(map(str, argv))}: {secs:.1f} s on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    assert rc == 0
+    return secs
+
+
+def _demo_files(d):
+    """tests/test_demos.py's input files for the TinyRAM file demos."""
+    (d / "ap.txt").write_text("16 4\n")
+    (d / "cb.txt").write_text("2 8 6\n")
+    asm = "mov 1 0 0 7\nstorew 1 0 0 64\nloadw 1 1 0 64\nanswer 1 0 0 0\n"
+    (d / "prog.txt").write_text(asm)
+    (d / "prog.s").write_text(asm)
+    (d / "pi.txt").write_text("0\n")
+    (d / "ai.txt").write_text("0\n")
+    return ["--assembly", d / "prog.s", "--processed_assembly",
+            d / "prog.txt", "--architecture_params", d / "ap.txt",
+            "--computation_bounds", d / "cb.txt", "--primary_input",
+            d / "pi.txt", "--auxiliary_input", d / "ai.txt"]
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("profiles.profile_r1cs_gg_ppzksnark", [1000, 10]),
+    ("profiles.profile_r1cs_ppzksnark", [1000, 10]),
+    ("profiles.profile_r1cs_se_ppzksnark", [1000, 10]),
+    ("profiles.profile_uscs_ppzksnark", [1000, 10]),
+    ("profiles.profile_bacs_ppzksnark", [100, 4]),
+    ("profiles.profile_tbcs_ppzksnark", [100, 4]),
+    ("profiles.profile_ram_ppzksnark", [4, 8]),
+    ("profiles.profile_routing_algorithms", [8]),
+    ("profiles.profile_routing_gadgets", [5]),
+    ("demos.demo_r1cs_ppzkadsnark", [100, 4]),
+    ("examples.tutorial_gadgetlib2", []),
+    ("demos.demo_arithmetization", "files"),
+    ("demos.demo_ram_ppzksnark", "files")])
+def test_front_end_small_on_card(module, argv, tmp_path):
+    _front_end(module, _demo_files(tmp_path) if argv == "files" else argv)
+
+
+def test_ram_demo_trio_on_card(tmp_path):
+    """The split RAM demos on the card: pk.pt written from the card and
+    read back onto it (its tensors on the card again); the prover demo's
+    proof equals profile_ram_ppzksnark's (the same seeds, its key in
+    memory); the verifier demo accepts, and exits 1 after one boot-input
+    word is changed."""
+    from libsnark_tpu_torch.demos import demo_ram_ppzksnark_verifier
+    from libsnark_tpu_torch.proof_systems.bctv14 import QUERIES
+    from libsnark_tpu_torch.proof_systems.ram_ppzksnark import (
+        load_proving_key)
+    from libsnark_tpu_torch.serialization import Codec
+    res = {}
+    _front_end("profiles.profile_ram_ppzksnark", [4, 8], result=res)
+    for name in ("generator", "prover", "verifier"):
+        _front_end(f"demos.demo_ram_ppzksnark_{name}", [tmp_path])
+    pk = load_proving_key(tmp_path / "pk.pt", "cuda")
+    mem = res["keypair"].pk
+    for q in QUERIES:
+        for got, want in zip(getattr(pk.r1cs_pk, q), getattr(mem.r1cs_pk, q)):
+            assert got.is_cuda and torch.equal(got, want), q
+    c = Codec(get_curve("alt_bn128"))
+    with open(tmp_path / "proof.txt", "rb") as f:
+        assert c.read_bctv14_proof(f) == res["proof"]
+    with open(tmp_path / "boot_input.txt", "rb") as f:
+        boot = c.read_fr_vector(f)
+    assert boot == res["boot_input"]
+    boot[1] = (boot[1] + 1) % get_curve("alt_bn128").r
+    with open(tmp_path / "boot_input.txt", "wb") as f:
+        c.write_fr_vector(f, boot)
+    assert demo_ram_ppzksnark_verifier.main([str(tmp_path)]) == 1
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("profiles.profile_r1cs_sp_ppzkpcd", [1]),
+    ("profiles.profile_r1cs_mp_ppzkpcd", [2]),
+    ("profiles.profile_r1cs_sp_ppzkpcd_cycle", [1]),
+    ("profiles.profile_ram_zksnark", [16, 4, 3, "--backend=transcript"])])
+def test_recursion_front_end_on_card(module, argv):
+    """The recursion front-ends at the JAX defaults (the cycle PCD at depth
+    1): too heavy for the CPU tests and for the smoke."""
+    _front_end(module, argv)
