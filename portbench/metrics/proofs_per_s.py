@@ -1,0 +1,6 @@
+"""Groth16 proofs completed in the window, over its seconds."""
+from portbench.readers import rate
+
+
+def read(run):
+    return rate(run)
